@@ -1,0 +1,44 @@
+"""Architecture registry of the port: ``get_config(arch, smoke=False)``.
+
+Only ``dit-xl-512`` is ported so far; any other arch the JAX registry knows
+raises, naming the ROADMAP queue item that ports it.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.models.common import ModelConfig
+
+_MODULES: Dict[str, str] = {
+    "dit-xl-512": "dit_xl_512",
+}
+
+# Archs of the JAX registry that a later slice ports (ROADMAP Queue A).
+_NOT_YET_PORTED: Dict[str, str] = {
+    "pixart-alpha": "Queue A item 12 (other families; PixArt cross-attention)",
+    "sd15-unet": "Queue A item 12 (other families)",
+    "gemma3-27b": "Queue A item 11 (autoregressive path)",
+    "gemma2-9b": "Queue A item 11 (autoregressive path)",
+    "olmo-1b": "Queue A item 11 (autoregressive path)",
+    "glm4-9b": "Queue A item 11 (autoregressive path)",
+    "whisper-base": "Queue A item 12 (other families)",
+    "kimi-k2-1t-a32b": "Queue A item 12 (other families)",
+    "deepseek-moe-16b": "Queue A item 12 (other families)",
+    "mamba2-370m": "Queue A item 12 (other families)",
+    "hymba-1.5b": "Queue A item 12 (other families)",
+    "internvl2-76b": "Queue A item 12 (other families)",
+}
+
+
+def get_config(arch: str, smoke: bool = False) -> ModelConfig:
+    name = arch.replace("_", "-")
+    if name in _NOT_YET_PORTED:
+        raise NotImplementedError(
+            f"arch {arch!r} is not yet ported to repro_torch; see ROADMAP "
+            f"{_NOT_YET_PORTED[name]}")
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; ported: {sorted(_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    return mod.SMOKE if smoke else mod.FULL
+

@@ -1,0 +1,135 @@
+"""The DRIFT sampling loop: DDIM steps with fine-grained DVFS, rollback-ABFT
+checkpointing and BER monitoring.
+
+Counterpart of ``repro.diffusion.sampler``'s one-shot ``sample``. The
+reference's ``lax.scan`` becomes a Python loop over steps around one
+``step_fn``; per step:
+
+  1. the DVFS schedule's host BER table gives the BER per resilience class
+     (nominal for the first ``nominal_steps`` and the embedding GEMMs),
+  2. the DiT runs with fault injection, ABFT and tile rollback
+     (``ExecContext`` inside the model), checkpoints refreshing in place
+     every ``interval`` steps (``have_ckpt`` is false on step 0),
+  3. the BER monitor folds the step's detected-error count into its
+     estimate (Sec 5.1 feedback loop),
+  4. DDIM updates the latents.
+
+Clean mode runs as drift at BER 0, as in the reference. Streaming,
+TaylorSeer and narrowed precision plans are not yet ported (ROADMAP
+Queue A item 6).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import dvfs as dvfs_lib
+from repro_torch.core import fault
+from repro_torch.core.exec_ctx import DriftSystemConfig
+from repro_torch.diffusion import schedule as sched_lib
+from repro_torch.models import dit as dit_lib
+from repro_torch.models.common import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerConfig:
+    num_sample_steps: int = 50
+    num_train_steps: int = 1000
+    drift: DriftSystemConfig = dataclasses.field(
+        default_factory=lambda: DriftSystemConfig(mode="clean"))
+    schedule: Optional[dvfs_lib.DvfsSchedule] = None   # None -> error-free
+    taylorseer: bool = False
+    precision: str = "int8"
+    monitor_target_ber: float = 3e-3
+
+    def __post_init__(self):
+        if self.taylorseer:
+            raise NotImplementedError(
+                "TaylorSeer is not yet ported to repro_torch (ROADMAP "
+                "Queue A item 6)")
+        if self.precision != "int8":
+            raise NotImplementedError(
+                f"precision plan {self.precision!r} is not yet ported to "
+                "repro_torch (ROADMAP Queue A item 3); only 'int8' runs")
+
+
+class SampleOutput(NamedTuple):
+    latents: torch.Tensor
+    monitor: dvfs_lib.BerMonitorState
+    total_corrected: torch.Tensor     # 0-d int64 on the device
+    n_model_evals: int
+    # Detected row errors per (step, site): row 0 the embedding GEMMs,
+    # rows 1..L the blocks; (steps, L + 1) int64 on the device.
+    heatmap: Optional[torch.Tensor] = None
+
+
+def detection_rows(model_cfg: ModelConfig) -> int:
+    return model_cfg.n_layers + 1
+
+
+def sample(model_cfg: ModelConfig, params, flip_source: fault.FlipSource,
+           latents0: torch.Tensor, cond: torch.Tensor, cfg: SamplerConfig,
+           monitor0: Optional[dvfs_lib.BerMonitorState] = None
+           ) -> SampleOutput:
+    """Run the full denoising chain from Gaussian latents.
+
+    ``flip_source`` draws each GEMM's flip mask; ``monitor0`` seeds the BER
+    monitor (the serving engine passes the previous batch's)."""
+    device = latents0.device
+    sched = sched_lib.DdpmSchedule.default(cfg.num_train_steps)
+    ts = sched_lib.ddim_timesteps(cfg.num_train_steps, cfg.num_sample_steps)
+    t_prev = np.concatenate([ts[1:], [-1]]).astype(np.int32)
+    if cfg.schedule is not None:
+        ber_table = np.asarray(cfg.schedule.ber_table, np.float32)
+    else:
+        ber_table = np.zeros((cfg.num_sample_steps, dvfs_lib.N_CLASSES),
+                             np.float32)
+    scfg = cfg.drift
+    if scfg.mode == "clean":
+        # quantized error-free baseline == drift path at BER 0
+        scfg = dataclasses.replace(scfg, mode="drift")
+        ber_table = np.zeros_like(ber_table)
+    b = latents0.shape[0]
+    protected = scfg.mode != "float_clean"
+    embed_store, block_store = (dit_lib.drift_store_spec(model_cfg, b, device)
+                                if protected else ({}, {}))
+    mon = monitor0 if monitor0 is not None else \
+        dvfs_lib.ber_monitor_init(device)
+    n_words = max(int(np.prod(latents0.shape)), 1)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    zero_rows = torch.zeros((detection_rows(model_cfg),), dtype=torch.int64,
+                            device=device)
+
+    def step_fn(i: int, latents: torch.Tensor):
+        tvec = torch.full((b,), float(ts[i]), dtype=torch.float32,
+                          device=device)
+        drift = None
+        if protected:
+            drift = dit_lib.DriftState(
+                cfg=scfg, flip_source=flip_source, step=i,
+                ber_by_class=ber_table[min(i, ber_table.shape[0] - 1)],
+                embed_store=embed_store, block_store=block_store,
+                have_ckpt=i > 0)
+        eps, stats = dit_lib.forward(model_cfg, params, latents, tvec, cond,
+                                     drift=drift)
+        return (eps, stats.get("corrected_elems", zero),
+                stats.get("detected_row_errors", zero),
+                stats.get("detected_per_block", zero_rows))
+
+    latents = latents0
+    corrected = zero
+    heat = []
+    with torch.no_grad():
+        for i in range(len(ts)):
+            eps, corr, detected, det_blocks = step_fn(i, latents)
+            mon = dvfs_lib.ber_monitor_update(
+                mon, detected, n_words, scfg.abft.threshold_bit,
+                cfg.monitor_target_ber)
+            latents = sched.ddim_step(latents, eps, int(ts[i]),
+                                      int(t_prev[i]))
+            corrected = corrected + corr
+            heat.append(det_blocks)
+    return SampleOutput(latents, mon, corrected, len(ts), torch.stack(heat))

@@ -1,0 +1,110 @@
+"""Fused faulty INT8 GEMM with ABFT checksums (wrapper, plain version).
+
+Replaces the TPU kernel ``repro/kernels/abft_matmul.py::abft_matmul``
+(``pl.pallas_call`` at line 118, body ``_kernel`` at line 32). For
+``aq (M, K) int8``, ``bq (K, N) int8`` and ``flips (M, N) int32`` bit
+patterns it returns, all in wraparound int32:
+
+    c       (M, Nt)  -> (M, N): (aq @ bq) ^ flips
+    act_row (M, Nt)  per (row, N-tile) sums of c
+    exp_row (M, Nt)  aq @ blocksum(bq), the expected row sums
+    act_col (Mt, N)  per (M-tile, column) sums of c
+    exp_col (Mt, N)  blocksum(aq) @ bq, the expected column sums
+
+The CUDA kernel (``csrc/abft_matmul.cu``) runs one block per 32x32 output
+tile, so the checksum tile is the block tile (``AbftConfig``'s 32x32); on
+an H100 it is bound by bytes (the int32 flips and C dominate: ~83 MB at
+2048x1152x4608, ~25 us at 3.35 TB/s, against ~11 us for the int8 product
+at the tensor-core peak). This first version multiplies on CUDA cores with
+``__dp4a``.
+
+``abft_matmul`` takes the plain version for CPU tensors only; a CUDA
+tensor launches the kernel or raises. ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.core.abft import wrap_i32
+from repro_torch.kernels import _lib
+
+TILE = 32
+launches = 0
+
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+             + [ctypes.c_void_p] * 6)
+
+
+def abft_matmul_plain(aq: torch.Tensor, bq: torch.Tensor, flips: torch.Tensor,
+                      bm: int = TILE, bn: int = TILE
+                      ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version (``ref.abft_matmul_ref``). torch has no integer
+    matmul on CUDA, so products run in float64 -- exact here, since every
+    |value| stays below 2^53 -- and wrap to int32 through int64."""
+    m, k = aq.shape
+    n = bq.shape[1]
+    mt, nt = m // bm, n // bn
+    a = aq.double()
+    b = bq.double()
+    c = wrap_i32((a @ b).long()) ^ flips
+    c64 = c.long()
+    act_row = wrap_i32(c64.reshape(m, nt, bn).sum(2))
+    exp_row = wrap_i32((a @ b.reshape(k, nt, bn).sum(2)).long())
+    act_col = wrap_i32(c64.reshape(mt, bm, n).sum(1))
+    exp_col = wrap_i32((a.reshape(mt, bm, k).sum(1) @ b).long())
+    return c, act_row, exp_row, act_col, exp_col
+
+
+def _check(aq, bq, flips, bm, bn):
+    if aq.dtype != torch.int8 or bq.dtype != torch.int8:
+        raise TypeError(f"abft_matmul takes int8 operands, got {aq.dtype}, "
+                        f"{bq.dtype}")
+    if flips.dtype != torch.int32:
+        raise TypeError(f"flips must be int32 bit patterns, got "
+                        f"{flips.dtype}")
+    if aq.ndim != 2 or bq.ndim != 2 or aq.shape[1] != bq.shape[0]:
+        raise ValueError(f"bad GEMM shapes {tuple(aq.shape)} @ "
+                         f"{tuple(bq.shape)}")
+    m, n = aq.shape[0], bq.shape[1]
+    if tuple(flips.shape) != (m, n):
+        raise ValueError(f"flips {tuple(flips.shape)} != C {(m, n)}")
+    if m % bm or n % bn:
+        raise ValueError(f"M={m}, N={n} must be multiples of the tile "
+                         f"({bm}, {bn}); the caller pads")
+    if not (aq.device == bq.device == flips.device):
+        raise ValueError("abft_matmul operands on different devices")
+
+
+def abft_matmul(aq: torch.Tensor, bq: torch.Tensor, flips: torch.Tensor,
+                bm: int = TILE, bn: int = TILE) -> Tuple[torch.Tensor, ...]:
+    """(c, act_row, exp_row, act_col, exp_col); see the module docstring."""
+    global launches
+    _check(aq, bq, flips, bm, bn)
+    if aq.device.type == "cpu":
+        return abft_matmul_plain(aq, bq, flips, bm, bn)
+    if aq.device.type != "cuda":
+        raise ValueError(f"abft_matmul: unsupported device {aq.device}")
+    if (bm, bn) != (TILE, TILE):
+        raise ValueError(f"the CUDA kernel's checksum tile is {TILE}x{TILE}, "
+                         f"got ({bm}, {bn})")
+    aq, bq, flips = aq.contiguous(), bq.contiguous(), flips.contiguous()
+    m, k = aq.shape
+    n = bq.shape[1]
+    mt, nt = m // TILE, n // TILE
+    dev = aq.device
+    c = torch.empty((m, n), dtype=torch.int32, device=dev)
+    act_row = torch.empty((m, nt), dtype=torch.int32, device=dev)
+    exp_row = torch.empty((m, nt), dtype=torch.int32, device=dev)
+    act_col = torch.empty((mt, n), dtype=torch.int32, device=dev)
+    exp_col = torch.empty((mt, n), dtype=torch.int32, device=dev)
+    fn = _lib.function("abft_matmul", "abft_matmul_launch", _ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(aq.data_ptr(), bq.data_ptr(), flips.data_ptr(), m, n, k,
+                 c.data_ptr(), act_row.data_ptr(), exp_row.data_ptr(),
+                 act_col.data_ptr(), exp_col.data_ptr(), _lib.stream_of(dev))
+    _lib.check(err, "abft_matmul")
+    launches += 1
+    return c, act_row, exp_row, act_col, exp_col

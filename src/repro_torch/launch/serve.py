@@ -1,0 +1,107 @@
+"""DRIFT serving launcher on PyTorch: thin CLI over ``repro_torch.serving``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \\
+        --batch 2 --steps 10 --mode drift --op undervolt
+
+Submits ``--requests`` generation requests (default: one bucket's worth) to
+one engine and prints the per-request results: quality vs the engine's
+cached clean reference, rollback-corrected elements and model evaluations.
+Its flags are a subset of ``repro.launch.serve``'s plus ``--device``
+(default "cuda"; without a GPU the engine raises). ``--smoke/--no-smoke``
+is a real switch (default on, like the reference CLI); ``--no-smoke``
+serves the full-width DiT-XL/2-512. ``main(argv, engine=...)`` serves
+through an injected engine, whose bucket, device and params then win.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional, Sequence
+
+from repro_torch.core import dvfs as dvfs_lib
+from repro_torch.core.exec_ctx import PORTED_MODES
+from repro_torch.core.rollback import DEFAULT_INTERVAL
+from repro_torch.serving import DriftServeEngine
+from repro_torch.serving.request import REQUEST_OPS
+
+OP_LADDER_HELP = " -> ".join(p.name for p in dvfs_lib.OP_LADDER)
+
+
+def positive_int(value: str) -> int:
+    iv = int(value)
+    if iv < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {value}")
+    return iv
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.launch.serve",
+        description="Serve DRIFT diffusion requests on PyTorch through one "
+                    "batching engine.",
+        epilog=f"DVFS ladder (op 'auto', walked by the BER monitor): "
+               f"{OP_LADDER_HELP}.")
+    ap.add_argument("--arch", default="dit-xl-512",
+                    help="model to serve (ported: dit-xl-512)")
+    ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="serve the 3-layer smoke config (--no-smoke: the "
+                         "full-width model)")
+    ap.add_argument("--batch", type=positive_int, default=2,
+                    help="micro-batch bucket size")
+    ap.add_argument("--requests", type=int, default=0,
+                    help="requests to submit (0 = one bucket's worth)")
+    ap.add_argument("--steps", type=positive_int, default=10,
+                    help="denoising steps")
+    ap.add_argument("--mode", default="drift",
+                    choices=[m for m in PORTED_MODES if m != "float_clean"],
+                    help="protection mode")
+    ap.add_argument("--op", default="undervolt", choices=list(REQUEST_OPS),
+                    help="DVFS operating point; 'auto' walks the BER-monitor "
+                         f"ladder ({OP_LADDER_HELP})")
+    ap.add_argument("--rollback-interval", type=positive_int,
+                    default=DEFAULT_INTERVAL, metavar="N",
+                    help="rollback checkpoint-refresh interval in steps "
+                         f"(default: {DEFAULT_INTERVAL})")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default: cuda; there is no CPU "
+                         "fallback)")
+    ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None,
+         engine: Optional[DriftServeEngine] = None) -> list:
+    args = build_parser().parse_args(argv)
+    eng = engine if engine is not None else DriftServeEngine(
+        arch=args.arch, smoke=args.smoke, bucket=args.batch,
+        base_seed=args.seed, device=args.device)
+    bucket = eng.batcher.bucket
+    n_requests = args.requests or bucket
+    for i in range(n_requests):
+        eng.submit(arch=args.arch, smoke=args.smoke, steps=args.steps,
+                   mode=args.mode, op=args.op, seed=args.seed + i,
+                   rollback_interval=args.rollback_interval)
+    t0 = time.perf_counter()
+    results = eng.run()
+    wall = time.perf_counter() - t0
+
+    print(f"[serve] {args.arch} smoke={args.smoke} mode={args.mode} "
+          f"op={args.op} steps={args.steps} requests={n_requests} "
+          f"bucket={bucket} device={eng.device} wall={wall:.2f}s")
+    for r in results:
+        print(f"  req {r.request_id} (batch {r.batch_index}, op {r.op}): "
+              f"lpips-proxy {r.lpips_vs_clean:.4f}  "
+              f"psnr {r.psnr_vs_clean_db:.2f} dB  "
+              f"corrected(batch) {r.batch_corrected_elems}  "
+              f"evals {r.n_model_evals}")
+    print(f"  engine: {eng.cache.builds} sampler builds, {eng.cache.hits} "
+          f"cache hits, {eng.stats.batches} batches, "
+          f"{eng.stats.padded_slots} padded slots; monitor "
+          f"ber={float(eng.monitor.ema_ber):.2e} "
+          f"ladder={int(eng.monitor.op_index)}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

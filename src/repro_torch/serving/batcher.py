@@ -1,0 +1,62 @@
+"""Micro-batcher: groups pending requests into fixed-size same-config
+buckets.
+
+Counterpart of ``repro.serving.batcher``. Requests share a batch only when
+they resolve to the same ``SamplerKey``; a batch takes the queue head's key
+and sweeps the queue for up to ``bucket`` matches in FIFO order; a short
+final group is padded up to the bucket size (the last live request's seed
+repeats) so every sampler sees one batch shape. One bucket is formed per
+call, so ``op="auto"`` reads the live BER-monitor state between batches.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List
+
+from repro_torch.serving.cache import SamplerKey
+from repro_torch.serving.request import GenerationRequest, RequestQueue
+
+
+@dataclasses.dataclass(frozen=True)
+class MicroBatch:
+    """One bucket of same-config requests ready to run."""
+    key: SamplerKey
+    requests: List[GenerationRequest]   # live requests, FIFO order
+
+    @property
+    def n_pad(self) -> int:
+        return self.key.bucket - len(self.requests)
+
+
+def request_key(req: GenerationRequest, bucket: int, resolved_op: str
+                ) -> SamplerKey:
+    """SamplerKey for a request whose operating point is resolved. Clean
+    mode runs no DVFS schedule, so its op normalises to ""."""
+    return SamplerKey(arch=req.arch, smoke=req.smoke, steps=req.steps,
+                      mode=req.mode,
+                      op="" if req.mode == "clean" else resolved_op,
+                      bucket=bucket,
+                      rollback_interval=int(req.rollback_interval))
+
+
+class MicroBatcher:
+    """Forms one bucket at a time."""
+
+    def __init__(self, bucket: int) -> None:
+        if bucket < 1:
+            raise ValueError(f"bucket must be >= 1, got {bucket}")
+        self.bucket = bucket
+
+    def next_batch(self, queue: RequestQueue,
+                   resolve_op: Callable[[GenerationRequest], str]
+                   ) -> MicroBatch:
+        head = queue.peek()
+        if head is None:
+            raise ValueError("next_batch on an empty queue")
+
+        def key_of(r):
+            return request_key(r, self.bucket, resolve_op(r))
+        key = key_of(head)
+        return MicroBatch(key=key,
+                          requests=queue.take_matching(key, key_of,
+                                                       self.bucket))

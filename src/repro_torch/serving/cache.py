@@ -1,0 +1,50 @@
+"""Sampler cache: one built sampler per serving configuration.
+
+Counterpart of ``repro.serving.cache``. PyTorch runs eagerly, so there is
+nothing to trace or compile; the cache keeps the built sampler callable per
+``SamplerKey`` and counts *builds* (factory calls), which stand in for the
+reference's JAX traces: each key builds exactly once per engine.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict
+
+from repro_torch.core.rollback import DEFAULT_INTERVAL
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerKey:
+    """Hashable identity of one sampler configuration."""
+    arch: str
+    smoke: bool
+    steps: int
+    mode: str
+    op: str            # operating-point name; "" when no DVFS schedule
+    bucket: int        # batch size
+    rollback_interval: int = DEFAULT_INTERVAL
+
+
+class CompiledSamplerCache:
+    """Maps SamplerKey -> built sampler, with build accounting."""
+
+    def __init__(self) -> None:
+        self._fns: Dict[SamplerKey, Callable] = {}
+        self.builds = 0     # cache misses (factory invocations)
+        self.hits = 0       # cache hits
+
+    def get(self, key: SamplerKey,
+            factory: Callable[[SamplerKey], Callable]) -> Callable:
+        fn = self._fns.get(key)
+        if fn is not None:
+            self.hits += 1
+            return fn
+        fn = self._fns[key] = factory(key)
+        self.builds += 1
+        return fn
+
+    def __contains__(self, key: SamplerKey) -> bool:
+        return key in self._fns
+
+    def __len__(self) -> int:
+        return len(self._fns)

@@ -1,0 +1,208 @@
+"""The DRIFT batched serving engine.
+
+Counterpart of ``repro.serving.engine.DriftServeEngine``, reduced to the
+main path: a FIFO ``RequestQueue`` and ``MicroBatcher`` grouping requests
+into fixed-size same-configuration buckets (short tails padded); a sampler
+cache keyed by (arch, steps, mode, operating point, bucket, rollback
+interval) that builds each configuration once; a params cache; per-request
+operating points, where ``"auto"`` reads the BER monitor's ladder index,
+and the monitor carried from batch to batch (Sec 5.1); a bounded LRU of
+error-free reference samples per (configuration, latent seeds); and
+per-request quality scores returned as ``RequestResult`` records.
+
+The engine runs on ``device`` ("cuda" by default). Without a GPU it raises;
+it never falls back to the CPU -- the tests pass ``device="cpu"``. Flip
+masks come from ``flip_source_factory(batch_index)``, by default a Philox
+source seeded from (base seed, batch index, site); see ``core.fault``.
+
+The perfmodel's energy/latency attribution and virtual clock, streaming,
+the scheduler, telemetry, tracing and offload are later slices (ROADMAP
+Queue A items 8 and 10).
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import zlib
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch import configs
+from repro_torch.core import dvfs as dvfs_lib
+from repro_torch.core import fault
+from repro_torch.diffusion import sampler as sampler_lib
+from repro_torch.models import dit as dit_lib
+from repro_torch.serving.batcher import MicroBatch, MicroBatcher
+from repro_torch.serving.cache import CompiledSamplerCache, SamplerKey
+from repro_torch.serving.request import (GenerationRequest, RequestQueue,
+                                         RequestResult)
+from repro_torch.serving.servable import DiffusionServable
+
+# Modes whose ABFT detections feed the BER monitor.
+_MONITORED_MODES = ("drift",)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device with no GPU present
+    raises (the port never falls back to the CPU on its own)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run the plain PyTorch versions "
+            "on the CPU")
+    return dev
+
+
+@dataclasses.dataclass
+class EngineStats:
+    batches: int = 0
+    padded_slots: int = 0
+    clean_samples_computed: int = 0
+    clean_sample_hits: int = 0
+
+
+@dataclasses.dataclass
+class _BatchCtx:
+    """What ``_prepare_batch`` stages for one micro-batch."""
+    batch_index: int
+    params: object
+    padded_seeds: Tuple[int, ...]
+    inputs: Tuple                 # (latents, cond)
+    flip_source: fault.FlipSource
+
+
+def _default_sampler_factory(key: SamplerKey, model_cfg, scfg):
+    def run(params, flip_source, latents, cond, monitor0):
+        return sampler_lib.sample(model_cfg, params, flip_source, latents,
+                                  cond, scfg, monitor0=monitor0)
+    return run
+
+
+class DriftServeEngine:
+    """Batched serving engine for DRIFT diffusion sampling."""
+
+    def __init__(self, arch: str = "dit-xl-512", smoke: bool = True,
+                 bucket: int = 2, base_seed: int = 0,
+                 nominal_steps: int = 2,
+                 monitor_target_ber: float = 3e-3,
+                 clean_cache_size: int = 8,
+                 device="cuda",
+                 flip_source_factory: Optional[
+                     Callable[[int], fault.FlipSource]] = None,
+                 sampler_factory: Optional[Callable] = None):
+        self.device = resolve_device(device)
+        self.default_arch = arch
+        self.default_smoke = smoke
+        self.base_seed = int(base_seed)
+        self.nominal_steps = nominal_steps
+        self.monitor_target_ber = monitor_target_ber
+        self.queue = RequestQueue()
+        self.batcher = MicroBatcher(bucket)
+        self.cache = CompiledSamplerCache()
+        self.stats = EngineStats()
+        self.monitor = dvfs_lib.ber_monitor_init(self.device)
+        self.flip_source_factory = (
+            flip_source_factory if flip_source_factory is not None
+            else fault.philox_source_factory(self.base_seed, self.device))
+        self._sampler_factory = sampler_factory or _default_sampler_factory
+        self._batch_counter = 0
+        self._params: Dict[Tuple[str, bool], object] = {}
+        self._clean_samples: "collections.OrderedDict" = \
+            collections.OrderedDict()
+        self._clean_cache_size = clean_cache_size
+        self.servable = DiffusionServable(self)
+
+    # ------------------------------------------------------------- intake
+    def submit(self, **fields) -> int:
+        """Queue one generation request; returns its request id. ``arch``
+        and ``smoke`` default to the engine's; ``steps`` is clamped to
+        ``step_budget``. Fields whose machinery is not yet ported raise a
+        ``ValueError``."""
+        fields.setdefault("arch", self.default_arch)
+        fields.setdefault("smoke", self.default_smoke)
+        if fields.get("stream"):
+            raise ValueError("streaming previews are not yet ported to "
+                             "repro_torch (ROADMAP Queue A item 6)")
+        fields.pop("stream", None)
+        budget = fields.get("step_budget")
+        if budget is not None:
+            default_steps = GenerationRequest.__dataclass_fields__[
+                "steps"].default
+            fields["steps"] = min(fields.get("steps", default_steps), budget)
+        configs.get_config(fields["arch"], smoke=fields["smoke"])
+        return self.queue.submit(**fields)
+
+    # ------------------------------------------------------------ serving
+    def run(self) -> List[RequestResult]:
+        """Drain the queue, one micro-batch at a time; results come back in
+        submission order."""
+        results: Dict[int, RequestResult] = {}
+        while len(self.queue):
+            mb = self.batcher.next_batch(self.queue, self._resolve_op)
+            for res in self._run_batch(mb):
+                results[res.request_id] = res
+        return [results[rid] for rid in sorted(results)]
+
+    def _resolve_op(self, req: GenerationRequest) -> str:
+        if req.op == "auto":
+            return self.auto_op_name()
+        return req.op
+
+    def auto_op_index(self) -> int:
+        """Ladder index an ``op="auto"`` request resolves to now."""
+        return int(self.monitor.op_index)
+
+    def auto_op_name(self) -> str:
+        return dvfs_lib.ladder_op(self.auto_op_index()).name
+
+    # ------------------------------------------------------------ helpers
+    def params_for(self, arch: str, smoke: bool):
+        """The cached params of (arch, smoke), built on first use from the
+        base seed (crc32, not ``hash``: stable across processes)."""
+        k = (arch, smoke)
+        if k not in self._params:
+            cfg = configs.get_config(arch, smoke=smoke)
+            tag = zlib.crc32(f"{arch}:{smoke}".encode()) & 0x7FFFFFFF
+            self._params[k] = dit_lib.init_params(
+                cfg, fault.mix64(self.base_seed, tag), self.device)
+        return self._params[k]
+
+    def set_params(self, arch: str, smoke: bool, params) -> None:
+        """Put ``params`` into the params cache for (arch, smoke)."""
+        self._params[(arch, smoke)] = params
+
+    # ---------------------------------------------------------- one batch
+    def _prepare_batch(self, mb: MicroBatch) -> _BatchCtx:
+        key = mb.key
+        batch_index = self._batch_counter
+        self._batch_counter += 1
+        self.stats.batches += 1
+        self.stats.padded_slots += mb.n_pad
+        model_cfg = configs.get_config(key.arch, smoke=key.smoke)
+        live_seeds = [r.seed for r in mb.requests]
+        padded_seeds = tuple(live_seeds + [live_seeds[-1]] * mb.n_pad)
+        return _BatchCtx(
+            batch_index=batch_index,
+            params=self.params_for(key.arch, key.smoke),
+            padded_seeds=padded_seeds,
+            inputs=self.servable.batch_inputs(model_cfg, list(padded_seeds)),
+            flip_source=self.flip_source_factory(batch_index))
+
+    def _run_batch(self, mb: MicroBatch) -> List[RequestResult]:
+        ctx = self._prepare_batch(mb)
+        out = self.servable.execute(mb, ctx)
+        key = mb.key
+        if key.mode in _MONITORED_MODES:
+            self.monitor = out.monitor   # Sec 5.1 carry-over across batches
+        outcome = self.servable.finalize(mb, ctx, out)
+        mon_ber = float(self.monitor.ema_ber)
+        mon_idx = int(self.monitor.op_index)
+        return [RequestResult(
+            request_id=req.request_id, batch_index=ctx.batch_index,
+            bucket_size=key.bucket, op=key.op or "nominal", mode=key.mode,
+            steps=key.steps, batch_corrected_elems=outcome.corrected,
+            n_model_evals=outcome.n_model_evals, monitor_ber=mon_ber,
+            monitor_op_index=mon_idx, **outcome.per_slot[slot])
+            for slot, req in enumerate(mb.requests)]

@@ -1,0 +1,140 @@
+"""Serving request/result types and the FIFO request queue.
+
+Counterpart of ``repro.serving.request``. A ``GenerationRequest`` names
+the arch, step count, protection mode and DVFS operating point (``"auto"``
+defers to the engine's BER-monitor ladder). The request schema keeps the
+reference's fields, but those whose machinery is not yet ported --
+TaylorSeer, narrowed precision plans, ``rollback_interval="auto"``,
+priority and deadlines, energy budgets and quality floors -- raise a
+``ValueError`` naming the ROADMAP item when a request sets them.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Deque, List, Optional, Union
+
+from repro_torch.core.dvfs import OP_LADDER
+from repro_torch.core.exec_ctx import MODES, PORTED_MODES
+from repro_torch.core.rollback import DEFAULT_INTERVAL
+
+REQUEST_OPS = ("nominal", "undervolt", "overclock", "auto") + tuple(
+    p.name for p in OP_LADDER
+    if p.name not in ("nominal", "undervolt", "overclock"))
+
+
+def _not_ported(what: str, item: str) -> ValueError:
+    return ValueError(f"{what} is not yet ported to repro_torch (ROADMAP "
+                      f"Queue A item {item})")
+
+
+@dataclasses.dataclass(frozen=True)
+class GenerationRequest:
+    """One queued generation job. Frozen: the queue hands out copies only."""
+    request_id: int
+    arch: str = "dit-xl-512"
+    smoke: bool = True
+    steps: int = 10
+    mode: str = "drift"
+    op: str = "undervolt"
+    seed: int = 0                  # drives this request's initial latents
+    taylorseer: bool = False
+    precision: str = "int8"
+    rollback_interval: Union[int, str] = DEFAULT_INTERVAL
+    priority: str = "standard"
+    deadline_s: Optional[float] = None
+    step_budget: Optional[int] = None
+    energy_budget_j: Optional[float] = None
+    quality_floor: Optional[float] = None
+
+    def __post_init__(self):
+        if self.op not in REQUEST_OPS:
+            raise ValueError(
+                f"unknown operating point {self.op!r}; one of {REQUEST_OPS}")
+        if self.mode not in MODES:
+            raise ValueError(
+                f"unknown DRIFT mode {self.mode!r}; one of {MODES}")
+        if self.mode not in PORTED_MODES:
+            raise _not_ported(f"mode {self.mode!r}", "4 (baselines)")
+        if self.steps < 1:
+            raise ValueError(f"steps must be >= 1, got {self.steps}")
+        if self.taylorseer:
+            raise _not_ported("taylorseer=True", "6 (TaylorSeer)")
+        if self.precision != "int8":
+            raise _not_ported(f"precision={self.precision!r}",
+                              "3 (precision plans)")
+        if isinstance(self.rollback_interval, str):
+            raise _not_ported(
+                f"rollback_interval={self.rollback_interval!r}",
+                "10 (offload planner)")
+        if self.rollback_interval < 1:
+            raise ValueError(f"rollback_interval must be >= 1, got "
+                             f"{self.rollback_interval}")
+        if self.priority != "standard" or self.deadline_s is not None:
+            raise _not_ported("priority/deadline_s", "10 (scheduler)")
+        if self.energy_budget_j is not None or self.quality_floor is not None:
+            raise _not_ported("energy_budget_j/quality_floor",
+                              "10 (frontier)")
+        if self.step_budget is not None and self.step_budget < 1:
+            raise ValueError(
+                f"step_budget must be >= 1, got {self.step_budget}")
+
+
+@dataclasses.dataclass(frozen=True)
+class RequestResult:
+    """Structured per-request outcome of one engine run."""
+    request_id: int
+    batch_index: int               # which micro-batch served this request
+    bucket_size: int
+    op: str                        # resolved operating-point name
+    mode: str
+    steps: int
+    # quality vs the cached clean reference (same latents, BER 0)
+    lpips_vs_clean: float
+    psnr_vs_clean_db: float
+    # rollback-corrected elements summed over the WHOLE batch tensor
+    # (padded slots included): one count per batch, not per request
+    batch_corrected_elems: int
+    n_model_evals: int
+    # BER-monitor state after this request's batch
+    monitor_ber: float
+    monitor_op_index: int
+    # this request's sample: its slot of the batch latents, clipped to
+    # [-1, 1], shape (H, W, C)
+    latents: Optional[object] = None
+
+
+class RequestQueue:
+    """FIFO queue assigning monotonically increasing request ids."""
+
+    def __init__(self) -> None:
+        self._pending: Deque[GenerationRequest] = collections.deque()
+        self._next_id = 0
+
+    def submit(self, **fields) -> int:
+        req = GenerationRequest(request_id=self._next_id, **fields)
+        self._next_id += 1
+        self._pending.append(req)
+        return req.request_id
+
+    def __len__(self) -> int:
+        return len(self._pending)
+
+    def peek(self) -> Optional[GenerationRequest]:
+        return self._pending[0] if self._pending else None
+
+    def take_matching(self, head_key, key_of, limit: int
+                      ) -> List[GenerationRequest]:
+        """Pop up to ``limit`` pending requests whose ``key_of(req)`` equals
+        ``head_key``, in FIFO order; the others keep their positions."""
+        taken: List[GenerationRequest] = []
+        kept: Deque[GenerationRequest] = collections.deque()
+        while self._pending and len(taken) < limit:
+            req = self._pending.popleft()
+            if key_of(req) == head_key:
+                taken.append(req)
+            else:
+                kept.append(req)
+        kept.extend(self._pending)
+        self._pending = kept
+        return taken
