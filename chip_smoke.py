@@ -19,7 +19,9 @@ Phases, each printing one JSON line with its wall time:
                (the kernel, its plain version and a PyTorch library call
                where one exists), the wall time per call with CUDA events
                (``wall_ms``, host launch overhead included), and the least
-               time the card could take (``bound_ms``).
+               time the card could take (``bound_ms``). Timed calls cycle
+               through copies of their inputs that together exceed twice
+               the L2, so each call reads its inputs cold from HBM.
 4. reference -- the SMOKE DiT served on the card (kernels) and on the CPU
                (plain versions) with the same params, latents and flip
                masks: latents and counts must agree.
@@ -50,6 +52,7 @@ PHASES = ("device", "build", "kernels", "reference", "serve")
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_FLOPS_PER_S = 67e12
+L2_BYTES = 50 * 2 ** 20
 
 ARCH = "dit-xl-512"
 BUCKET = 2
@@ -72,35 +75,50 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events),
-    after one warm-up call."""
+def ring_of(tensors, call_bytes: int):
+    """Copies of one call's inputs, enough that cycling through them moves
+    twice the L2 between two uses of one copy. Each timed call then finds
+    its inputs in HBM, as on the serving path, where a GEMM's operands and
+    the rollback checkpoint were last touched a layer or a step earlier."""
+    n = 1 + -(-2 * L2_BYTES // max(call_bytes, 1))
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors)
+                               for _ in range(n - 1)]
+
+
+def _cycle(fn, ring, count: int) -> None:
+    for i in range(count):
+        fn(*ring[i % len(ring)])
+
+
+def time_ms(fn, ring, reps: int) -> float:
+    """Mean time per call of ``fn`` over ``reps`` calls cycling through
+    ``ring`` (CUDA events around the loop, host launch cost included),
+    after one warm-up pass over the ring."""
     import torch
-    fn()
+    _cycle(fn, ring, len(ring))
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    _cycle(fn, ring, reps)
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, name: str = ""):
+def device_ms(fn, ring, reps: int, name: str = ""):
     """Device time per call of ``fn`` from ``torch.profiler``: the summed
     time of the GPU kernels whose name contains ``name`` (all kernels when
-    empty) over ``reps`` calls. Unlike ``time_ms`` it excludes the host's
-    launch overhead. Where the profiler sees no device time it falls back
-    to ``time_ms`` and notes that in ``TIMERS``."""
+    empty) over ``reps`` calls cycling through ``ring``, after one warm-up
+    pass over it. Unlike ``time_ms`` it excludes the host's launch
+    overhead. Where the profiler sees no device time it falls back to
+    ``time_ms`` and notes that in ``TIMERS``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    _cycle(fn, ring, len(ring))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+        _cycle(fn, ring, reps)
         torch.cuda.synchronize()
     total_us = 0.0
     for ev in prof.key_averages():
@@ -111,22 +129,31 @@ def device_ms(fn, reps: int, name: str = ""):
         TIMERS.add("torch.profiler")
         return total_us / 1e3 / reps
     TIMERS.add("cuda events (profiler saw no device time)")
-    return time_ms(fn, reps)
+    return time_ms(fn, ring, reps)
+
+
+def max_abs_err(got, want) -> float:
+    """Largest |got - want| over paired outputs (0 when all are equal)."""
+    return max(float((a.double() - b.double()).abs().max())
+               for a, b in zip(got, want))
 
 
 def path_gemms(cfg, bucket: int):
-    """(name, M, K, N, launches per DiT evaluation) of the protected GEMMs,
-    M and N padded to the 32x32 checksum tile as the kernel sees them."""
+    """(name, M, K, N, launches per DiT evaluation, unpadded (M, N)) of the
+    protected GEMMs, M and N padded to the 32x32 checksum tile as the
+    kernels see them."""
     def pad(x):
         return -(-x // 32) * 32
     m = bucket * cfg.tokens
     d, f, pdim = cfg.d_model, cfg.d_ff, cfg.patch_dim
     hd = cfg.n_heads * cfg.hd
     L = cfg.n_layers
-    return [("patch", m, pdim, d, 1), ("t.w1", pad(bucket), 256, d, 1),
-            ("t.w2", pad(bucket), d, d, 1), ("attn.qkvo", m, d, hd, 4 * L),
-            ("mlp.w1", m, d, f, L), ("mlp.w2", m, f, d, L),
-            ("final", m, d, pad(pdim), 1)]
+    return [("patch", m, pdim, d, 1, (m, d)),
+            ("t.w1", pad(bucket), 256, d, 1, (bucket, d)),
+            ("t.w2", pad(bucket), d, d, 1, (bucket, d)),
+            ("attn.qkvo", m, d, hd, 4 * L, (m, hd)),
+            ("mlp.w1", m, d, f, L, (m, f)), ("mlp.w2", m, f, d, L, (m, d)),
+            ("final", m, d, pad(pdim), 1, (m, pdim))]
 
 
 def mix_mean(rows, key):
@@ -139,6 +166,7 @@ def mix_mean(rows, key):
 def phase_kernels(torch, reps: int):
     from repro_torch.configs import get_config
     from repro_torch.core import fault
+    from repro_torch.core.abft import _exceeds
     from repro_torch.kernels import abft_matmul as ak
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import rollback_correct as rk
@@ -150,7 +178,8 @@ def phase_kernels(torch, reps: int):
     g.manual_seed(20261016)
     src = fault.PhiloxFlipSource(base_seed=7, batch_index=0, device=dev)
     abft_rows, rb_rows = [], []
-    for i, (name, m, k, n, per_eval) in enumerate(path_gemms(cfg, BUCKET)):
+    for i, (name, m, k, n, per_eval, valid) in enumerate(
+            path_gemms(cfg, BUCKET)):
         aq = torch.randint(-127, 128, (m, k), generator=g, device=dev,
                            dtype=torch.int8)
         bq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
@@ -171,50 +200,61 @@ def phase_kernels(torch, reps: int):
             + 8 * mt * n
         ops = 2 * m * n * k + 2 * m * k * nt + 2 * mt * k * n
         t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+        ring = ring_of((aq, bq, flips), bytes_)
         try:
-            int_mm = device_ms(lambda: torch._int_mm(aq, bq), reps)
+            int_mm = device_ms(torch._int_mm, [r[:2] for r in ring], reps)
         except RuntimeError:                       # shape it does not take
             int_mm = None
         row = dict(name=name, m=m, k=k, n=n, per_eval=per_eval,
-                   ms=device_ms(lambda: ak.abft_matmul(aq, bq, flips), reps,
-                                "abft_matmul"),
-                   wall_ms=time_ms(lambda: ak.abft_matmul(aq, bq, flips),
-                                   reps),
-                   plain_ms=device_ms(
-                       lambda: ak.abft_matmul_plain(aq, bq, flips),
-                       max(1, reps // 4)),
+                   max_abs_err=max_abs_err(got, want), ring=len(ring),
+                   ms=device_ms(ak.abft_matmul, ring, reps, "abft_matmul"),
+                   wall_ms=time_ms(ak.abft_matmul, ring, reps),
+                   plain_ms=device_ms(ak.abft_matmul_plain, ring,
+                                      max(1, reps // 4)),
                    bound_ms=1e3 * max(t_b, t_o),
                    bound_by="bytes" if t_b >= t_o else "operations",
                    int_mm_ms=int_mm,
-                   flagged_rows=int((rk.flags(got[1] - got[2],
-                                              got[3] - got[4],
-                                              THRESHOLD)[0]).sum()))
+                   flagged_rows=int(_exceeds(got[1] - got[2],
+                                             THRESHOLD).sum()))
         abft_rows.append(row)
+        del ring
 
         rd = got[1] - got[2]
         cd = got[3] - got[4]
         c = got[0].float() * 1e-4
         ckpt = torch.randn((m, n), generator=g, device=dev)
+        err = 0.0
         for union in (True, False):
-            a = rk.rollback_correct(c, ckpt, rd, cd, THRESHOLD, union=union)
+            a = rk.rollback_correct(c, ckpt, rd, cd, THRESHOLD, union=union,
+                                    valid=valid)
             b = rk.rollback_correct_plain(c, ckpt, rd, cd, THRESHOLD,
-                                          union=union)
+                                          union=union, valid=valid)
             torch.cuda.synchronize()
+            err = max(err, max_abs_err(a, b))
             if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
                 raise AssertionError(f"rollback_correct {name} union={union}"
                                      " differs from its plain version")
-        rbytes = 3 * 4 * m * n + 4 * m * nt + 4 * mt * n + 4 * mt * nt
+        # Per element one f32 read (ckpt where masked, else c) and one f32
+        # write; the row and column differences; the per-tile count.
+        rbytes = 8 * m * n + 4 * m * nt + 4 * mt * n + 4 * mt * nt
+        ring = ring_of((c, ckpt, rd, cd), rbytes)
+
+        def rb(c_, ck_, rd_, cd_, valid=valid):
+            return rk.rollback_correct(c_, ck_, rd_, cd_, THRESHOLD,
+                                       valid=valid)
+
+        def rb_plain(c_, ck_, rd_, cd_, valid=valid):
+            return rk.rollback_correct_plain(c_, ck_, rd_, cd_, THRESHOLD,
+                                             valid=valid)
         rb_rows.append(dict(
-            name=name, m=m, n=n, per_eval=per_eval,
-            ms=device_ms(lambda: rk.rollback_correct(c, ckpt, rd, cd,
-                                                     THRESHOLD), reps,
-                         "rollback_correct"),
-            wall_ms=time_ms(lambda: rk.rollback_correct(c, ckpt, rd, cd,
-                                                        THRESHOLD), reps),
-            plain_ms=device_ms(lambda: rk.rollback_correct_plain(
-                c, ckpt, rd, cd, THRESHOLD), reps),
+            name=name, m=m, n=n, per_eval=per_eval, max_abs_err=err,
+            ring=len(ring),
+            ms=device_ms(rb, ring, reps, "rollback_correct"),
+            wall_ms=time_ms(rb, ring, reps),
+            plain_ms=device_ms(rb_plain, ring, reps),
             bound_ms=1e3 * rbytes / HBM_BYTES_PER_S, bound_by="bytes",
-            flagged_tiles=int(a[1].sum())))
+            masked_elems=int(a[1].sum())))
+        del ring
     emit({"phase": "kernels", "kernel": "abft_matmul", "bit_equal": True,
           "shapes": abft_rows,
           "note": "int_mm_ms is torch._int_mm, the bare int8 product: a "
@@ -232,26 +272,26 @@ def phase_kernels(torch, reps: int):
         got = fk.flash_attention(q, k, v)
         want = fk.flash_attention_plain(q, k, v)
         torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
+        err = max_abs_err([got], [want])
         if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
             raise AssertionError(f"flash_attention {dtype}: max abs err "
                                  f"{err} beyond {tol}")
-        qf, kf, vf = (x.float().reshape(BUCKET, cfg.n_heads, s, d)
-                      for x in (q, k, v))
         flops = 4 * bh * s * s * d
         bytes_ = 4 * bh * s * d * q.element_size()
         t_o, t_b = flops / F32_FLOPS_PER_S, bytes_ / HBM_BYTES_PER_S
+        ring = ring_of((q, k, v), bytes_)
+        lib_ring = [tuple(x.float().reshape(BUCKET, cfg.n_heads, s, d)
+                          for x in r) for r in ring]
         fl_rows[str(dtype).split(".")[-1]] = dict(
-            shape=[bh, s, d], tol=tol, max_abs_err=err,
-            ms=device_ms(lambda: fk.flash_attention(q, k, v), reps,
-                         "flash_attention"),
-            wall_ms=time_ms(lambda: fk.flash_attention(q, k, v), reps),
-            plain_ms=device_ms(lambda: fk.flash_attention_plain(q, k, v),
-                               reps),
-            library_ms=device_ms(
-                lambda: F.scaled_dot_product_attention(qf, kf, vf), reps),
+            shape=[bh, s, d], tol=tol, max_abs_err=err, ring=len(ring),
+            ms=device_ms(fk.flash_attention, ring, reps, "flash_attention"),
+            wall_ms=time_ms(fk.flash_attention, ring, reps),
+            plain_ms=device_ms(fk.flash_attention_plain, ring, reps),
+            library_ms=device_ms(F.scaled_dot_product_attention, lib_ring,
+                                 reps),
             bound_ms=1e3 * max(t_o, t_b),
             bound_by="operations" if t_o >= t_b else "bytes")
+        del ring, lib_ring
     emit({"phase": "kernels", "timers": sorted(TIMERS)})
     emit({"phase": "kernels", "kernel": "flash_attention",
           "per_eval": cfg.n_layers, "dtypes": fl_rows,
@@ -358,7 +398,7 @@ def phase_serve(torch):
                 "flash_attention": fk.launches}
     peak = torch.cuda.max_memory_allocated()
 
-    gemms = sum(p[-1] for p in path_gemms(cfg, BUCKET))       # 172
+    gemms = sum(p[4] for p in path_gemms(cfg, BUCKET))        # 172
     evals = SERVE_STEPS
     want = {"abft_matmul": gemms * evals * 3,
             "rollback_correct": gemms * evals * 2,
@@ -489,7 +529,8 @@ def main(argv=None) -> int:
             dict(name="abft_matmul", route="cuda",
                  source="src/repro_torch/kernels/csrc/abft_matmul.cu",
                  replaces="src/repro/kernels/abft_matmul.py:79",
-                 launches=launches["abft_matmul"], max_abs_err=0,
+                 launches=launches["abft_matmul"],
+                 max_abs_err=max(r["max_abs_err"] for r in abft_rows),
                  ms=mix_mean(abft_rows, "ms"),
                  plain_ms=mix_mean(abft_rows, "plain_ms"),
                  bound_ms=mix_mean(abft_rows, "bound_ms"),
@@ -499,7 +540,8 @@ def main(argv=None) -> int:
             dict(name="rollback_correct", route="cuda",
                  source="src/repro_torch/kernels/csrc/rollback_correct.cu",
                  replaces="src/repro/kernels/rollback_correct.py:34",
-                 launches=launches["rollback_correct"], max_abs_err=0,
+                 launches=launches["rollback_correct"],
+                 max_abs_err=max(r["max_abs_err"] for r in rb_rows),
                  ms=mix_mean(rb_rows, "ms"),
                  plain_ms=mix_mean(rb_rows, "plain_ms"),
                  bound_ms=mix_mean(rb_rows, "bound_ms"),

@@ -1,19 +1,17 @@
 """Algorithm-based fault tolerance (ABFT) for the INT8 GEMM.
 
-Counterpart of ``repro.core.abft``: the config, the overflow-safe threshold
-test, and the per-tile checksum difference and mask as plain PyTorch (the
-reference that ``kernels.abft_matmul`` and ``kernels.rollback_correct``
-compute fused). All checksum arithmetic wraps mod 2^32, like int32 in XLA:
-the helpers compute in int64 and wrap explicitly, since signed overflow is
-not something to lean on.
+Counterpart of ``repro.core.abft``: the config and the overflow-safe
+threshold test. The per-tile checksums and the mask are computed by
+``kernels.abft_matmul`` and ``kernels.rollback_correct``, whose plain
+versions are the PyTorch reference. All checksum arithmetic wraps mod 2^32,
+like int32 in XLA: ``wrap_i32`` reduces int64 explicitly, since signed
+overflow is not something to lean on.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 
 
 def _exceeds(diff: torch.Tensor, thr) -> torch.Tensor:
@@ -39,51 +37,3 @@ class AbftConfig:
     @property
     def threshold(self) -> int:
         return 1 << self.threshold_bit
-
-
-def _pad_to(x: torch.Tensor, m: int, dim: int) -> torch.Tensor:
-    pad = (-x.shape[dim]) % m
-    if pad == 0:
-        return x
-    widths = [0, 0] * x.ndim
-    widths[2 * (x.ndim - 1 - dim) + 1] = pad
-    return F.pad(x, widths)
-
-
-def tile_checksum_diff(acc: torch.Tensor, aq: torch.Tensor, bq: torch.Tensor,
-                       cfg: AbftConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tile checksum differences, (Mt, Nt, tile_m) and (Mt, Nt, tile_n),
-    in wraparound int32. Products run in float64, exact for these ranges
-    (|value| < 2^53), so this works where torch has no integer matmul."""
-    tm, tn = cfg.tile_m, cfg.tile_n
-    k = aq.shape[1]
-    a = _pad_to(aq.double(), tm, 0)
-    b = _pad_to(bq.double(), tn, 1)
-    accp = _pad_to(_pad_to(acc.long(), tm, 0), tn, 1)
-    mt, nt = accp.shape[0] // tm, accp.shape[1] // tn
-    acc_t = accp.reshape(mt, tm, nt, tn)
-
-    exp_row = (a @ b.reshape(k, nt, tn).sum(2)).long()        # (Mp, Nt)
-    exp_row_t = exp_row.reshape(mt, tm, nt).permute(0, 2, 1)
-    act_row_t = acc_t.sum(3).permute(0, 2, 1)
-    exp_col = (a.reshape(mt, tm, k).sum(1) @ b).long()        # (Mt, Np)
-    exp_col_t = exp_col.reshape(mt, nt, tn)
-    act_col_t = acc_t.sum(1)
-    return wrap_i32(act_row_t - exp_row_t), wrap_i32(act_col_t - exp_col_t)
-
-
-def tile_error_mask(row_diff_t: torch.Tensor, col_diff_t: torch.Tensor,
-                    cfg: AbftConfig, out_shape: Tuple[int, int]
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Element mask (M, N) and per-tile flag (Mt, Nt) from tile checksums."""
-    row_flag = _exceeds(row_diff_t, cfg.threshold)            # (Mt, Nt, tm)
-    col_flag = _exceeds(col_diff_t, cfg.threshold)            # (Mt, Nt, tn)
-    if cfg.mask_policy == "cross":
-        mask_t = row_flag[:, :, :, None] & col_flag[:, :, None, :]
-    else:
-        mask_t = row_flag[:, :, :, None] | col_flag[:, :, None, :]
-    tile_flag = mask_t.any(dim=3).any(dim=2)
-    mt, nt, tm = row_flag.shape
-    tn = col_flag.shape[2]
-    mask = mask_t.permute(0, 2, 1, 3).reshape(mt * tm, nt * tn)
-    return mask[: out_shape[0], : out_shape[1]], tile_flag

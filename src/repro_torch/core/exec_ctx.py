@@ -34,7 +34,7 @@ from repro_torch.core import abft as abft_lib
 from repro_torch.core import fault, quant, rollback
 from repro_torch.core.dvfs import CLASS_BODY, N_CLASSES
 from repro_torch.kernels.abft_matmul import TILE, abft_matmul
-from repro_torch.kernels.rollback_correct import flags, rollback_correct
+from repro_torch.kernels.rollback_correct import rollback_correct
 
 MODES = ("float_clean", "clean", "faulty", "drift",
          "thundervolt", "approx_abft", "dmr", "stat_abft")
@@ -77,25 +77,6 @@ def _pad2(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
-
-
-def masked_count(rflag: torch.Tensor, cflag: torch.Tensor, m: int, n: int,
-                 union: bool) -> torch.Tensor:
-    """Masked elements of the unpadded (m, n) region, from the per-tile row
-    flags (Mp, Nt) and column flags (Mt, Np), without building the mask:
-    per tile, union covers R*W + C*H - R*C elements and cross R*C, where R
-    and C count flagged rows and columns and H and W are the tile's
-    unpadded height and width. Padded rows and columns are never flagged
-    (their checksum differences are 0)."""
-    mt, nt = cflag.shape[0], rflag.shape[1]
-    r = rflag.reshape(mt, TILE, nt).sum(1)                    # (Mt, Nt)
-    c = cflag.reshape(mt, nt, TILE).sum(2)                    # (Mt, Nt)
-    if not union:
-        return (r * c).sum()
-    dev = rflag.device
-    h = (m - TILE * torch.arange(mt, device=dev)).clamp(max=TILE)
-    w = (n - TILE * torch.arange(nt, device=dev)).clamp(max=TILE)
-    return (r * w[None, :] + c * h[:, None] - r * c).sum()
 
 
 class ExecContext:
@@ -174,10 +155,11 @@ class ExecContext:
         union = self.cfg.abft.mask_policy != "cross"
         ckpt = rollback.effective_checkpoint(y, self.state_in.get(name),
                                              self.have_ckpt)
-        y_corr, _ = rollback_correct(_pad2(y, mp, np_), _pad2(ckpt, mp, np_),
-                                     row_diff, col_diff, thr, union=union)
-        rflag, cflag = flags(row_diff, col_diff, thr)
-        self._bump("corrected_elems", masked_count(rflag, cflag, m, n, union))
+        # The kernel counts the masked elements of the unpadded region.
+        y_corr, tile_count = rollback_correct(
+            _pad2(y, mp, np_), _pad2(ckpt, mp, np_), row_diff, col_diff, thr,
+            union=union, valid=(m, n))
+        self._bump("corrected_elems", tile_count.sum())
         y = y_corr[:m, :n]
         self._write_ckpt(name, y)
         return y.reshape(*lead, n).to(x.dtype)

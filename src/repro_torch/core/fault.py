@@ -19,12 +19,7 @@ from __future__ import annotations
 import zlib
 from typing import Callable, NamedTuple, Sequence
 
-import numpy as np
 import torch
-
-# 1 << b as int32 bit patterns, b = 0..31 (entry 31 is INT32_MIN).
-_BIT_PATTERNS = [int(np.array([1 << b], np.uint32).view(np.int32)[0])
-                 for b in range(32)]
 
 
 class FaultSite(NamedTuple):
@@ -62,10 +57,10 @@ def draw_flips(shape: Sequence[int], ber: float, generator: torch.Generator,
     p = word_flip_prob(ber)
     u = torch.rand(tuple(shape), generator=generator, device=device)
     pos = torch.randint(0, 32, tuple(shape), generator=generator,
-                        device=device)
-    bits = torch.tensor(_BIT_PATTERNS, dtype=torch.int32, device=device)
-    return torch.where(u < p, bits[pos], torch.zeros((), dtype=torch.int32,
-                                                     device=device))
+                        device=device, dtype=torch.int32)
+    # 1 << 31 wraps to INT32_MIN, the bit-31 pattern.
+    one = torch.ones((), dtype=torch.int32, device=device)
+    return torch.where(u < p, torch.bitwise_left_shift(one, pos), 0)
 
 
 def mix64(*fields: int) -> int:

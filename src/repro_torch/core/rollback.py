@@ -34,11 +34,3 @@ def effective_checkpoint(current: torch.Tensor,
     if checkpoint is None or not have_ckpt:
         return torch.zeros_like(current)
     return checkpoint
-
-
-def correct(current: torch.Tensor, checkpoint: Optional[torch.Tensor],
-            mask: torch.Tensor, have_ckpt: bool) -> torch.Tensor:
-    """Overwrite masked positions with checkpoint values (Step 4, Sec 5.3);
-    with no usable checkpoint, zero them (ApproxABFT-style)."""
-    return torch.where(mask, effective_checkpoint(current, checkpoint,
-                                                  have_ckpt), current)

@@ -3,17 +3,22 @@ version).
 
 Replaces the TPU kernel ``repro/kernels/rollback_correct.py::
 rollback_correct`` (``pl.pallas_call`` at line 49, body ``_kernel`` at
-line 21), with the same signature. For ``c, ckpt (M, N) f32``, the per-tile
+line 21), with the same inputs. For ``c, ckpt (M, N) f32``, the per-tile
 checksum differences ``row_diff (M, Nt)`` and ``col_diff (Mt, N)`` (int32)
 and ``threshold``, it flags each row and column with
-``(d >= thr) | (d <= -thr)`` (not ``abs``: it must survive an INT32_MIN
+``core.abft._exceeds`` (not ``abs``: it must survive an INT32_MIN
 difference), masks each tile by the union (or cross) of its flagged rows
-and columns, returns ``where(mask, ckpt, c)`` and a per-tile int32 flag.
+and columns, and returns ``where(mask, ckpt, c)``. In place of the Pallas
+kernel's per-tile any-flag it returns the per-tile count of masked elements
+inside ``valid`` (the caller's unpadded rows and columns; the whole array
+by default), so ``tile_count > 0`` is that flag and ``tile_count.sum()``
+the corrected-element count.
 
 The CUDA kernel (``csrc/rollback_correct.cu``) runs one block per 32x32
-tile and writes the tile flag with ``__syncthreads_or``, no atomics. It is
-elementwise, so bytes bound it on an H100: three (M, N) f32 arrays, ~113 MB
-at 2048x4608, ~34 us at 3.35 TB/s.
+tile and sums the count with ``__syncthreads_count``, no atomics. It is
+elementwise, so bytes bound it on an H100: per element one f32 read (ckpt
+where masked, else c) and one f32 write, ~75 MB at 2048x4608, ~23 us at
+3.35 TB/s.
 
 ``rollback_correct`` takes the plain version for CPU tensors only; a CUDA
 tensor launches the kernel or raises. ``launches`` counts kernel launches.
@@ -21,45 +26,43 @@ tensor launches the kernel or raises. ``launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.abft import _exceeds
 from repro_torch.kernels import _lib
 
 TILE = 32
 launches = 0
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_void_p] * 3)
 
-
-def flags(row_diff: torch.Tensor, col_diff: torch.Tensor, threshold: int
-          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-(row, N-tile) and per-(M-tile, column) large-error flags."""
-    rflag = (row_diff >= threshold) | (row_diff <= -threshold)
-    cflag = (col_diff >= threshold) | (col_diff <= -threshold)
-    return rflag, cflag
+Valid = Optional[Tuple[int, int]]
 
 
 def rollback_correct_plain(c: torch.Tensor, ckpt: torch.Tensor,
                            row_diff: torch.Tensor, col_diff: torch.Tensor,
                            threshold: int, bm: int = TILE, bn: int = TILE,
-                           union: bool = True
+                           union: bool = True, valid: Valid = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version (``ref.rollback_correct_ref``)."""
+    """Plain PyTorch version (``ref.rollback_correct_ref``, with the tile
+    count in place of the tile flag)."""
     m, n = c.shape
     mt, nt = m // bm, n // bn
-    rflag, cflag = flags(row_diff, col_diff, threshold)
-    r_elem = rflag.repeat_interleave(bn, dim=1)
-    c_elem = cflag.repeat_interleave(bm, dim=0)
+    vm, vn = (m, n) if valid is None else valid
+    r_elem = _exceeds(row_diff, threshold).repeat_interleave(bn, dim=1)
+    c_elem = _exceeds(col_diff, threshold).repeat_interleave(bm, dim=0)
     mask = (r_elem | c_elem) if union else (r_elem & c_elem)
     out = torch.where(mask, ckpt, c)
-    tile_flag = mask.reshape(mt, bm, nt, bn).any(dim=3).any(dim=1)
-    return out, tile_flag.to(torch.int32)
+    inside = ((torch.arange(m, device=c.device) < vm)[:, None]
+              & (torch.arange(n, device=c.device) < vn)[None, :])
+    tile_count = (mask & inside).reshape(mt, bm, nt, bn).sum(dim=(1, 3))
+    return out, tile_count.to(torch.int32)
 
 
-def _check(c, ckpt, row_diff, col_diff, bm, bn):
+def _check(c, ckpt, row_diff, col_diff, bm, bn, valid):
     if c.dtype != torch.float32 or ckpt.dtype != torch.float32:
         raise TypeError(f"rollback_correct takes f32 c/ckpt, got {c.dtype}, "
                         f"{ckpt.dtype}")
@@ -76,19 +79,21 @@ def _check(c, ckpt, row_diff, col_diff, bm, bn):
             f"{tuple(row_diff.shape)}, col_diff {tuple(col_diff.shape)}")
     if not (c.device == ckpt.device == row_diff.device == col_diff.device):
         raise ValueError("rollback_correct operands on different devices")
+    if valid is not None and not (0 <= valid[0] <= m and 0 <= valid[1] <= n):
+        raise ValueError(f"valid region {valid} outside ({m}, {n})")
 
 
 def rollback_correct(c: torch.Tensor, ckpt: torch.Tensor,
                      row_diff: torch.Tensor, col_diff: torch.Tensor,
                      threshold: int, bm: int = TILE, bn: int = TILE,
-                     union: bool = True
+                     union: bool = True, valid: Valid = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(corrected (M, N) f32, tile_flag (Mt, Nt) int32)."""
+    """(corrected (M, N) f32, tile_count (Mt, Nt) int32)."""
     global launches
-    _check(c, ckpt, row_diff, col_diff, bm, bn)
+    _check(c, ckpt, row_diff, col_diff, bm, bn, valid)
     if c.device.type == "cpu":
         return rollback_correct_plain(c, ckpt, row_diff, col_diff, threshold,
-                                      bm, bn, union)
+                                      bm, bn, union, valid)
     if c.device.type != "cuda":
         raise ValueError(f"rollback_correct: unsupported device {c.device}")
     if (bm, bn) != (TILE, TILE):
@@ -97,16 +102,18 @@ def rollback_correct(c: torch.Tensor, ckpt: torch.Tensor,
     c, ckpt = c.contiguous(), ckpt.contiguous()
     row_diff, col_diff = row_diff.contiguous(), col_diff.contiguous()
     m, n = c.shape
+    vm, vn = (m, n) if valid is None else valid
     dev = c.device
     out = torch.empty_like(c)
-    tile_flag = torch.empty((m // TILE, n // TILE), dtype=torch.int32,
-                            device=dev)
+    tile_count = torch.empty((m // TILE, n // TILE), dtype=torch.int32,
+                             device=dev)
     fn = _lib.function("rollback_correct", "rollback_correct_launch",
                        _ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(c.data_ptr(), ckpt.data_ptr(), row_diff.data_ptr(),
                  col_diff.data_ptr(), int(threshold), int(bool(union)), m, n,
-                 out.data_ptr(), tile_flag.data_ptr(), _lib.stream_of(dev))
+                 int(vm), int(vn), out.data_ptr(), tile_count.data_ptr(),
+                 _lib.stream_of(dev))
     _lib.check(err, "rollback_correct")
     launches += 1
-    return out, tile_flag
+    return out, tile_count

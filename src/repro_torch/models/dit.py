@@ -263,7 +263,7 @@ def _as_count(v, device) -> torch.Tensor:
     """A context statistic (a Python 0 or a device tensor) as int64."""
     if isinstance(v, torch.Tensor):
         return v.to(torch.int64)
-    return torch.tensor(int(v), dtype=torch.int64, device=device)
+    return torch.full((), int(v), dtype=torch.int64, device=device)
 
 
 def drift_store_spec(cfg: ModelConfig, batch: int, device="cpu"

@@ -28,6 +28,8 @@ from repro.diffusion import schedule as jsched
 from repro_torch.core import abft, dvfs, fault, metrics, quant, rollback
 from repro_torch.core.exec_ctx import DriftSystemConfig, ExecContext
 from repro_torch.diffusion import schedule as sched
+from repro_torch.kernels import abft_matmul as tak
+from repro_torch.kernels import rollback_correct as trk
 
 
 @functools.partial(jax.jit, static_argnums=(4,))
@@ -96,27 +98,46 @@ def test_exceeds_survives_int32_min():
 
 
 def test_tile_checksums_and_mask_match_jax():
+    """The kernels' plain versions give the reference's per-tile checksum
+    differences (``abft_matmul_plain``, operands zero-padded to the tile as
+    ``ExecContext`` pads them) and its element mask and tile flags
+    (``rollback_correct_plain`` with ckpt 1 and c 0 returns the mask),
+    bit for bit, on a ragged 70x50x90 GEMM with a bit-31 flip."""
     rng = np.random.default_rng(4)
     aq = rng.integers(-127, 128, (70, 50), dtype=np.int8)
     bq = rng.integers(-127, 128, (50, 90), dtype=np.int8)
-    acc = (aq.astype(np.int64) @ bq.astype(np.int64)).astype(np.int32)
+    clean = (aq.astype(np.int64) @ bq.astype(np.int64)).astype(np.int32)
+    acc = clean.copy()
     acc[5, 7] ^= 1 << 20
     acc[40, 80] ^= np.int32(-2 ** 31)
-    cfg, jcfg = abft.AbftConfig(), jabft.AbftConfig()
-    rd, cd = abft.tile_checksum_diff(torch.from_numpy(acc),
-                                     torch.from_numpy(aq),
-                                     torch.from_numpy(bq), cfg)
+    mp, np_ = 96, 96
+    pad = functools.partial(np.pad, mode="constant")
+    flips = pad(acc ^ clean, ((0, mp - 70), (0, np_ - 90)))
+    _, ar, er, ac, ec = tak.abft_matmul_plain(
+        torch.from_numpy(pad(aq, ((0, mp - 70), (0, 0)))),
+        torch.from_numpy(pad(bq, ((0, 0), (0, np_ - 90)))),
+        torch.from_numpy(flips))
+    rd = abft.wrap_i32(ar.long() - er.long())                 # (Mp, Nt)
+    cd = abft.wrap_i32(ac.long() - ec.long())                 # (Mt, Np)
+    jcfg = jabft.AbftConfig()
     jrd, jcd = jabft.tile_checksum_diff(jnp.asarray(acc), jnp.asarray(aq),
                                         jnp.asarray(bq), jcfg)
-    np.testing.assert_array_equal(rd.numpy(), np.asarray(jrd))
-    np.testing.assert_array_equal(cd.numpy(), np.asarray(jcd))
+    mt, nt = mp // 32, np_ // 32
+    np.testing.assert_array_equal(
+        rd.numpy(), np.asarray(jrd).transpose(0, 2, 1).reshape(mp, nt))
+    np.testing.assert_array_equal(cd.numpy(),
+                                  np.asarray(jcd).reshape(mt, np_))
+    zeros, ones = torch.zeros((mp, np_)), torch.ones((mp, np_))
     for policy in ("union", "cross"):
-        m, f = abft.tile_error_mask(rd, cd, abft.AbftConfig(
-            mask_policy=policy), acc.shape)
+        m, cnt = trk.rollback_correct_plain(zeros, ones, rd, cd,
+                                            jcfg.threshold,
+                                            union=policy == "union")
         jm, jf = jabft.tile_error_mask(jrd, jcd, jabft.AbftConfig(
             mask_policy=policy), acc.shape)
-        np.testing.assert_array_equal(m.numpy(), np.asarray(jm))
-        np.testing.assert_array_equal(f.numpy(), np.asarray(jf))
+        np.testing.assert_array_equal(m[:70, :90].bool().numpy(),
+                                      np.asarray(jm))
+        np.testing.assert_array_equal((cnt > 0).numpy(), np.asarray(jf))
+        assert np.asarray(jm).any()
 
 
 # ----------------------------------------------------------------- fault
@@ -209,11 +230,15 @@ def test_ber_monitor_matches_jax():
 
 # -------------------------------------------------------------- rollback
 def test_rollback_correct_fallbacks():
+    """Masked positions take ``effective_checkpoint``'s values, as the
+    reference's ``correct``: zeros with no checkpoint or ``have_ckpt``
+    false, else the checkpoint."""
     cur = torch.arange(6, dtype=torch.float32).reshape(2, 3)
     ck = torch.full((2, 3), -1.0)
     mask = torch.tensor([[True, False, False], [False, False, True]])
     for ckpt, have in ((None, True), (ck, False), (ck, True)):
-        got = rollback.correct(cur, ckpt, mask, have)
+        got = torch.where(mask, rollback.effective_checkpoint(cur, ckpt, have),
+                          cur)
         want = jrollback.correct(
             jnp.asarray(cur.numpy()),
             None if ckpt is None else jnp.asarray(ckpt.numpy()),

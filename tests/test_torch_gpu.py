@@ -57,8 +57,9 @@ def test_abft_kernel_matches_plain_on_card(cuda, m, k, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("valid", [None, (50, 70)])
 @pytest.mark.parametrize("union", [True, False])
-def test_rollback_kernel_matches_plain_on_card(cuda, union):
+def test_rollback_kernel_matches_plain_on_card(cuda, union, valid):
     rng = np.random.default_rng(5)
     m, n = 64, 96
     c = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
@@ -69,8 +70,8 @@ def test_rollback_kernel_matches_plain_on_card(cuda, union):
                                        dtype=np.int32))
     cd[0, 0] = -2 ** 31
     args = [x.to(cuda) for x in (c, ck, rd, cd)]
-    got = trk.rollback_correct(*args, 1024, union=union)
-    want = trk.rollback_correct_plain(*args, 1024, union=union)
+    got = trk.rollback_correct(*args, 1024, union=union, valid=valid)
+    want = trk.rollback_correct_plain(*args, 1024, union=union, valid=valid)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 

@@ -85,10 +85,19 @@ def test_abft_matmul_wraps_at_k4608_with_bit31_flip():
     assert diff[3, 0] % 2 ** 32 == 2 ** 31          # the bit-31 delta
 
 
+def _mask_np(rd, cd, bm, bn, union, thr=1 << 10):
+    """The union (or cross) element mask of the Pallas reference, in numpy."""
+    r = np.repeat((rd >= thr) | (rd <= -thr), bn, axis=1)
+    c = np.repeat((cd >= thr) | (cd <= -thr), bm, axis=0)
+    return (r | c) if union else (r & c)
+
+
 @pytest.mark.parametrize("m,k,n,bm,bn,bk", SHAPES[:4])
 @pytest.mark.parametrize("union", [True, False])
 def test_rollback_correct_plain_matches_pallas(m, k, n, bm, bn, bk, union):
-    """Masks, splice and tile flags bit-equal, union and cross."""
+    """Splice bit-equal, union and cross; the port's per-tile masked count
+    is positive exactly where the Pallas tile flag is set, and counts the
+    mask's elements of the tile (of its valid region, where one is given)."""
     rng = np.random.default_rng(n)
     aq, bq = _int8(rng, (m, k)), _int8(rng, (k, n))
     flips = _flips(rng, (m, n), p=0.02)
@@ -101,13 +110,22 @@ def test_rollback_correct_plain_matches_pallas(m, k, n, bm, bn, bk, union):
     want_c, want_f = rk.rollback_correct(
         jnp.asarray(cf), jnp.asarray(ckpt), jnp.asarray(rd), jnp.asarray(cd),
         1 << 10, bm=bm, bn=bn, union=union, interpret=True)
-    got_c, got_f = trk.rollback_correct(
-        torch.from_numpy(cf), torch.from_numpy(ckpt), torch.from_numpy(rd),
-        torch.from_numpy(cd), 1 << 10, bm=bm, bn=bn, union=union)
+    args = [torch.from_numpy(x) for x in (cf, ckpt, rd, cd)]
+    got_c, got_n = trk.rollback_correct(*args, 1 << 10, bm=bm, bn=bn,
+                                        union=union)
     np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
-    assert got_f.dtype == torch.int32
-    np.testing.assert_array_equal(got_f.numpy(), np.asarray(want_f))
-    assert got_f.numpy().any()                      # something was flagged
+    assert got_n.dtype == torch.int32
+    np.testing.assert_array_equal((got_n > 0).int().numpy(),
+                                  np.asarray(want_f))
+    mask = _mask_np(rd, cd, bm, bn, union)
+    mt, nt = m // bm, n // bn
+    np.testing.assert_array_equal(
+        got_n.numpy(), mask.reshape(mt, bm, nt, bn).sum((1, 3)))
+    assert got_n.numpy().any()                      # something was flagged
+    vm, vn = m - 5, n - 7
+    _, got_v = trk.rollback_correct(*args, 1 << 10, bm=bm, bn=bn,
+                                    union=union, valid=(vm, vn))
+    assert int(got_v.sum()) == int(mask[:vm, :vn].sum())
 
 
 def _qkv(rng, shape):
@@ -183,6 +201,8 @@ def test_rollback_and_flash_wrappers_reject_bad_inputs():
         trk.rollback_correct(c.double(), c, rd, cd, 1024)
     with pytest.raises(ValueError):
         trk.rollback_correct(c, c, rd.T.contiguous(), cd, 1024)
+    with pytest.raises(ValueError):
+        trk.rollback_correct(c, c, rd, cd, 1024, valid=(33, 32))
     q = torch.zeros((2, 8, 16))
     with pytest.raises(TypeError):
         tfk.flash_attention(q.double(), q.double(), q.double())
