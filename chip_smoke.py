@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py                 # every phase, as the check runs it
     python3 chip_smoke.py --phases device,build,kernels --reps 3
+    python3 chip_smoke.py --phases device,build,kernels,ar
 
 Phases, each printing one JSON line with its wall time:
 
 1. device   -- the card (nvidia-smi name and power limit), torch and CUDA.
-2. build    -- compile the three CUDA kernels from ``src/repro_torch/
+2. build    -- compile the four CUDA kernels from ``src/repro_torch/
                kernels/csrc`` (one nvcc each, in parallel).
 3. kernels  -- each kernel against its plain PyTorch version on the card,
                at the shapes the serving path gives it: ``abft_matmul`` at
@@ -21,15 +22,31 @@ Phases, each printing one JSON line with its wall time:
                (``wall_ms``, host launch overhead included), and the least
                time the card could take (``bound_ms``). Timed calls cycle
                through copies of their inputs that together exceed twice
-               the L2, so each call reads its inputs cold from HBM.
-4. reference -- the SMOKE DiT served on the card (kernels) and on the CPU
-               (plain versions) with the same params, latents and flip
-               masks: latents and counts must agree.
+               the L2, so each call reads its inputs cold from HBM. Then
+               the autoregressive slice's: ``fault_inject`` at the decode
+               GEMM outputs (2, 1, 2048) and (2, 1, 8192) f32 and at
+               8192 x 8192 int32 (bit-equal on int32 views), the prefill's
+               attention call ``mha_flash`` at (2, 8, 16, 128) causal
+               (bf16 and f32, within tolerance), and the composites
+               ``stat_abft_matmul`` and ``drift_gemm`` at one DiT GEMM
+               shape (bit-equal).
+4. reference -- the SMOKE DiT and the SMOKE olmo-1b served on the card
+               (kernels) and on the CPU (plain versions) with the same
+               params, inputs and flip masks: latents, tokens and counts
+               must agree.
 5. serve    -- ``repro_torch.launch.serve.main`` drives a full-width
                DiT-XL/2-512 engine (28 layers, random seeded weights): 2
                requests in drift/undervolt, then the same seeds in faulty
                mode. The launch counters are zeroed just before and read
                just after; the counts must be exact.
+6. ar       -- the same CLI drives a full-width olmo-1b engine (16
+               layers, random seeded weights): 2 requests at bucket 2, 16
+               tokens, rollback window 4, in stat_abft at undervolt, then
+               faulty. Counters as in ``serve``: 105 fault_inject launches
+               (15 faulted layers x 7 GEMMs) per faulted decode step, 16
+               attention launches per prefill. stat_abft must detect, roll
+               back and match the clean decode token for token. Then the
+               time per decode step and a profiled request.
 
 Then it prints the card's name and power limit, the ``kernels`` summary
 line and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -45,7 +62,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("device", "build", "kernels", "reference", "serve")
+PHASES = ("device", "build", "kernels", "reference", "serve", "ar")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, int8 tensor-core
 # rate, float32 rate outside the tensor cores.
@@ -58,6 +75,9 @@ ARCH = "dit-xl-512"
 BUCKET = 2
 SERVE_STEPS = 10
 THRESHOLD = 1 << 10
+AR_ARCH = "olmo-1b"
+AR_STEPS = 16
+AR_WINDOW = 4
 TIMERS = set()          # which timer produced the kernel times
 
 
@@ -106,12 +126,12 @@ def time_ms(fn, ring, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, ring, reps: int, name: str = ""):
+def device_ms(fn, ring, reps: int, name=""):
     """Device time per call of ``fn`` from ``torch.profiler``: the summed
-    time of the GPU kernels whose name contains ``name`` (all kernels when
-    empty) over ``reps`` calls cycling through ``ring``, after one warm-up
-    pass over it. Unlike ``time_ms`` it excludes the host's launch
-    overhead. Where the profiler sees no device time it falls back to
+    time of the GPU kernels whose name contains ``name`` (or any of a tuple
+    of names; all kernels when empty) over ``reps`` calls cycling through
+    ``ring``, after one warm-up pass over it. Unlike ``time_ms`` it
+    excludes the host's launch overhead. Where the profiler sees no device time it falls back to
     ``time_ms`` and notes that in ``TIMERS``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -120,9 +140,10 @@ def device_ms(fn, ring, reps: int, name: str = ""):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _cycle(fn, ring, reps)
         torch.cuda.synchronize()
+    names = (name,) if isinstance(name, str) else name
     total_us = 0.0
     for ev in prof.key_averages():
-        if name in ev.key:
+        if any(nm in ev.key for nm in names):
             total_us += getattr(ev, "self_device_time_total",
                                 getattr(ev, "self_cuda_time_total", 0.0))
     if total_us > 0:
@@ -154,12 +175,6 @@ def path_gemms(cfg, bucket: int):
             ("attn.qkvo", m, d, hd, 4 * L, (m, hd)),
             ("mlp.w1", m, d, f, L, (m, f)), ("mlp.w2", m, f, d, L, (m, d)),
             ("final", m, d, pad(pdim), 1, (m, pdim))]
-
-
-def mix_mean(rows, key):
-    """Per-launch mean of ``key`` over one evaluation's launch mix."""
-    n = sum(r["per_eval"] for r in rows)
-    return sum(r[key] * r["per_eval"] for r in rows) / n
 
 
 # ---------------------------------------------------------------- phases
@@ -301,6 +316,192 @@ def phase_kernels(torch, reps: int):
     return abft_rows, rb_rows, fl_rows
 
 
+def _check_equal(label, got, want) -> float:
+    """Every output bit-equal (f32 compared on its int32 view, so NaN and
+    -0 count too); returns ``max_abs_err`` over those views."""
+    import torch
+    views = [[t.view(torch.int32) if t.dtype == torch.float32 else t
+              for t in ts] for ts in (got, want)]
+    for i, (a, b) in enumerate(zip(*views)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: output {i} differs from its "
+                                 "plain version")
+    return max_abs_err(*views)
+
+
+def phase_kernels_ar(torch, reps: int):
+    """The autoregressive slice's kernel and composites on the card."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core import fault
+    from repro_torch.kernels import fault_inject as fik
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stat_abft as sk
+    from repro_torch.models.attention import full_attention
+    from repro_torch.serving.ar import PROMPT_LEN
+
+    dev = torch.device("cuda")
+    cfg = get_config(AR_ARCH)
+    g = torch.Generator(device=dev)
+    g.manual_seed(20261017)
+    src = fault.PhiloxFlipSource(base_seed=9, batch_index=0, device=dev)
+
+    # fault_inject: a decode step's 5 GEMM outputs of width d and 2 of
+    # width d_ff, and one large int32 array where bytes bind.
+    fi_rows = []
+    for i, (name, shape, dtype, per_step) in enumerate((
+            ("attn.q/k/v/o, mlp.down", (BUCKET, 1, cfg.d_model),
+             torch.float32, 5),
+            ("mlp.gate/up", (BUCKET, 1, cfg.d_ff), torch.float32, 2),
+            ("large int32", (8192, 8192), torch.int32, 0))):
+        if dtype == torch.float32:
+            x = torch.randn(shape, generator=g, device=dev)
+        else:
+            x = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=g,
+                              device=dev, dtype=torch.int32)
+        mask = src(fault.FaultSite(1, i, name), shape, 3e-3)
+        mask.view(-1)[0] = -2 ** 31                   # one bit-31 flip
+        got = fik.fault_inject(x, mask)
+        torch.cuda.synchronize()
+        err = _check_equal(f"fault_inject {shape}", [got],
+                           [fik.fault_inject_plain(x, mask)])
+        n = x.numel()
+        ring = ring_of((x, mask), 12 * n)
+
+        def xor(a, m):
+            return torch.bitwise_xor(a.view(torch.int32), m)
+        fi_rows.append(dict(
+            name=name, shape=list(shape), dtype=str(dtype).split(".")[-1],
+            per_step=per_step, max_abs_err=err, ring=len(ring),
+            ms=device_ms(fik.fault_inject, ring, reps, "fault_inject"),
+            wall_ms=time_ms(fik.fault_inject, ring, reps),
+            plain_ms=device_ms(fik.fault_inject_plain, ring, reps),
+            library_ms=device_ms(xor, ring, reps),
+            bound_ms=1e3 * 12 * n / HBM_BYTES_PER_S, bound_by="bytes"))
+        del ring
+    emit({"phase": "kernels", "kernel": "fault_inject", "bit_equal": True,
+          "shapes": fi_rows,
+          "note": "library_ms is torch.bitwise_xor on the int32 views; the "
+                  "plain version is the same xor"})
+
+    # The prefill's attention call: (B, 8, H, 128), causal.
+    b, s, h, d = BUCKET, PROMPT_LEN, cfg.n_heads, cfg.hd
+    mha_rows = {}
+    for dtype, tol in ((torch.bfloat16, 3e-2), (torch.float32, 2e-5)):
+        q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev
+                               ).to(dtype) for _ in range(3))
+        got = fk.mha_flash(q, k, v, causal=True)
+        want = full_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = max_abs_err([got], [want])
+        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+            raise AssertionError(f"mha_flash {dtype} at {(b, s, h, d)}: max "
+                                 f"abs err {err} beyond {tol}")
+        pairs = s * (s + 1) // 2                  # causal (query, key)
+        t_o = 4 * b * h * d * pairs / F32_FLOPS_PER_S
+        t_b = 4 * b * s * h * d * q.element_size() / HBM_BYTES_PER_S
+        ring = ring_of((q, k, v), 4 * q.numel() * q.element_size())
+        lib_ring = [tuple(x.transpose(1, 2).contiguous() for x in r)
+                    for r in ring]
+
+        def mha(q_, k_, v_):
+            return fk.mha_flash(q_, k_, v_, causal=True)
+
+        def plain(q_, k_, v_):
+            return full_attention(q_, k_, v_, causal=True)
+
+        def sdpa(q_, k_, v_):
+            return F.scaled_dot_product_attention(q_, k_, v_, is_causal=True)
+        mha_rows[str(dtype).split(".")[-1]] = dict(
+            shape=[b, s, h, d], folded=[b * h, s, d], tol=tol,
+            max_abs_err=err, ring=len(ring),
+            ms=device_ms(mha, ring, reps),
+            kernel_ms=device_ms(mha, ring, reps, "flash_attention"),
+            wall_ms=time_ms(mha, ring, reps),
+            plain_ms=device_ms(plain, ring, reps),
+            library_ms=device_ms(sdpa, lib_ring, reps),
+            bound_ms=1e3 * max(t_o, t_b),
+            bound_by="operations" if t_o >= t_b else "bytes")
+        del ring, lib_ring
+    emit({"phase": "kernels", "kernel": "mha_flash", "rows": mha_rows,
+          "note": "ms is every kernel of the call (head folds included), "
+                  "kernel_ms the attention kernel alone; library_ms is "
+                  "F.scaled_dot_product_attention(is_causal=True) on "
+                  "(B, H, S, D) copies"})
+
+    # The composites, at the DiT's attention GEMM shape.
+    m, kk, n = 2048, 1152, 1152
+    aq = torch.randint(-127, 128, (m, kk), generator=g, device=dev,
+                       dtype=torch.int8)
+    bq = torch.randint(-127, 128, (kk, n), generator=g, device=dev,
+                       dtype=torch.int8)
+    flips = src(fault.FaultSite(2, 0, "stat"), (m, n), 3e-3)
+    flips[7, 9] = -2 ** 31
+    bn = 128
+    err = 0.0
+    for thr in (0, THRESHOLD):
+        got = sk.stat_abft_matmul(aq, bq, flips, thr, bm=bn, bn=bn)
+        want = sk.stat_abft_matmul_plain(aq, bq, flips, thr, bm=bn, bn=bn)
+        torch.cuda.synchronize()
+        err = max(err, _check_equal(f"stat_abft_matmul threshold {thr}",
+                                    got, want))
+    sbytes = m * kk + kk * n + 8 * m * n + m * (n // bn)
+    sops = 2 * m * n * kk + 2 * m * kk * (n // bn)
+    ring = ring_of((aq, bq, flips), sbytes)
+
+    def stat(a, b_, f):
+        return sk.stat_abft_matmul(a, b_, f, THRESHOLD, bm=bn, bn=bn)
+
+    def stat_plain(a, b_, f):
+        return sk.stat_abft_matmul_plain(a, b_, f, THRESHOLD, bm=bn, bn=bn)
+    t_b, t_o = sbytes / HBM_BYTES_PER_S, sops / INT8_OPS_PER_S
+    stat_row = dict(shape=[m, kk, n], bn=bn, threshold_mag=THRESHOLD,
+                    flagged=int(got[1].sum()), max_abs_err=err,
+                    ring=len(ring), ms=device_ms(stat, ring, reps),
+                    kernel_ms=device_ms(stat, ring, reps, "abft_matmul"),
+                    wall_ms=time_ms(stat, ring, reps),
+                    plain_ms=device_ms(stat_plain, ring, max(1, reps // 4)),
+                    bound_ms=1e3 * max(t_b, t_o),
+                    bound_by="bytes" if t_b >= t_o else "operations",
+                    library_ms=None)
+    del ring
+    emit({"phase": "kernels", "kernel": "stat_abft_matmul",
+          "bit_equal": True, **stat_row})
+
+    x = torch.randn((m, kk), generator=g, device=dev)
+    w = torch.randn((kk, n), generator=g, device=dev) / kk ** 0.5
+    ckpt = torch.randn((m, n), generator=g, device=dev)
+    dflips = src(fault.FaultSite(2, 1, "drift"), ops.padded_shape(m, n),
+                 3e-3)
+    got = ops.drift_gemm(x, w, ckpt, dflips)
+    want = ops.drift_gemm_plain(x, w, ckpt, dflips)
+    torch.cuda.synchronize()
+    err = _check_equal("drift_gemm", got, want)
+    nt, mt = n // 32, m // 32
+    dbytes = 4 * m * kk + 4 * kk * n + 12 * m * n + 4 * m * nt + 4 * mt * n
+    dops = 2 * m * n * kk + 2 * m * kk * nt + 2 * mt * kk * n
+    t_b, t_o = dbytes / HBM_BYTES_PER_S, dops / INT8_OPS_PER_S
+    ring = ring_of((x, w, ckpt, dflips), dbytes)
+    drift_row = dict(shape=[m, kk, n], flagged_tiles=int(got.n_flagged_tiles),
+                     max_abs_err=err, ring=len(ring),
+                     ms=device_ms(ops.drift_gemm, ring, reps),
+                     kernel_ms=device_ms(ops.drift_gemm, ring, reps,
+                                         ("abft_matmul", "rollback_correct")),
+                     wall_ms=time_ms(ops.drift_gemm, ring, reps),
+                     plain_ms=device_ms(ops.drift_gemm_plain, ring,
+                                        max(1, reps // 4)),
+                     bound_ms=1e3 * max(t_b, t_o),
+                     bound_by="bytes" if t_b >= t_o else "operations",
+                     library_ms=None)
+    del ring
+    emit({"phase": "kernels", "kernel": "drift_gemm", "bit_equal": True,
+          **drift_row,
+          "note": "ms is every kernel of the composite (quantize, pads, "
+                  "dequantize included); kernel_ms its two CUDA kernels"})
+    return fi_rows, mha_rows, stat_row, drift_row
+
+
 def _perturb(torch, params, cfg, seed: int, device):
     """Small seeded random adaLN and final weights: with the adaLN-Zero
     init the model predicts eps = 0 and every quality number is vacuous."""
@@ -326,22 +527,31 @@ def _to(tree, device):
 
 
 def phase_reference(torch):
-    """SMOKE DiT on the card vs on the CPU: same params, latents and masks
-    (drawn on the CPU for both), 3 drift steps at undervolt."""
+    """The SMOKE models on the card vs on the CPU, with the same params,
+    inputs and flip masks (drawn on the CPU for both): the DiT for 3 drift
+    steps, olmo-1b for 8 stat_abft tokens (window 3), at undervolt."""
     from repro_torch.configs import get_config
     from repro_torch.core import fault
-    from repro_torch.models import dit
+    from repro_torch.models import dit, transformer
     from repro_torch.serving import DriftServeEngine
+    from repro_torch.serving.ar import prompt_tokens
 
-    cfg = get_config(ARCH, smoke=True)
-    cpu_params = _perturb(torch, dit.init_params(cfg, 3), cfg, 4, "cpu")
-    out = {}
-    for device in ("cuda", "cpu"):
-        eng = DriftServeEngine(arch=ARCH, smoke=True, bucket=2, base_seed=5,
+    def engine(arch, device, params):
+        eng = DriftServeEngine(arch=arch, smoke=True, bucket=2, base_seed=5,
                                device=device,
                                flip_source_factory=fault.philox_source_factory
                                (5, "cpu"))
-        eng.set_params(ARCH, True, _to(cpu_params, device))
+        eng.set_params(arch, True, _to(params, device))
+        return eng
+
+    cfg = get_config(ARCH, smoke=True)
+    cpu_params = _perturb(torch, dit.init_params(cfg, 3), cfg, 4, "cpu")
+    lm_cfg = get_config(AR_ARCH, smoke=True)
+    lm_params = transformer.init_params(lm_cfg, 8)
+    prompts = prompt_tokens(lm_cfg, [0, 1])
+    out, lm_out = {}, {}
+    for device in ("cuda", "cpu"):
+        eng = engine(ARCH, device, cpu_params)
         lat = torch.randn((2, 8, 8, 4),
                           generator=torch.Generator().manual_seed(6))
         eng.servable.batch_inputs = lambda c, seeds, d=device: (
@@ -349,6 +559,14 @@ def phase_reference(torch):
         for s in (0, 1):
             eng.submit(steps=3, mode="drift", op="undervolt", seed=s)
         out[device] = eng.run()
+
+        eng = engine(AR_ARCH, device, lm_params)
+        eng.servable_for(AR_ARCH).batch_inputs = lambda c, seeds, d=device: (
+            prompts.to(d),)
+        for s in (0, 1):
+            eng.submit(arch=AR_ARCH, steps=8, mode="stat_abft",
+                       op="undervolt", seed=s, rollback_interval=3)
+        lm_out[device] = eng.run()
     err = max(float((a.latents.cpu() - b.latents).abs().max())
               for a, b in zip(out["cuda"], out["cpu"]))
     ca = out["cuda"][0].batch_corrected_elems
@@ -358,13 +576,30 @@ def phase_reference(torch):
     if not (err < 1e-3 and abs(ca - cb) <= 0.01 * max(cb, 1) and cb > 0):
         raise AssertionError(f"SMOKE card vs CPU: latents max err {err}, "
                              f"corrected {ca} vs {cb}")
+    # olmo-1b: tokens, rollbacks and evaluations exact; detections within
+    # 2%, since a residual near its threshold may land on either side when
+    # the f32 sums run in another order.
+    da = lm_out["cuda"][0].ar_detections
+    db = lm_out["cpu"][0].ar_detections
+    for a, b in zip(lm_out["cuda"], lm_out["cpu"]):
+        if (a.tokens, a.ar_rollbacks, a.n_model_evals,
+                a.token_match_vs_clean) != (b.tokens, b.ar_rollbacks,
+                                            b.n_model_evals,
+                                            b.token_match_vs_clean):
+            raise AssertionError(f"olmo-1b SMOKE card vs CPU: {a} vs {b}")
+    if not (db > 0 and abs(da - db) <= 0.02 * db):
+        raise AssertionError(f"olmo-1b SMOKE detections {da} vs {db}")
     return dict(latents_max_abs_err=err, corrected_card=ca,
-                corrected_cpu=cb)
+                corrected_cpu=cb, lm_detections_card=da,
+                lm_detections_cpu=db,
+                lm_rollbacks=lm_out["cpu"][0].ar_rollbacks,
+                lm_tokens=[list(r.tokens) for r in lm_out["cpu"]])
 
 
 def phase_serve(torch):
     from repro_torch.configs import get_config
     from repro_torch.kernels import abft_matmul as ak
+    from repro_torch.kernels import fault_inject as fik
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import rollback_correct as rk
     from repro_torch.launch import serve
@@ -385,7 +620,7 @@ def phase_serve(torch):
             "--steps", str(SERVE_STEPS), "--requests", "2", "--op",
             "undervolt", "--device", "cuda"]
     torch.cuda.reset_peak_memory_stats()
-    ak.launches = rk.launches = fk.launches = 0
+    ak.launches = rk.launches = fk.launches = fik.launches = 0
     t0 = time.perf_counter()
     drift = serve.main(argv + ["--mode", "drift"], engine=eng)
     torch.cuda.synchronize()
@@ -395,14 +630,14 @@ def phase_serve(torch):
     torch.cuda.synchronize()
     t_faulty = time.perf_counter() - t0
     launches = {"abft_matmul": ak.launches, "rollback_correct": rk.launches,
-                "flash_attention": fk.launches}
+                "flash_attention": fk.launches, "fault_inject": fik.launches}
     peak = torch.cuda.max_memory_allocated()
 
     gemms = sum(p[4] for p in path_gemms(cfg, BUCKET))        # 172
     evals = SERVE_STEPS
     want = {"abft_matmul": gemms * evals * 3,
             "rollback_correct": gemms * evals * 2,
-            "flash_attention": cfg.n_layers * evals * 3}
+            "flash_attention": cfg.n_layers * evals * 3, "fault_inject": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     reqs = []
@@ -469,6 +704,245 @@ def _profile_request(torch, eng, argv):
                      for us, k, c in rows[:12]])
 
 
+def phase_ar(torch):
+    """Full-width olmo-1b through the CLI: stat_abft, then faulty."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import abft_matmul as ak
+    from repro_torch.kernels import fault_inject as fik
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import rollback_correct as rk
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.serving import DriftServeEngine
+
+    dev = torch.device("cuda")
+    cfg = get_config(AR_ARCH)
+    t0 = time.perf_counter()
+    eng = DriftServeEngine(arch=AR_ARCH, smoke=False, bucket=BUCKET,
+                           device="cuda")
+    params = transformer.init_params(cfg, 21, dev)
+    eng.set_params(AR_ARCH, False, params)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    argv = ["--arch", AR_ARCH, "--no-smoke", "--batch", str(BUCKET),
+            "--steps", str(AR_STEPS), "--requests", "2",
+            "--rollback-interval", str(AR_WINDOW), "--op", "undervolt",
+            "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    ak.launches = rk.launches = fk.launches = fik.launches = 0
+    t0 = time.perf_counter()
+    stat = serve.main(argv + ["--mode", "stat_abft"], engine=eng)
+    torch.cuda.synchronize()
+    t_stat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    faulty = serve.main(argv + ["--mode", "faulty"], engine=eng)
+    torch.cuda.synchronize()
+    t_faulty = time.perf_counter() - t0
+    launches = {"fault_inject": fik.launches, "flash_attention": fk.launches,
+                "abft_matmul": ak.launches, "rollback_correct": rk.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    # Layer 0 (the first-block class) and steps below nominal_steps run at
+    # BER 0 and launch nothing; stat_abft's primary pass and the faulty
+    # pass are faulted, replays and the clean reference are not.
+    faulted_steps = sum(1 for i in range(1, AR_STEPS)
+                        if i >= eng.nominal_steps)
+    per_step = (cfg.n_layers - 1) * 7
+    prefills = 3                 # stat_abft, its clean reference, faulty
+    want = {"fault_inject": 2 * faulted_steps * per_step,
+            "flash_attention": prefills * cfg.n_layers,
+            "abft_matmul": 0, "rollback_correct": 0}
+    if launches != want:
+        raise AssertionError(f"AR launch counts {launches} != {want}")
+    reqs = []
+    for mode, results in (("stat_abft", stat), ("faulty", faulty)):
+        for r in results:
+            if len(r.tokens) != AR_STEPS or r.latents is not None:
+                raise AssertionError(f"{mode} request {r.request_id}: "
+                                     f"{len(r.tokens)} tokens")
+            if mode == "stat_abft" and not (
+                    r.ar_detections > 0 and r.ar_rollbacks >= 1
+                    and r.token_match_vs_clean == 1.0
+                    and r.n_model_evals > AR_STEPS):
+                raise AssertionError(
+                    f"stat_abft request {r.request_id}: detections "
+                    f"{r.ar_detections}, rollbacks {r.ar_rollbacks}, match "
+                    f"{r.token_match_vs_clean}, evals {r.n_model_evals}")
+            if mode == "faulty" and r.ar_rollbacks != 0:
+                raise AssertionError("faulty mode rolled back")
+            reqs.append(dict(mode=mode, request_id=r.request_id,
+                             tokens=list(r.tokens),
+                             token_match_vs_clean=r.token_match_vs_clean,
+                             ar_detections=r.ar_detections,
+                             ar_rollbacks=r.ar_rollbacks,
+                             n_model_evals=r.n_model_evals,
+                             monitor_ber=r.monitor_ber,
+                             monitor_op_index=r.monitor_op_index))
+    (clean,) = eng._clean_samples.values()
+    return dict(arch=AR_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+                d_ff=cfg.d_ff, vocab=cfg.vocab, bucket=BUCKET,
+                steps=AR_STEPS, window=AR_WINDOW, setup_s=setup_s,
+                stat_abft_run_s=t_stat, faulty_run_s=t_faulty,
+                peak_mem_bytes=peak, launches=launches, requests=reqs,
+                clean_tokens=clean.tolist(), builds=eng.cache.builds,
+                step_ms=_ar_step_ms(torch, eng, cfg, params),
+                breakdown=_profile_ar(torch, eng, argv))
+
+
+def _ar_step_ms(torch, eng, cfg, params):
+    """Per mode: host wall ms per decode step, each ended by a
+    synchronize, over the faulted steps of one pass (a decoder built the
+    way the engine builds it), and the device kernels one more faulted
+    step runs, counted by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import dvfs, fault
+    from repro_torch.models import transformer
+    from repro_torch.serving import ar
+    weights = transformer.prepare(cfg, params)
+    tokens = ar.prompt_tokens(cfg, [0, 1], eng.device)
+    schedule = dvfs.fine_grained_schedule(AR_STEPS + 1, dvfs.UNDERVOLT,
+                                          nominal_steps=eng.nominal_steps)
+    out = {}
+    for mode in ("clean", "faulty", "stat_abft"):
+        fns = ar.make_decoder(cfg, ar.DecodeConfig(AR_STEPS + 1, AR_WINDOW,
+                                                   mode,
+                                                   eng.monitor_target_ber),
+                              schedule=schedule)
+        src = fault.PhiloxFlipSource(3, 0, eng.device)
+        monitor = dvfs.ber_monitor_init(eng.device)
+        tok, cache = fns.prefill(weights, tokens)
+        torch.cuda.synchronize()
+        times = []
+        for i in range(1, AR_STEPS):
+            t0 = time.perf_counter()
+            tok, cache, monitor, _, _ = fns.step(weights, cache, tok, i,
+                                                 monitor, src, 1.0)
+            torch.cuda.synchronize()
+            if i >= eng.nominal_steps:
+                times.append(1e3 * (time.perf_counter() - t0))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fns.step(weights, cache, tok, AR_STEPS, monitor, src, 1.0)
+            torch.cuda.synchronize()
+        kernels = sum(ev.count for ev in prof.key_averages()
+                      if getattr(ev, "self_device_time_total",
+                                 getattr(ev, "self_cuda_time_total", 0)) > 0)
+        out[mode] = dict(ms=sum(times) / len(times), kernels=kernels)
+    return out
+
+
+def _profile_ar(torch, eng, argv):
+    """Device time by kernel over one more stat_abft request (its
+    primary pass, replays and clean reference)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve
+    argv = argv + ["--mode", "stat_abft", "--requests", "1", "--seed", "100"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve.main(argv, engine=eng)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((us, ev.key, ev.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    fi = sum(r[0] for r in rows if "fault_inject" in r[1]) / 1e6
+    return dict(what="1 stat_abft request at bucket 2, 16 tokens: prefill, "
+                     "15 faulted steps, 15 replayed, plus its clean "
+                     "reference", wall_s=wall, device_busy_s=busy,
+                device_busy_share=busy / wall, fault_inject_s=fi,
+                fault_inject_share_of_busy=fi / busy if busy else None,
+                n_kernels=sum(r[2] for r in rows),
+                top=[dict(kernel=k[:80], device_s=us / 1e6, calls=c)
+                     for us, k, c in rows[:12]])
+
+
+def kernel_summary(kernels_out, path_launches):
+    """One row per TPU kernel of the repo. ``launches`` sums the counts
+    of the paths that ran (``launches_by_path``). ``mha_flash`` launches
+    nothing of its own: its row carries the ``flash_attention`` launches
+    of the ar path, all made through it. The composites keep no count
+    (``launches`` null): each call's launches are counted under the
+    kernels it calls."""
+    (abft_rows, rb_rows, fl_rows, fi_rows, mha_rows, stat_row,
+     drift_row) = kernels_out
+
+    def launches(name, paths=None):
+        by = {p: c[name] for p, c in path_launches.items()
+              if paths is None or p in paths}
+        return (sum(by.values()) if by else None), by
+
+    def row(name, source, replaces, stats, bound_by, per, library_ms,
+            counted=None, paths=None, note=None):
+        n, by = launches(counted or name, paths)
+        out = dict(name=name, route="cuda", source=source,
+                   replaces=replaces, launches=n, launches_by_path=by,
+                   max_abs_err=stats["max_abs_err"], ms=stats["ms"],
+                   plain_ms=stats["plain_ms"], bound_ms=stats["bound_ms"],
+                   bound_by=bound_by, library_ms=library_ms, per=per)
+        if note:
+            out["launches_note"] = note
+        return out
+
+    def composite(name, source, replaces, stats, per, kernels):
+        return row(name, source, replaces, stats, stats["bound_by"], per,
+                   None, paths=(), note="composite; launches counted under "
+                   + "/".join(kernels))
+
+    def mix(rows, per_key):
+        live = [r for r in rows if r[per_key]]
+        out = {k: sum(r[k] * r[per_key] for r in live)
+               / sum(r[per_key] for r in live)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")
+               if k in live[0]}
+        out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+        return out
+
+    csrc = "src/repro_torch/kernels/csrc/"
+    fl, mha = fl_rows["bfloat16"], mha_rows["bfloat16"]
+    fi = mix(fi_rows, "per_step")
+    return [
+        row("abft_matmul", csrc + "abft_matmul.cu",
+            "src/repro/kernels/abft_matmul.py:79",
+            mix(abft_rows, "per_eval"), "bytes",
+            "mean per launch over one DiT-XL evaluation's 172 GEMMs at "
+            "bucket 2", None),
+        row("rollback_correct", csrc + "rollback_correct.cu",
+            "src/repro/kernels/rollback_correct.py:34",
+            mix(rb_rows, "per_eval"), "bytes",
+            "mean per launch over one DiT-XL evaluation's 172 GEMMs at "
+            "bucket 2", None),
+        row("flash_attention", csrc + "flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:71", fl, fl["bound_by"],
+            "one launch, (32, 1024, 72) bf16 (the DiT's call)",
+            fl["library_ms"]),
+        row("mha_flash", "src/repro_torch/kernels/flash_attention.py",
+            "src/repro/kernels/flash_attention.py:105", mha,
+            mha["bound_by"], "one call, (2, 8, 16, 128) bf16 causal (the "
+            "olmo-1b prefill's), head folds included", mha["library_ms"],
+            counted="flash_attention", paths=("ar",),
+            note="the flash_attention launches of the ar path, each made "
+                 "through mha_flash; not a kernel of its own"),
+        row("fault_inject", csrc + "fault_inject.cu",
+            "src/repro/kernels/fault_inject.py:24", fi, "bytes",
+            "mean per launch over one decode step's 7 GEMM outputs, "
+            "(2, 1, 2048) x5 and (2, 1, 8192) x2 f32",
+            fi["library_ms"]),
+        composite("drift_gemm", "src/repro_torch/kernels/ops.py",
+                  "src/repro/kernels/ops.py:44", drift_row,
+                  "one call, 2048x1152x1152 f32; on no serving path",
+                  ("abft_matmul", "rollback_correct")),
+        composite("stat_abft_matmul", "src/repro_torch/kernels/stat_abft.py",
+                  "src/repro/kernels/stat_abft.py:103", stat_row,
+                  "one call, 2048x1152x1152 int8, 128-wide row tiles; on "
+                  "no serving path", ("abft_matmul",)),
+    ]
+
+
 # ------------------------------------------------------------------ main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -494,7 +968,8 @@ def main(argv=None) -> int:
 
     smi = nvidia_smi()
     kernels_out = None
-    for phase in ("device", "build", "kernels", "reference", "serve"):
+    path_launches = {}
+    for phase in PHASES:
         if phase not in phases:
             continue
         t0 = time.perf_counter()
@@ -512,55 +987,20 @@ def main(argv=None) -> int:
                                 if "registers" in ln or "spill" in ln][:8]
                             for n, log in logs.items()}
         elif phase == "kernels":
-            kernels_out = phase_kernels(torch, args.reps)
+            kernels_out = (phase_kernels(torch, args.reps)
+                           + phase_kernels_ar(torch, args.reps))
         elif phase == "reference":
             rec.update(phase_reference(torch))
-        elif phase == "serve":
-            serve_out = phase_serve(torch)
-            rec.update(serve_out)
+        elif phase in ("serve", "ar"):
+            out = phase_serve(torch) if phase == "serve" else phase_ar(torch)
+            path_launches[phase] = out["launches"]
+            rec.update(out)
         rec["wall_s"] = time.perf_counter() - t0
         emit(rec)
 
-    if kernels_out is not None and "serve" in phases:
-        abft_rows, rb_rows, fl_rows = kernels_out
-        launches = serve_out["launches"]
-        fl = fl_rows["bfloat16"]
-        summary = [
-            dict(name="abft_matmul", route="cuda",
-                 source="src/repro_torch/kernels/csrc/abft_matmul.cu",
-                 replaces="src/repro/kernels/abft_matmul.py:79",
-                 launches=launches["abft_matmul"],
-                 max_abs_err=max(r["max_abs_err"] for r in abft_rows),
-                 ms=mix_mean(abft_rows, "ms"),
-                 plain_ms=mix_mean(abft_rows, "plain_ms"),
-                 bound_ms=mix_mean(abft_rows, "bound_ms"),
-                 bound_by="bytes", library_ms=None,
-                 per="mean per launch over one DiT-XL evaluation's 172 "
-                     "GEMMs at bucket 2"),
-            dict(name="rollback_correct", route="cuda",
-                 source="src/repro_torch/kernels/csrc/rollback_correct.cu",
-                 replaces="src/repro/kernels/rollback_correct.py:34",
-                 launches=launches["rollback_correct"],
-                 max_abs_err=max(r["max_abs_err"] for r in rb_rows),
-                 ms=mix_mean(rb_rows, "ms"),
-                 plain_ms=mix_mean(rb_rows, "plain_ms"),
-                 bound_ms=mix_mean(rb_rows, "bound_ms"),
-                 bound_by="bytes", library_ms=None,
-                 per="mean per launch over one DiT-XL evaluation's 172 "
-                     "GEMMs at bucket 2"),
-            dict(name="flash_attention", route="cuda",
-                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                 replaces="src/repro/kernels/flash_attention.py:71",
-                 launches=launches["flash_attention"],
-                 max_abs_err=fl["max_abs_err"], ms=fl["ms"],
-                 plain_ms=fl["plain_ms"], bound_ms=fl["bound_ms"],
-                 bound_by=fl["bound_by"], library_ms=fl["library_ms"],
-                 per="one launch, (32, 1024, 72) bf16"),
-        ]
-        print(smi, flush=True)
-        emit({"kernels": summary})
-    else:
-        print(smi, flush=True)
+    print(smi, flush=True)
+    if kernels_out is not None:
+        emit({"kernels": kernel_summary(kernels_out, path_launches)})
     if phases != list(PHASES):
         emit({"partial": phases})      # a subset proves nothing end to end
         return 0

@@ -12,7 +12,10 @@ stable 64-bit mix of (base seed, batch index, step, scope, crc32(name)) and
 draws the mask on the context's device; the tests plug in a source that
 replays the reference's masks bit for bit.
 
-``double_flip`` and ``force_bit`` (Sec 4 sweeps) are not yet ported.
+``inject_f32`` applies a mask to the raw bits of f32 words (the
+autoregressive path's un-quantized GEMM outputs) through the hand-written
+injection kernel (``kernels.fault_inject``). ``double_flip`` and
+``force_bit`` (Sec 4 sweeps) are not yet ported.
 """
 from __future__ import annotations
 
@@ -21,10 +24,12 @@ from typing import Callable, NamedTuple, Sequence
 
 import torch
 
+from repro_torch.kernels.fault_inject import fault_inject
+
 
 class FaultSite(NamedTuple):
     """Identity of one protected GEMM's fault draw."""
-    step: int      # denoising step index
+    step: int      # denoising or decode step index
     scope: int     # 1000 for the embedding context, else the layer index
     name: str      # GEMM name ("attn.q", "mlp.w1", "patch", ...)
 
@@ -61,6 +66,15 @@ def draw_flips(shape: Sequence[int], ber: float, generator: torch.Generator,
     # 1 << 31 wraps to INT32_MIN, the bit-31 pattern.
     one = torch.ones((), dtype=torch.int32, device=device)
     return torch.where(u < p, torch.bitwise_left_shift(one, pos), 0)
+
+
+def inject_f32(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Bit flips on raw float32 words: ``x`` viewed as int32, xor ``mask``
+    (int32 bit patterns, e.g. a flip source's mask for a ``FaultSite``),
+    viewed back as float32."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"inject_f32 takes float32 words, got {x.dtype}")
+    return fault_inject(x, mask)
 
 
 def mix64(*fields: int) -> int:

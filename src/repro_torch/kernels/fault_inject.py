@@ -1,0 +1,66 @@
+"""Bit-flip injection on 32-bit words (wrapper, plain version).
+
+Replaces the TPU kernel ``repro/kernels/fault_inject.py::fault_inject``
+(``pl.pallas_call`` at line 30, body ``_kernel`` at line 17). For ``x``
+int32 or f32 (its raw bits) and an int32 xor mask of the same shape it
+returns ``x ^ mask`` in ``x``'s dtype; bit 31 of the mask is
+``INT32_MIN``. Any shape: the Pallas kernel's (bm, bn) blocks are not
+carried over.
+
+The CUDA kernel (``csrc/fault_inject.cu``) is one flat grid-stride pass
+with 16-byte vector loads where the pointers allow. Bytes bound it on an
+H100 (12 bytes per word over 3.35 TB/s); at the decode path's shapes
+(16 to 64 KB per call) launch latency does.
+
+``fault_inject`` takes the plain version for CPU tensors only; a CUDA
+tensor launches the kernel or raises. ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _lib
+
+launches = 0
+
+_DTYPES = (torch.int32, torch.float32)
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p]
+
+
+def fault_inject_plain(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: xor on the int32 view, viewed back."""
+    return (x.view(torch.int32) ^ mask).view(x.dtype)
+
+
+def _check(x, mask):
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"fault_inject takes int32 or float32 words, got "
+                        f"{x.dtype}")
+    if mask.dtype != torch.int32:
+        raise TypeError(f"the flip mask must be int32 bit patterns, got "
+                        f"{mask.dtype}")
+    if x.shape != mask.shape:
+        raise ValueError(f"mask {tuple(mask.shape)} != x {tuple(x.shape)}")
+    if x.device != mask.device:
+        raise ValueError("fault_inject operands on different devices")
+
+
+def fault_inject(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``x ^ mask`` on the raw 32-bit words, in ``x``'s dtype."""
+    global launches
+    _check(x, mask)
+    if x.device.type == "cpu":
+        return fault_inject_plain(x, mask)
+    if x.device.type != "cuda":
+        raise ValueError(f"fault_inject: unsupported device {x.device}")
+    x, mask = x.contiguous(), mask.contiguous()
+    out = torch.empty_like(x)
+    fn = _lib.function("fault_inject", "fault_inject_launch", _ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), mask.data_ptr(), out.data_ptr(), x.numel(),
+                 _lib.stream_of(x.device))
+    _lib.check(err, "fault_inject")
+    launches += 1
+    return out

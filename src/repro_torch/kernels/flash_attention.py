@@ -14,7 +14,9 @@ f32), so the f32 rate bounds it on an H100: 4*BH*S*S*D flops over
 
 The plain version is ``models.attention.full_attention`` on the folded
 heads. ``flash_attention`` takes it for CPU tensors only; a CUDA tensor
-launches the kernel or raises. ``launches`` counts kernel launches.
+launches the kernel or raises. ``launches`` counts kernel launches,
+those made through ``mha_flash`` (the wrapper the DiT block and the LM
+prefill call) included.
 """
 from __future__ import annotations
 

@@ -2,14 +2,22 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \\
         --batch 2 --steps 10 --mode drift --op undervolt
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
+        --no-smoke --steps 16 --rollback-interval 4
 
 Submits ``--requests`` generation requests (default: one bucket's worth) to
-one engine and prints the per-request results: quality vs the engine's
-cached clean reference, rollback-corrected elements and model evaluations.
+one engine and prints the per-request results: for diffusion archs quality
+vs the engine's cached clean reference, rollback-corrected elements and
+model evaluations; for autoregressive archs the generated tokens, their
+match against the clean decode, detections, rolled-back windows and model
+evaluations. ``--mode`` defaults to ``drift`` for diffusion archs and to
+``stat_abft`` (statistical ABFT with KV-window rollback) for
+autoregressive ones.
+
 Its flags are a subset of ``repro.launch.serve``'s plus ``--device``
 (default "cuda"; without a GPU the engine raises). ``--smoke/--no-smoke``
 is a real switch (default on, like the reference CLI); ``--no-smoke``
-serves the full-width DiT-XL/2-512. ``main(argv, engine=...)`` serves
+serves the full-width model. ``main(argv, engine=...)`` serves
 through an injected engine, whose bucket, device and params then win.
 """
 from __future__ import annotations
@@ -19,10 +27,10 @@ import time
 from typing import Optional, Sequence
 
 from repro_torch.core import dvfs as dvfs_lib
-from repro_torch.core.exec_ctx import PORTED_MODES
 from repro_torch.core.rollback import DEFAULT_INTERVAL
 from repro_torch.serving import DriftServeEngine
 from repro_torch.serving.request import REQUEST_OPS
+from repro_torch.serving.servable import paradigm_for
 
 OP_LADDER_HELP = " -> ".join(p.name for p in dvfs_lib.OP_LADDER)
 
@@ -34,15 +42,21 @@ def positive_int(value: str) -> int:
     return iv
 
 
+def default_mode_for(arch: str) -> str:
+    """``drift`` for diffusion archs, ``stat_abft`` for autoregressive."""
+    return "drift" if paradigm_for(arch) == "diffusion" else "stat_abft"
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="repro_torch.launch.serve",
-        description="Serve DRIFT diffusion requests on PyTorch through one "
-                    "batching engine.",
+        description="Serve DRIFT diffusion or autoregressive requests on "
+                    "PyTorch through one batching engine.",
         epilog=f"DVFS ladder (op 'auto', walked by the BER monitor): "
                f"{OP_LADDER_HELP}.")
     ap.add_argument("--arch", default="dit-xl-512",
-                    help="model to serve (ported: dit-xl-512)")
+                    help="model to serve (ported: dit-xl-512, diffusion; "
+                         "olmo-1b, autoregressive)")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="serve the 3-layer smoke config (--no-smoke: the "
@@ -52,17 +66,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--requests", type=int, default=0,
                     help="requests to submit (0 = one bucket's worth)")
     ap.add_argument("--steps", type=positive_int, default=10,
-                    help="denoising steps")
-    ap.add_argument("--mode", default="drift",
-                    choices=[m for m in PORTED_MODES if m != "float_clean"],
-                    help="protection mode")
+                    help="denoising steps (diffusion) or tokens to decode "
+                         "(autoregressive)")
+    ap.add_argument("--mode", default=None,
+                    choices=["clean", "faulty", "drift", "stat_abft"],
+                    help="protection mode (default: 'drift' for diffusion "
+                         "archs, 'stat_abft' for autoregressive ones, which "
+                         "take clean/faulty/stat_abft only)")
     ap.add_argument("--op", default="undervolt", choices=list(REQUEST_OPS),
                     help="DVFS operating point; 'auto' walks the BER-monitor "
                          f"ladder ({OP_LADDER_HELP})")
     ap.add_argument("--rollback-interval", type=positive_int,
                     default=DEFAULT_INTERVAL, metavar="N",
                     help="rollback checkpoint-refresh interval in steps "
-                         f"(default: {DEFAULT_INTERVAL})")
+                         "(autoregressive: the KV rollback window in "
+                         f"tokens; default: {DEFAULT_INTERVAL})")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda; there is no CPU "
                          "fallback)")
@@ -73,6 +91,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[Sequence[str]] = None,
          engine: Optional[DriftServeEngine] = None) -> list:
     args = build_parser().parse_args(argv)
+    mode = args.mode or default_mode_for(args.arch)
     eng = engine if engine is not None else DriftServeEngine(
         arch=args.arch, smoke=args.smoke, bucket=args.batch,
         base_seed=args.seed, device=args.device)
@@ -80,21 +99,27 @@ def main(argv: Optional[Sequence[str]] = None,
     n_requests = args.requests or bucket
     for i in range(n_requests):
         eng.submit(arch=args.arch, smoke=args.smoke, steps=args.steps,
-                   mode=args.mode, op=args.op, seed=args.seed + i,
+                   mode=mode, op=args.op, seed=args.seed + i,
                    rollback_interval=args.rollback_interval)
     t0 = time.perf_counter()
     results = eng.run()
     wall = time.perf_counter() - t0
 
-    print(f"[serve] {args.arch} smoke={args.smoke} mode={args.mode} "
+    print(f"[serve] {args.arch} smoke={args.smoke} mode={mode} "
           f"op={args.op} steps={args.steps} requests={n_requests} "
           f"bucket={bucket} device={eng.device} wall={wall:.2f}s")
     for r in results:
-        print(f"  req {r.request_id} (batch {r.batch_index}, op {r.op}): "
-              f"lpips-proxy {r.lpips_vs_clean:.4f}  "
-              f"psnr {r.psnr_vs_clean_db:.2f} dB  "
-              f"corrected(batch) {r.batch_corrected_elems}  "
-              f"evals {r.n_model_evals}")
+        head = f"  req {r.request_id} (batch {r.batch_index}, op {r.op}): "
+        if r.tokens is not None:
+            print(head + f"tokens {list(r.tokens)}  match-vs-clean "
+                  f"{r.token_match_vs_clean:.3f}  abft-detections "
+                  f"{r.ar_detections}  kv-rollbacks {r.ar_rollbacks}  "
+                  f"evals {r.n_model_evals}")
+        else:
+            print(head + f"lpips-proxy {r.lpips_vs_clean:.4f}  "
+                  f"psnr {r.psnr_vs_clean_db:.2f} dB  "
+                  f"corrected(batch) {r.batch_corrected_elems}  "
+                  f"evals {r.n_model_evals}")
     print(f"  engine: {eng.cache.builds} sampler builds, {eng.cache.hits} "
           f"cache hits, {eng.stats.batches} batches, "
           f"{eng.stats.padded_slots} padded slots; monitor "

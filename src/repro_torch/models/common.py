@@ -1,15 +1,17 @@
-"""Shared model machinery: the model config, layernorm and inits.
+"""Shared model machinery: the model config, norms, RoPE, activations, inits.
 
-Counterpart of ``repro.models.common``, reduced to what the DiT path uses.
-Parameters are plain nested dicts of tensors, as in the reference.
+Counterpart of ``repro.models.common``, reduced to what the DiT and the
+dense LM paths use. Parameters are plain nested dicts of tensors, as in the
+reference.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 Params = Dict[str, Any]
 
@@ -17,12 +19,23 @@ Params = Dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dit (the only family ported so far)
+    family: str                      # dit | dense (the families ported)
     n_layers: int
     d_model: int
     n_heads: int = 0
+    n_kv_heads: int = 0
     d_ff: int = 0
+    vocab: int = 0
     head_dim: int = 0                # 0 -> d_model // n_heads
+    # --- attention pattern (LM) ---
+    attn_pattern: Tuple[str, ...] = ("global",)   # cycled over layers
+    window: int = 1024               # sliding-window size for 'local' layers
+    logit_softcap: float = 0.0       # gemma2-style final-logit softcap
+    attn_softcap: float = 0.0        # gemma2-style attention-logit softcap
+    norm: str = "rmsnorm"            # rmsnorm | nonparam_ln
+    act: str = "silu"                # silu | gelu
+    tie_embeddings: bool = True
+    rope_theta: float = 10000.0
     # --- DiT (diffusion) ---
     latent_size: int = 0             # spatial latent (e.g. 64 for 512px f8)
     latent_channels: int = 4
@@ -37,12 +50,21 @@ class ModelConfig:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
     @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
     def tokens(self) -> int:
         return (self.latent_size // self.patch_size) ** 2
 
     @property
     def patch_dim(self) -> int:
         return self.patch_size ** 2 * self.latent_channels
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Per-layer attention kind, cycling ``attn_pattern`` over depth."""
+        p = self.attn_pattern
+        return tuple(p[i % len(p)] for i in range(self.n_layers))
 
 
 # ----------------------------------------------------------------- inits
@@ -62,7 +84,22 @@ def dense_init(d_in: int, d_out: int, dtype: torch.dtype, device,
                         generator)
 
 
+def embed_init(vocab: int, d: int, dtype: torch.dtype, device,
+               generator: torch.Generator) -> torch.Tensor:
+    return trunc_normal((vocab, d), 1.0, dtype, device, generator)
+
+
 # ----------------------------------------------------------------- norms
+def rmsnorm(x: torch.Tensor, scale: Optional[torch.Tensor],
+            eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    y = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    if scale is not None:
+        y = y * (1.0 + scale.float())
+    return y.to(dt)
+
+
 def layernorm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
               bias: Optional[torch.Tensor] = None,
               eps: float = 1e-5) -> torch.Tensor:
@@ -79,3 +116,57 @@ def layernorm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
     if bias is not None:
         y = y + bias.float()
     return y.to(dt)
+
+
+def apply_norm(cfg: ModelConfig, p: Optional[Params],
+               x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(x, None if p is None else p.get("scale"))
+    if cfg.norm == "nonparam_ln":   # OLMo: non-parametric LayerNorm
+        return layernorm(x)
+    raise ValueError(f"norm {cfg.norm!r}; ported: rmsnorm, nonparam_ln")
+
+
+def norm_params(cfg: ModelConfig, device="cpu") -> Params:
+    if cfg.norm == "rmsnorm":
+        return {"scale": torch.zeros((cfg.d_model,), dtype=cfg.param_dtype,
+                                     device=device)}
+    return {}  # nonparam_ln
+
+
+# ------------------------------------------------------------------ RoPE
+def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, D), positions: (B, S) or (S,). Each head splits in
+    halves (not interleaved pairs), as in the reference."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)               # (D/2,)
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs           # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def activation(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "silu":
+        return F.silu(x)
+    if cfg.act == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation.
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(cfg.act)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap <= 0:
+        return x
+    return cap * torch.tanh(x / cap)

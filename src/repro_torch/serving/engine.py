@@ -1,7 +1,9 @@
 """The DRIFT batched serving engine.
 
 Counterpart of ``repro.serving.engine.DriftServeEngine``, reduced to the
-main path: a FIFO ``RequestQueue`` and ``MicroBatcher`` grouping requests
+ported paths: DiT diffusion and dense autoregressive decoding, each behind
+its servable (``servable_for(arch)``). A FIFO ``RequestQueue`` and
+``MicroBatcher`` group requests
 into fixed-size same-configuration buckets (short tails padded); a sampler
 cache keyed by (arch, steps, mode, operating point, bucket, rollback
 interval) that builds each configuration once; a params cache; per-request
@@ -32,15 +34,14 @@ from repro_torch import configs
 from repro_torch.core import dvfs as dvfs_lib
 from repro_torch.core import fault
 from repro_torch.diffusion import sampler as sampler_lib
-from repro_torch.models import dit as dit_lib
+from repro_torch.serving import servable as servable_lib
 from repro_torch.serving.batcher import MicroBatch, MicroBatcher
 from repro_torch.serving.cache import CompiledSamplerCache, SamplerKey
 from repro_torch.serving.request import (GenerationRequest, RequestQueue,
                                          RequestResult)
-from repro_torch.serving.servable import DiffusionServable
 
 # Modes whose ABFT detections feed the BER monitor.
-_MONITORED_MODES = ("drift",)
+_MONITORED_MODES = ("drift", "stat_abft")
 
 
 def resolve_device(device) -> torch.device:
@@ -69,7 +70,7 @@ class _BatchCtx:
     batch_index: int
     params: object
     padded_seeds: Tuple[int, ...]
-    inputs: Tuple                 # (latents, cond)
+    inputs: Tuple                 # (latents, cond) or (prompt tokens,)
     flip_source: fault.FlipSource
 
 
@@ -81,7 +82,8 @@ def _default_sampler_factory(key: SamplerKey, model_cfg, scfg):
 
 
 class DriftServeEngine:
-    """Batched serving engine for DRIFT diffusion sampling."""
+    """Batched serving engine for DRIFT diffusion sampling and
+    autoregressive decoding."""
 
     def __init__(self, arch: str = "dit-xl-512", smoke: bool = True,
                  bucket: int = 2, base_seed: int = 0,
@@ -112,14 +114,28 @@ class DriftServeEngine:
         self._clean_samples: "collections.OrderedDict" = \
             collections.OrderedDict()
         self._clean_cache_size = clean_cache_size
-        self.servable = DiffusionServable(self)
+        self._servables: Dict[str, object] = {}
+
+    # ---------------------------------------------------------- servables
+    def servable_for(self, arch: str):
+        """The servable of this arch's family, one per engine."""
+        cls = servable_lib.servable_class(arch)
+        sv = self._servables.get(cls.paradigm)
+        if sv is None:
+            sv = self._servables[cls.paradigm] = cls(self)
+        return sv
+
+    @property
+    def servable(self):
+        """The servable of the engine's default arch."""
+        return self.servable_for(self.default_arch)
 
     # ------------------------------------------------------------- intake
     def submit(self, **fields) -> int:
         """Queue one generation request; returns its request id. ``arch``
         and ``smoke`` default to the engine's; ``steps`` is clamped to
-        ``step_budget``. Fields whose machinery is not yet ported raise a
-        ``ValueError``."""
+        ``step_budget``. A mode the arch's paradigm does not take, and
+        fields whose machinery is not yet ported, raise a ``ValueError``."""
         fields.setdefault("arch", self.default_arch)
         fields.setdefault("smoke", self.default_smoke)
         if fields.get("stream"):
@@ -132,6 +148,7 @@ class DriftServeEngine:
                 "steps"].default
             fields["steps"] = min(fields.get("steps", default_steps), budget)
         configs.get_config(fields["arch"], smoke=fields["smoke"])
+        fields = self.servable_for(fields["arch"]).validate_request(fields)
         return self.queue.submit(**fields)
 
     # ------------------------------------------------------------ serving
@@ -165,7 +182,7 @@ class DriftServeEngine:
         if k not in self._params:
             cfg = configs.get_config(arch, smoke=smoke)
             tag = zlib.crc32(f"{arch}:{smoke}".encode()) & 0x7FFFFFFF
-            self._params[k] = dit_lib.init_params(
+            self._params[k] = self.servable_for(arch).init_params(
                 cfg, fault.mix64(self.base_seed, tag), self.device)
         return self._params[k]
 
@@ -187,16 +204,18 @@ class DriftServeEngine:
             batch_index=batch_index,
             params=self.params_for(key.arch, key.smoke),
             padded_seeds=padded_seeds,
-            inputs=self.servable.batch_inputs(model_cfg, list(padded_seeds)),
+            inputs=self.servable_for(key.arch).batch_inputs(
+                model_cfg, list(padded_seeds)),
             flip_source=self.flip_source_factory(batch_index))
 
     def _run_batch(self, mb: MicroBatch) -> List[RequestResult]:
         ctx = self._prepare_batch(mb)
-        out = self.servable.execute(mb, ctx)
         key = mb.key
+        sv = self.servable_for(key.arch)
+        out = sv.execute(mb, ctx)
         if key.mode in _MONITORED_MODES:
             self.monitor = out.monitor   # Sec 5.1 carry-over across batches
-        outcome = self.servable.finalize(mb, ctx, out)
+        outcome = sv.finalize(mb, ctx, out)
         mon_ber = float(self.monitor.ema_ber)
         mon_idx = int(self.monitor.op_index)
         return [RequestResult(

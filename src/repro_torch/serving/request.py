@@ -1,8 +1,10 @@
 """Serving request/result types and the FIFO request queue.
 
 Counterpart of ``repro.serving.request``. A ``GenerationRequest`` names
-the arch, step count, protection mode and DVFS operating point (``"auto"``
-defers to the engine's BER-monitor ladder). The request schema keeps the
+the arch, step count (denoising steps, or tokens to decode), protection
+mode and DVFS operating point (``"auto"`` defers to the engine's
+BER-monitor ladder). Which modes an arch takes depends on its paradigm and
+is checked at submit by its servable (``servable.validate_request``). The request schema keeps the
 reference's fields, but those whose machinery is not yet ported --
 TaylorSeer, narrowed precision plans, ``rollback_interval="auto"``,
 priority and deadlines, energy budgets and quality floors -- raise a
@@ -15,7 +17,7 @@ import dataclasses
 from typing import Deque, List, Optional, Union
 
 from repro_torch.core.dvfs import OP_LADDER
-from repro_torch.core.exec_ctx import MODES, PORTED_MODES
+from repro_torch.core.exec_ctx import MODES
 from repro_torch.core.rollback import DEFAULT_INTERVAL
 
 REQUEST_OPS = ("nominal", "undervolt", "overclock", "auto") + tuple(
@@ -37,7 +39,7 @@ class GenerationRequest:
     steps: int = 10
     mode: str = "drift"
     op: str = "undervolt"
-    seed: int = 0                  # drives this request's initial latents
+    seed: int = 0                  # drives its initial latents or prompt
     taylorseer: bool = False
     precision: str = "int8"
     rollback_interval: Union[int, str] = DEFAULT_INTERVAL
@@ -54,8 +56,6 @@ class GenerationRequest:
         if self.mode not in MODES:
             raise ValueError(
                 f"unknown DRIFT mode {self.mode!r}; one of {MODES}")
-        if self.mode not in PORTED_MODES:
-            raise _not_ported(f"mode {self.mode!r}", "4 (baselines)")
         if self.steps < 1:
             raise ValueError(f"steps must be >= 1, got {self.steps}")
         if self.taylorseer:
@@ -100,8 +100,15 @@ class RequestResult:
     monitor_ber: float
     monitor_op_index: int
     # this request's sample: its slot of the batch latents, clipped to
-    # [-1, 1], shape (H, W, C)
+    # [-1, 1], shape (H, W, C); None for autoregressive requests
     latents: Optional[object] = None
+    # autoregressive requests: generated token ids, the share equal to the
+    # clean reference's, statistical-ABFT flagged rows and rolled-back
+    # windows (both per batch)
+    tokens: Optional[tuple] = None
+    token_match_vs_clean: Optional[float] = None
+    ar_detections: int = 0
+    ar_rollbacks: int = 0
 
 
 class RequestQueue:

@@ -1,29 +1,40 @@
-"""DiffusionServable: how one diffusion micro-batch computes.
+"""Servables: how one micro-batch of a paradigm computes.
 
-Counterpart of ``repro.serving.servable.DiffusionServable``: request seeds
-become initial latents and class ids (``batch_inputs``), a ``SamplerKey``
-becomes a built sampler (``build_fn``), a batch runs (``execute``) and is
-scored against the cached error-free reference of the same latents
-(``finalize``). The autoregressive servable and streaming wait for later
-slices.
+Counterpart of ``repro.serving.servable``. The engine owns the queue,
+batcher, cache and monitor; a servable checks a request's mode for its
+paradigm (``validate_request``), turns request seeds into model inputs
+(``batch_inputs``), a ``SamplerKey`` into built callables (``build_fn``),
+runs a batch (``execute``) and scores it against the cached error-free
+reference of the same inputs (``finalize``). Two ship, as in the
+reference; ``SERVABLE_BY_FAMILY`` maps each ported family to one, and each
+provides its family's params init (``init_params``):
 
-Initial latents come from the port's own generator, one
+* ``DiffusionServable`` -- the DRIFT denoising path (DiT).
+* ``AutoregressiveServable`` -- token-by-token decode with statistical
+  ABFT and KV-window rollback (``serving.ar``), without the reference's
+  perfmodel run shape and tracer taps (ROADMAP Queue A items 8 and 10).
+
+Initial latents and prompts come from the port's own generator, one
 ``torch.Generator`` per request seed; tests that compare with the
-reference hand the reference's latents in by replacing ``batch_inputs``.
+reference hand the reference's inputs in by replacing ``batch_inputs``.
+Streaming waits for a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import configs
 from repro_torch.core import dvfs as dvfs_lib
 from repro_torch.core import fault, metrics
-from repro_torch.core.exec_ctx import DriftSystemConfig
+from repro_torch.core.exec_ctx import PORTED_MODES, DriftSystemConfig
 from repro_torch.core.rollback import RollbackConfig
 from repro_torch.diffusion import sampler as sampler_lib
+from repro_torch.models import dit, transformer
+from repro_torch.serving import ar
 from repro_torch.serving.cache import SamplerKey
 
 # Stream tag mixed into a request seed for its initial latents (the
@@ -43,9 +54,19 @@ class DiffusionServable:
     """The DRIFT denoising path for one engine."""
 
     paradigm = "diffusion"
+    init_params = staticmethod(dit.init_params)
 
     def __init__(self, engine):
         self.eng = engine
+
+    def validate_request(self, fields: dict) -> dict:
+        mode = fields.get("mode", "drift")
+        if mode not in PORTED_MODES:
+            raise ValueError(
+                f"mode {mode!r} is not yet ported to repro_torch for "
+                "diffusion archs (ROADMAP Queue A item 4, baselines); "
+                f"ported: {PORTED_MODES}")
+        return fields
 
     def batch_inputs(self, model_cfg, seeds: List[int]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -128,3 +149,142 @@ class DiffusionServable:
         return BatchOutcome(corrected=int(out.total_corrected),
                             n_model_evals=int(out.n_model_evals),
                             per_slot=per_slot)
+
+
+# ----------------------------------------------------- autoregressive path
+class AutoregressiveServable:
+    """Token-by-token decode with statistical ABFT and KV-window rollback
+    (``serving.ar``) behind the engine's queue, cache and monitor."""
+
+    paradigm = "autoregressive"
+    init_params = staticmethod(transformer.init_params)
+
+    #: the AR protection story is detection + window rollback; "drift"
+    #: (inline tile rollback) is a diffusion mechanism.
+    ALLOWED_MODES = ("clean", "faulty", "stat_abft")
+
+    def __init__(self, engine):
+        self.eng = engine
+        # (arch, smoke) -> (params object, its prepared Weights)
+        self._weights: Dict[Tuple[str, bool], tuple] = {}
+
+    def validate_request(self, fields: dict) -> dict:
+        mode = fields.get("mode", "drift")
+        if mode not in self.ALLOWED_MODES:
+            raise ValueError(
+                f"request for AR arch {fields.get('arch')!r} has mode="
+                f"{mode!r}: autoregressive serving supports modes "
+                f"{'/'.join(self.ALLOWED_MODES)} (statistical ABFT with "
+                "KV-cache window rollback)")
+        return fields
+
+    def batch_inputs(self, model_cfg, seeds: List[int]) -> Tuple:
+        return (ar.prompt_tokens(model_cfg, seeds, self.eng.device),)
+
+    def build_fn(self, key: SamplerKey) -> ar.DecoderFns:
+        eng = self.eng
+        model_cfg = configs.get_config(key.arch, smoke=key.smoke)
+        if key.mode == "clean" or not key.op:
+            schedule = None
+        else:
+            schedule = dvfs_lib.fine_grained_schedule(
+                key.steps, dvfs_lib.OP_BY_NAME[key.op],
+                nominal_steps=eng.nominal_steps)
+        return ar.make_decoder(
+            model_cfg,
+            ar.DecodeConfig(steps=key.steps,
+                            window=min(int(key.rollback_interval),
+                                       key.steps),
+                            mode=key.mode,
+                            monitor_target_ber=eng.monitor_target_ber),
+            schedule=schedule)
+
+    def _weights_for(self, key: SamplerKey, params) -> transformer.Weights:
+        """The prepared weights of ``params``, built once per params
+        object (``set_params`` swaps the object and so re-prepares)."""
+        k = (key.arch, key.smoke)
+        hit = self._weights.get(k)
+        if hit is None or hit[0] is not params:
+            cfg = configs.get_config(key.arch, smoke=key.smoke)
+            hit = self._weights[k] = (params,
+                                      transformer.prepare(cfg, params))
+        return hit[1]
+
+    def execute(self, mb, ctx):
+        fns = self.eng.cache.get(mb.key, self.build_fn)
+        (tokens,) = ctx.inputs
+        return ar.decode_batch(fns, self._weights_for(mb.key, ctx.params),
+                               tokens, self.eng.monitor, ctx.flip_source)
+
+    def _clean_tokens(self, mb, ctx) -> torch.Tensor:
+        """Fault-free reference decode of this (configuration, prompts),
+        cached in the engine's clean-sample LRU like the diffusion one."""
+        eng = self.eng
+        ckey = dataclasses.replace(mb.key, mode="clean", op="")
+        sample_id = (ckey, ctx.padded_seeds)
+        cached = eng._clean_samples.get(sample_id)
+        if cached is not None:
+            eng._clean_samples.move_to_end(sample_id)
+            eng.stats.clean_sample_hits += 1
+            return cached
+        fns = eng.cache.get(ckey, self.build_fn)
+        (tokens,) = ctx.inputs
+        out = ar.decode_batch(fns, self._weights_for(mb.key, ctx.params),
+                              tokens, dvfs_lib.ber_monitor_init(eng.device),
+                              None)
+        clean = out.tokens
+        eng._clean_samples[sample_id] = clean
+        while len(eng._clean_samples) > eng._clean_cache_size:
+            eng._clean_samples.popitem(last=False)
+        eng.stats.clean_samples_computed += 1
+        return clean
+
+    def finalize(self, mb, ctx, out) -> BatchOutcome:
+        toks = out.tokens.cpu().numpy()                # (B, steps)
+        if mb.key.mode == "clean":
+            clean = toks
+        else:
+            clean = self._clean_tokens(mb, ctx).cpu().numpy()
+        per_slot = []
+        for slot in range(len(mb.requests)):
+            mismatch = float(np.mean(toks[slot] != clean[slot]))
+            # token-space stand-ins for the image metrics of the result
+            # schema: lpips ~ mismatch share, psnr ~ -10 log10 of it
+            psnr = 99.0 if mismatch == 0.0 else float(
+                -10.0 * np.log10(mismatch))
+            per_slot.append(dict(
+                lpips_vs_clean=mismatch, psnr_vs_clean_db=psnr,
+                latents=None, tokens=tuple(int(t) for t in toks[slot]),
+                token_match_vs_clean=1.0 - mismatch,
+                ar_detections=int(out.detections),
+                ar_rollbacks=int(out.rollbacks)))
+        return BatchOutcome(corrected=int(out.rollbacks),
+                            n_model_evals=int(out.n_model_evals),
+                            per_slot=per_slot)
+
+
+# family -> its servable class, for the families the port has.
+SERVABLE_BY_FAMILY = {
+    "dit": DiffusionServable,
+    "dense": AutoregressiveServable,
+}
+
+# family -> serving paradigm, as the reference names them.
+PARADIGM_BY_FAMILY: Dict[str, str] = {
+    fam: cls.paradigm for fam, cls in SERVABLE_BY_FAMILY.items()}
+
+
+def servable_class(arch: str):
+    """The servable class of an arch's family (raises for archs not yet
+    ported)."""
+    family = configs.get_config(arch).family
+    if family not in SERVABLE_BY_FAMILY:
+        raise NotImplementedError(
+            f"arch {arch!r}: family {family!r} has no servable in "
+            "repro_torch yet (ROADMAP Queue A item 12)")
+    return SERVABLE_BY_FAMILY[family]
+
+
+def paradigm_for(arch: str) -> str:
+    """Serving paradigm of an arch (raises for archs not yet ported)."""
+    return servable_class(arch).paradigm

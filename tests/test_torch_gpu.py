@@ -10,8 +10,11 @@ import pytest
 import torch
 
 from repro_torch.kernels import abft_matmul as tak
+from repro_torch.kernels import fault_inject as tfi
 from repro_torch.kernels import flash_attention as tfk
+from repro_torch.kernels import ops
 from repro_torch.kernels import rollback_correct as trk
+from repro_torch.kernels import stat_abft
 
 
 def _int8(rng, shape, extreme=False):
@@ -88,3 +91,74 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, tol, causal):
     want = tfk.flash_attention_plain(q, k, v, causal=causal)
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("shape,offset", [((2, 2048), 0), ((2, 1, 8192), 0),
+                                          ((7, 13), 0), ((1001,), 1)])
+def test_fault_inject_kernel_matches_plain_on_card(cuda, dtype, shape,
+                                                   offset):
+    """Bit-equal on int32 views, vector path, ragged tails and (offset 1)
+    the unaligned scalar path."""
+    rng = np.random.default_rng(11)
+    n = int(np.prod(shape)) + offset
+    x = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64
+                                      ).astype(np.int32)).to(cuda)
+    x = x[offset:].reshape(shape).view(dtype)
+    m = _flips(rng, (n,), p=0.1)
+    m[offset] = np.uint32(1 << 31)
+    mask = torch.from_numpy(m.view(np.int32)).to(cuda)[offset:].reshape(
+        shape)
+    n0 = tfi.launches
+    got = tfi.fault_inject(x, mask)
+    torch.cuda.synchronize()
+    assert tfi.launches == n0 + 1 and got.dtype == dtype
+    assert torch.equal(got.view(torch.int32),
+                       tfi.fault_inject_plain(x, mask).view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_kernel_at_prefill_shape_on_card(cuda, dtype, tol):
+    """The LM prefill's (32, 8, 128) causal call, head dim 128 (the NC = 4
+    instantiation with over 48 KB of shared memory)."""
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype)
+               for x in _qkv(rng, (32, 8, 128)))
+    got = tfk.flash_attention(q, k, v, causal=True)
+    want = tfk.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blk,thr", [(128, 0), (32, 1 << 10)])
+def test_stat_abft_matmul_matches_plain_on_card(cuda, blk, thr):
+    rng = np.random.default_rng(blk)
+    aq = torch.from_numpy(_int8(rng, (128, 96))).to(cuda)
+    bq = torch.from_numpy(_int8(rng, (96, 256))).to(cuda)
+    fl = _flips(rng, (128, 256), p=0.02)
+    fl[3, 5] = np.uint32(1 << 31)
+    flips = torch.from_numpy(fl.view(np.int32)).to(cuda)
+    got = stat_abft.stat_abft_matmul(aq, bq, flips, thr, bm=blk, bn=blk)
+    want = stat_abft.stat_abft_matmul_plain(aq, bq, flips, thr, bm=blk,
+                                            bn=blk)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_drift_gemm_matches_plain_on_card(cuda):
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((70, 50)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((50, 90)).astype(np.float32))
+    ck = torch.from_numpy(rng.standard_normal((70, 90)).astype(np.float32))
+    fl = _flips(rng, ops.padded_shape(70, 90), p=0.05)
+    flips = torch.from_numpy(fl.view(np.int32))
+    args = [t.to(cuda) for t in (x, w, ck, flips)]
+    got = ops.drift_gemm(*args)
+    want = ops.drift_gemm_plain(*args)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+    assert int(got.n_flagged_tiles) > 0
