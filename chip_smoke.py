@@ -9,25 +9,33 @@ Phases, each printing one JSON line with its wall time:
 
 1. device   -- the card (nvidia-smi name and power limit), torch and CUDA.
 2. build    -- compile the four CUDA kernels from ``src/repro_torch/
-               kernels/csrc`` (one nvcc each, in parallel).
+               kernels/csrc`` (one nvcc each, in parallel); registers and
+               spill bytes of every compiled kernel (``ptxas -v``).
 3. kernels  -- each kernel against its plain PyTorch version on the card,
                at the shapes the serving path gives it: ``abft_matmul`` at
                the seven padded GEMM shapes of DiT-XL/2-512 at bucket 2
                (flips at BER 3e-3 plus one bit-31 flip; all five outputs
                bit-equal), ``rollback_correct`` (union and cross, bit-equal)
-               and ``flash_attention`` ((32, 1024, 72), bf16 and f32, within
-               the stated tolerance). Device times from ``torch.profiler``
-               (the kernel, its plain version and a PyTorch library call
-               where one exists), the wall time per call with CUDA events
-               (``wall_ms``, host launch overhead included), and the least
-               time the card could take (``bound_ms``). Timed calls cycle
+               and attention as the DiT block calls it (``mha_flash`` on
+               (2, 1024, 16, 72) reshaped projections in place, and the
+               ``(BH, S, D)`` entry point ``flash_attention`` on folded
+               copies; bf16 on the tensor cores within 1e-2 and f32
+               within 2e-5 of the plain version). Device times
+               from ``torch.profiler`` (the kernel, its plain version and a
+               PyTorch library call where one exists, attention's SDPA in
+               the row's dtype), the wall time per call with CUDA events
+               (``wall_ms``, host launch overhead included), the least
+               time the card could take (``bound_ms``, attention's at the
+               bf16 or f32 rate of its dtype) and attention's achieved
+               TFLOP/s. Timed calls cycle
                through copies of their inputs that together exceed twice
                the L2, so each call reads its inputs cold from HBM. Then
                the autoregressive slice's: ``fault_inject`` at the decode
                GEMM outputs (2, 1, 2048) and (2, 1, 8192) f32 and at
                8192 x 8192 int32 (bit-equal on int32 views), the prefill's
                attention call ``mha_flash`` at (2, 8, 16, 128) causal
-               (bf16 and f32, within tolerance), and the composites
+               (bf16 and f32, within tolerance; one kernel on the
+               (B, S, H, D) inputs in place), and the composites
                ``stat_abft_matmul`` and ``drift_gemm`` at one DiT GEMM
                shape (bit-equal).
 4. reference -- the SMOKE DiT and the SMOKE olmo-1b served on the card
@@ -64,10 +72,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "reference", "serve", "ar")
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, int8 tensor-core
-# rate, float32 rate outside the tensor cores.
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, int8 and bf16
+# tensor-core rates, float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12
 L2_BYTES = 50 * 2 ** 20
 
@@ -151,6 +160,51 @@ def device_ms(fn, ring, reps: int, name=""):
         return total_us / 1e3 / reps
     TIMERS.add("cuda events (profiler saw no device time)")
     return time_ms(fn, ring, reps)
+
+
+def flops_per_s(dtype) -> float:
+    """The card's peak rate for attention's products in ``dtype``."""
+    import torch
+    return BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+
+
+def tflops(flops: float, ms) -> float:
+    """Achieved TFLOP/s of ``flops`` done in ``ms``."""
+    return flops / (ms * 1e-3) / 1e12 if ms else None
+
+
+def ptxas_summary(log: str):
+    """Registers and spill bytes per kernel from ``nvcc -Xptxas=-v``."""
+    import re
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            out.append(dict(function=name))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and out:
+            out[-1].update(spill_stores=int(m.group(1)),
+                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and out:
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
+def kernel_names(fn, args):
+    """The device kernels one call ``fn(*args)`` runs (``torch.profiler``),
+    so a yardstick's row says which implementation the library took."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    return sorted({ev.key[:100] for ev in prof.key_averages()
+                   if getattr(ev, "self_device_time_total",
+                              getattr(ev, "self_cuda_time_total", 0)) > 0})
 
 
 def max_abs_err(got, want) -> float:
@@ -279,40 +333,80 @@ def phase_kernels(torch, reps: int):
           "shapes": rb_rows})
 
     import torch.nn.functional as F
-    bh, s, d = BUCKET * cfg.n_heads, cfg.tokens, cfg.hd
+    from repro_torch.models.attention import full_attention
+    # The DiT block's call: mha_flash on q, k, v each a (B*T, H*hd)
+    # projection reshaped to (B, T, H, hd), so token stride H*hd and head
+    # stride hd, read in place.
+    b, s, h, d = BUCKET, cfg.tokens, cfg.n_heads, cfg.hd
     fl_rows = {}
-    for dtype, tol in ((torch.bfloat16, 3e-2), (torch.float32, 2e-5)):
-        q, k, v = (torch.randn((bh, s, d), generator=g, device=dev
+
+    def plain(q_, k_, v_):
+        return full_attention(q_, k_, v_, causal=False)
+    # bf16 at 1e-2: typical |o| is ~0.04 here (softmax over 1024 keys
+    # averages v), so the Pallas test's 3e-2 would leave room for a lost
+    # key tile.
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 2e-5)):
+        q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev
                                ).to(dtype) for _ in range(3))
-        got = fk.flash_attention(q, k, v)
-        want = fk.flash_attention_plain(q, k, v)
+        got = fk.mha_flash(q, k, v)
+        want = plain(q, k, v)
+        # The (BH, S, D) entry point, the case H = 1, on folded copies.
+        fold = [x.transpose(1, 2).reshape(b * h, s, d) for x in (q, k, v)]
+        got_bh = fk.flash_attention(*fold).view(b, h, s, d).transpose(1, 2)
         torch.cuda.synchronize()
         err = max_abs_err([got], [want])
-        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
-            raise AssertionError(f"flash_attention {dtype}: max abs err "
-                                 f"{err} beyond {tol}")
-        flops = 4 * bh * s * s * d
-        bytes_ = 4 * bh * s * d * q.element_size()
-        t_o, t_b = flops / F32_FLOPS_PER_S, bytes_ / HBM_BYTES_PER_S
+        err_bh = max_abs_err([got_bh], [want])
+        for label, out in (("mha_flash", got), ("flash_attention", got_bh)):
+            if not torch.allclose(out.float(), want.float(), atol=tol,
+                                  rtol=tol):
+                raise AssertionError(
+                    f"{label} {dtype} at {(b, s, h, d)}: max abs err "
+                    f"{max_abs_err([out], [want])} beyond {tol}")
+        flops = 4 * b * h * s * s * d
+        bytes_ = 4 * q.numel() * q.element_size()
+        t_o, t_b = flops / flops_per_s(dtype), bytes_ / HBM_BYTES_PER_S
         ring = ring_of((q, k, v), bytes_)
-        lib_ring = [tuple(x.float().reshape(BUCKET, cfg.n_heads, s, d)
-                          for x in r) for r in ring]
-        fl_rows[str(dtype).split(".")[-1]] = dict(
-            shape=[bh, s, d], tol=tol, max_abs_err=err, ring=len(ring),
-            ms=device_ms(fk.flash_attention, ring, reps, "flash_attention"),
-            wall_ms=time_ms(fk.flash_attention, ring, reps),
-            plain_ms=device_ms(fk.flash_attention_plain, ring, reps),
+        # SDPA on (B, H, S, D) transposed views of the same inputs.
+        lib_ring = [tuple(x.transpose(1, 2) for x in r) for r in ring]
+        bh_ring = ring_of(fold, bytes_)
+        row = dict(
+            shape=[b, s, h, d], tol=tol, max_abs_err=err,
+            rel_l2_err=float((got.double() - want.double()).norm()
+                             / want.double().norm()),
+            ring=len(ring),
+            ms=device_ms(fk.mha_flash, ring, reps),
+            kernel_ms=device_ms(fk.mha_flash, ring, reps,
+                                "flash_attention"),
+            wall_ms=time_ms(fk.mha_flash, ring, reps),
+            plain_ms=device_ms(plain, ring, reps),
             library_ms=device_ms(F.scaled_dot_product_attention, lib_ring,
                                  reps),
+            bh_max_abs_err=err_bh,
+            bh_ms=device_ms(fk.flash_attention, bh_ring, reps,
+                            "flash_attention"),
             bound_ms=1e3 * max(t_o, t_b),
             bound_by="operations" if t_o >= t_b else "bytes")
-        del ring, lib_ring
+        row.update(tflops=tflops(flops, row["ms"]),
+                   library_tflops=tflops(flops, row["library_ms"]),
+                   library_kernels=kernel_names(
+                       F.scaled_dot_product_attention, lib_ring[0]))
+        fl_rows[str(dtype).split(".")[-1]] = row
+        del ring, lib_ring, bh_ring, fold
     emit({"phase": "kernels", "timers": sorted(TIMERS)})
     emit({"phase": "kernels", "kernel": "flash_attention",
           "per_eval": cfg.n_layers, "dtypes": fl_rows,
-          "note": "library_ms is F.scaled_dot_product_attention on the same "
-                  "inputs in f32; tolerance vs the plain f32 full_attention: "
-                  "2e-5 f32 (summation order), 3e-2 bf16 (bf16 output)"})
+          "note": "the DiT's call: mha_flash on (B, T, H, hd) reshaped "
+                  "projections, token stride H*hd; ms is every kernel of "
+                  "the call, kernel_ms the attention kernel alone; bh_ms "
+                  "and bh_max_abs_err are the (BH, S, D) entry point "
+                  "flash_attention on folded copies; library_ms is "
+                  "F.scaled_dot_product_attention on (B, H, S, D) "
+                  "transposed views in the row's dtype; bound_ms takes the "
+                  "bf16 tensor-core rate (989 TFLOP/s) for bf16 and the "
+                  "f32 rate (67) for f32; tflops is achieved; tolerance vs "
+                  "the plain full_attention (p in f32): 2e-5 f32 "
+                  "(summation order), 1e-2 bf16 (p and output rounded to "
+                  "bf16; typical |o| ~0.04)"})
     return abft_rows, rb_rows, fl_rows
 
 
@@ -399,11 +493,11 @@ def phase_kernels_ar(torch, reps: int):
             raise AssertionError(f"mha_flash {dtype} at {(b, s, h, d)}: max "
                                  f"abs err {err} beyond {tol}")
         pairs = s * (s + 1) // 2                  # causal (query, key)
-        t_o = 4 * b * h * d * pairs / F32_FLOPS_PER_S
+        flops = 4 * b * h * d * pairs
+        t_o = flops / flops_per_s(dtype)
         t_b = 4 * b * s * h * d * q.element_size() / HBM_BYTES_PER_S
         ring = ring_of((q, k, v), 4 * q.numel() * q.element_size())
-        lib_ring = [tuple(x.transpose(1, 2).contiguous() for x in r)
-                    for r in ring]
+        lib_ring = [tuple(x.transpose(1, 2) for x in r) for r in ring]
 
         def mha(q_, k_, v_):
             return fk.mha_flash(q_, k_, v_, causal=True)
@@ -413,9 +507,8 @@ def phase_kernels_ar(torch, reps: int):
 
         def sdpa(q_, k_, v_):
             return F.scaled_dot_product_attention(q_, k_, v_, is_causal=True)
-        mha_rows[str(dtype).split(".")[-1]] = dict(
-            shape=[b, s, h, d], folded=[b * h, s, d], tol=tol,
-            max_abs_err=err, ring=len(ring),
+        row = dict(
+            shape=[b, s, h, d], tol=tol, max_abs_err=err, ring=len(ring),
             ms=device_ms(mha, ring, reps),
             kernel_ms=device_ms(mha, ring, reps, "flash_attention"),
             wall_ms=time_ms(mha, ring, reps),
@@ -423,12 +516,17 @@ def phase_kernels_ar(torch, reps: int):
             library_ms=device_ms(sdpa, lib_ring, reps),
             bound_ms=1e3 * max(t_o, t_b),
             bound_by="operations" if t_o >= t_b else "bytes")
+        row.update(tflops=tflops(flops, row["ms"]),
+                   library_tflops=tflops(flops, row["library_ms"]),
+                   library_kernels=kernel_names(sdpa, lib_ring[0]))
+        mha_rows[str(dtype).split(".")[-1]] = row
         del ring, lib_ring
     emit({"phase": "kernels", "kernel": "mha_flash", "rows": mha_rows,
-          "note": "ms is every kernel of the call (head folds included), "
-                  "kernel_ms the attention kernel alone; library_ms is "
+          "note": "ms is every kernel of the call, kernel_ms the attention "
+                  "kernel alone (equal: the call launches one kernel on the "
+                  "(B, S, H, D) inputs in place); library_ms is "
                   "F.scaled_dot_product_attention(is_causal=True) on "
-                  "(B, H, S, D) copies"})
+                  "(B, H, S, D) transposed views, in the row's dtype"})
 
     # The composites, at the DiT's attention GEMM shape.
     m, kk, n = 2048, 1152, 1152
@@ -697,9 +795,12 @@ def _profile_request(torch, eng, argv):
             rows.append((us, ev.key, ev.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
+    fa = sum(r[0] for r in rows if "flash_attention" in r[1]) / 1e6
     return dict(what="1 drift request, 3 steps, plus its clean reference "
                      "(6 evaluations)", wall_s=wall, device_busy_s=busy,
-                device_busy_share=busy / wall,
+                device_busy_share=busy / wall, flash_attention_s=fa,
+                flash_attention_share_of_busy=fa / busy if busy else None,
+                n_kernels=sum(r[2] for r in rows),
                 top=[dict(kernel=k[:80], device_s=us / 1e6, calls=c)
                      for us, k, c in rows[:12]])
 
@@ -918,12 +1019,14 @@ def kernel_summary(kernels_out, path_launches):
             "bucket 2", None),
         row("flash_attention", csrc + "flash_attention.cu",
             "src/repro/kernels/flash_attention.py:71", fl, fl["bound_by"],
-            "one launch, (32, 1024, 72) bf16 (the DiT's call)",
+            "one launch through mha_flash on the DiT's (2, 1024, 16, 72) "
+            "bf16 projections in place (token stride 1152)",
             fl["library_ms"]),
         row("mha_flash", "src/repro_torch/kernels/flash_attention.py",
             "src/repro/kernels/flash_attention.py:105", mha,
             mha["bound_by"], "one call, (2, 8, 16, 128) bf16 causal (the "
-            "olmo-1b prefill's), head folds included", mha["library_ms"],
+            "olmo-1b prefill's), one kernel on the tensors in place",
+            mha["library_ms"],
             counted="flash_attention", paths=("ar",),
             note="the flash_attention launches of the ar path, each made "
                  "through mha_flash; not a kernel of its own"),
@@ -983,9 +1086,7 @@ def main(argv=None) -> int:
         elif phase == "build":
             logs = _lib.build_all(ptxas_verbose=True)
             rec["built"] = sorted(logs)
-            rec["ptxas"] = {n: [ln.strip() for ln in log.splitlines()
-                                if "registers" in ln or "spill" in ln][:8]
-                            for n, log in logs.items()}
+            rec["ptxas"] = {n: ptxas_summary(log) for n, log in logs.items()}
         elif phase == "kernels":
             kernels_out = (phase_kernels(torch, args.reps)
                            + phase_kernels_ar(torch, args.reps))

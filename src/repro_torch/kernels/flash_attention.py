@@ -1,22 +1,31 @@
-"""Online-softmax (flash) attention (wrapper, plain version, (B,S,H,D) fold).
+"""Online-softmax (flash) attention (wrapper, plain version, strided layout).
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::
 flash_attention`` (``pl.pallas_call`` at line 83, body ``_kernel`` at
-line 30) and its ``mha_flash`` fold wrapper (line 105). ``q, k, v`` are
-``(BH, S, D)`` f32 or bf16 with D <= 128; the output has the input dtype.
-The constants are the TPU kernel's: masked scores ``NEG_INF = -2e38``, the
-normaliser clamped at ``1e-37``, scale ``D ** -0.5``; causal or not.
+line 30) and its ``(B, S, H, D)`` wrapper ``mha_flash`` (line 105).
+``q, k, v`` are f32 or bf16 with D <= 128; the output has the input
+dtype. The constants are the TPU kernel's: masked scores
+``NEG_INF = -2e38``, the normaliser clamped at ``1e-37``, scale
+``D ** -0.5`` rounded to f32; causal or not.
 
-The CUDA kernel (``csrc/flash_attention.cu``) computes in f32 on CUDA cores
-(the DiT's head dim 72 is no multiple of 16, and the reference softmax is
-f32), so the f32 rate bounds it on an H100: 4*BH*S*S*D flops over
-67 TFLOP/s, ~0.15 ms at BH=32, S=1024, D=72.
+The CUDA kernel (``csrc/flash_attention.cu``) reads q, k and v where they
+lie, at the strides ``launch_args`` hands it, so ``mha_flash`` launches on
+the caller's ``(B, S, H, D)`` tensors (views of a fused projection
+included) and writes a contiguous ``(B, S, H, D)`` output: one kernel per
+call, no head folds. ``flash_attention`` on ``(BH, S, D)`` is the case
+H = 1. bf16, the serving paths' dtype, runs on the tensor cores
+(``mma.sync`` m16n8k16, f32 accumulation, P rounded to bf16 before P V as
+the Pallas kernel rounds it); operations bind it on an H100 SXM,
+4*B*H*S*S*D flops over 989 TFLOP/s, 0.0098 ms at the DiT's
+(32, 1024, 72). f32 runs on the first port's CUDA-core kernel (bound by
+the f32 rate, 67 TFLOP/s), in the SMOKE configs and tests only.
 
-The plain version is ``models.attention.full_attention`` on the folded
-heads. ``flash_attention`` takes it for CPU tensors only; a CUDA tensor
-launches the kernel or raises. ``launches`` counts kernel launches,
-those made through ``mha_flash`` (the wrapper the DiT block and the LM
-prefill call) included.
+The plain version is ``models.attention.full_attention``, which keeps P
+in f32: the bf16 kernel agrees with it within 3e-2, the Pallas test's own
+tolerance, and the f32 kernel within 2e-5. The wrappers take it for CPU
+tensors only; a CUDA tensor launches the kernel or raises. ``launches``
+counts kernel launches, those made through ``mha_flash`` (the wrapper the
+DiT block and the LM prefill call) included.
 """
 from __future__ import annotations
 
@@ -31,8 +40,9 @@ MAX_D = 128
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float]
-             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float]
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -44,49 +54,79 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(bh, s, d)
 
 
-def _check(q, k, v):
+def _check(q, k, v, ndim):
     if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention takes f32 or bf16 q/k/v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.ndim != 3 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"q, k, v must share one (BH, S, D) shape, got "
+    if q.ndim != ndim or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q, k, v must share one {ndim}-d shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    if q.shape[2] > MAX_D:
-        raise ValueError(f"head dim {q.shape[2]} > {MAX_D}")
+    if q.shape[-1] > MAX_D:
+        raise ValueError(f"head dim {q.shape[-1]} > {MAX_D}")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention operands on different devices")
-
-
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = False) -> torch.Tensor:
-    """q, k, v: (BH, S, D) -> (BH, S, D) in the input dtype."""
-    global launches
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    bh, s, d = q.shape
-    o = torch.empty_like(q)
+
+
+def launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                o: torch.Tensor):
+    """The C launcher's layout arguments for ``(B, S, H, D)`` tensors.
+
+    Returns ``(B, S, H, D, strides, vec)``: ``strides`` holds the batch,
+    token and head strides in elements of q, k, v and o (12 ints; the last
+    dim must be contiguous), and ``vec`` says that every row start is
+    16-byte aligned and D a whole number of 16-byte chunks, so the kernel
+    may move tiles in 16-byte copies. Strides of size-1 dims are ignored
+    for alignment (they address nothing).
+    """
+    b, s, h, d = q.shape
+    per16 = 16 // q.element_size()
+    strides, vec = [], d % per16 == 0
+    for x in (q, k, v, o):
+        if x.stride(3) != 1 and d > 1:
+            raise ValueError(f"last dim must be contiguous, stride "
+                             f"{x.stride(3)}")
+        st = x.stride()[:3]
+        strides.extend(st)
+        vec = vec and x.data_ptr() % 16 == 0 and all(
+            st[i] % per16 == 0 for i in range(3) if x.shape[i] > 1)
+    return b, s, h, d, tuple(strides), vec
+
+
+def _launch(q, k, v, causal):
+    """Launch on (B, S, H, D) CUDA tensors; a contiguous (B, S, H, D) out."""
+    global launches
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    b, s, h, d, strides, vec = launch_args(q, k, v, o)
     fn = _lib.function("flash_attention", "flash_attention_launch",
                        _ARGTYPES)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh,
-                 s, d, d ** -0.5, int(bool(causal)), _DTYPES[q.dtype],
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b,
+                 s, h, d, (ctypes.c_longlong * 12)(*strides), d ** -0.5,
+                 int(bool(causal)), _DTYPES[q.dtype], int(vec),
                  _lib.stream_of(q.device))
     _lib.check(err, "flash_attention")
     launches += 1
     return o
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False) -> torch.Tensor:
+    """q, k, v: (BH, S, D) -> (BH, S, D) in the input dtype."""
+    _check(q, k, v, 3)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal)
+    return _launch(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
+                   causal).squeeze(2)
+
+
 def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = False) -> torch.Tensor:
-    """(B, S, H, D) wrapper: folds heads into the kernel's (BH, S, D)."""
-    b, s, h, d = q.shape
-
-    def fold(x):
-        return x.transpose(1, 2).reshape(b * h, s, d)
-    o = flash_attention(fold(q), fold(k), fold(v), causal=causal)
-    return o.reshape(b, h, s, d).transpose(1, 2)
+    """q, k, v: (B, S, H, D), any strides with a contiguous last dim ->
+    a contiguous (B, S, H, D) output; one kernel launch, no copies."""
+    _check(q, k, v, 4)
+    if q.device.type == "cpu":
+        return full_attention(q, k, v, causal=causal)
+    return _launch(q, k, v, causal)

@@ -15,6 +15,7 @@ from repro_torch.kernels import flash_attention as tfk
 from repro_torch.kernels import ops
 from repro_torch.kernels import rollback_correct as trk
 from repro_torch.kernels import stat_abft
+from repro_torch.models.attention import full_attention
 
 
 def _int8(rng, shape, extreme=False):
@@ -122,14 +123,72 @@ def test_fault_inject_kernel_matches_plain_on_card(cuda, dtype, shape,
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 3e-2)])
 def test_flash_kernel_at_prefill_shape_on_card(cuda, dtype, tol):
-    """The LM prefill's (32, 8, 128) causal call, head dim 128 (the NC = 4
-    instantiation with over 48 KB of shared memory)."""
+    """The LM prefill's (32, 8, 128) causal call, head dim 128: the
+    tensor-core kernel's widest instantiation (bf16) and the CUDA-core
+    kernel's NC = 4 one (f32), both with over 48 KB of shared memory."""
     rng = np.random.default_rng(8)
     q, k, v = (torch.from_numpy(x).to(cuda, dtype)
                for x in _qkv(rng, (32, 8, 128)))
     got = tfk.flash_attention(q, k, v, causal=True)
     want = tfk.flash_attention_plain(q, k, v, causal=True)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _bshd(rng, b, s, h, d, strided, device):
+    """bf16 q, k, v of shape (B, S, H, D): separate contiguous tensors, or
+    views sliced from one fused (B, S, 3, H, D) tensor."""
+    if strided:
+        x = torch.from_numpy(rng.standard_normal((b, s, 3, h, d)).astype(
+            np.float32)).to(device, torch.bfloat16)
+        return x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    return [torch.from_numpy(a).to(device, torch.bfloat16)
+            for a in _qkv(rng, (b, s, h, d))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [8, 100, 1024])
+@pytest.mark.parametrize("d", [32, 36, 72, 128])
+def test_flash_tensor_core_kernel_matches_plain_on_card(cuda, d, s, causal,
+                                                        strided):
+    """bf16 tensor-core kernel vs the plain f32-softmax version, within
+    3e-2 (the kernel rounds p to bf16 as the Pallas kernel does): head dims
+    on each instantiation (32 and 72 on the one padded to 80, 36, not a
+    multiple of 8, there on element loads; 128), one partly masked tile
+    (S = 8), a ragged last tile (100) and 16 tiles (1024)."""
+    rng = np.random.default_rng(d * 1000 + s)
+    q, k, v = _bshd(rng, 2, s, 2, d, strided, cuda)
+    n0 = tfk.launches
+    got = tfk.mha_flash(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tfk.launches == n0 + 1
+    want = full_attention(q, k, v, causal=causal)
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                               rtol=3e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mha_flash_is_one_launch_with_contiguous_output(cuda, dtype):
+    """One mha_flash call on a fused projection's views launches exactly
+    one kernel (no head folds) and returns a contiguous (B, S, H, D), so
+    the caller's reshape to (B, S, H * D) is a view."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 40, 3, 4, 72)).astype(
+        np.float32)).to(cuda, dtype)
+    n0 = tfk.launches
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        o = tfk.mha_flash(x[:, :, 0], x[:, :, 1], x[:, :, 2])
+        torch.cuda.synchronize()
+    assert tfk.launches == n0 + 1
+    assert o.shape == (2, 40, 4, 72) and o.is_contiguous()
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0)) > 0]
+    assert [e.count for e in kernels] == [1]
 
 
 @pytest.mark.gpu

@@ -149,8 +149,9 @@ def test_flash_attention_plain_matches_pallas(causal, s, d, bq, bk):
 
 
 def test_flash_attention_bf16_matches_pallas():
-    """bf16 in and out: 3e-2, as tests/test_kernels_flash.py (the Pallas
-    kernel rounds p to bf16 before PV; the port keeps p in f32)."""
+    """bf16 in and out: 3e-2, as tests/test_kernels_flash.py. The Pallas
+    kernel and the port's bf16 card kernel round p to bf16 before PV; the
+    plain version run here keeps p in f32."""
     rng = np.random.default_rng(0)
     q, k, v = (jnp.asarray(x, jnp.bfloat16) for x in _qkv(rng, (2, 64, 32)))
     want = fk.flash_attention(q, k, v, bq=32, bk=32, interpret=True)
@@ -164,7 +165,8 @@ def test_flash_attention_bf16_matches_pallas():
 
 
 def test_mha_flash_fold_matches_pallas():
-    """The (B, S, H, D) fold wrapper: shape and values (f32, 2e-5)."""
+    """The (B, S, H, D) wrapper (the Pallas one folds heads; the port's
+    reads them in place): shape and values (f32, 2e-5)."""
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, 64, 4, 32)).astype(np.float32)
     want = fk.mha_flash(jnp.asarray(x), jnp.asarray(x), jnp.asarray(x),
@@ -173,6 +175,60 @@ def test_mha_flash_fold_matches_pallas():
     got = tfk.mha_flash(t, t, t, causal=False)
     assert got.shape == (2, 64, 4, 32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 2e-5),
+                                       (jnp.bfloat16, 3e-2)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_mha_flash_strided_views_match_pallas(causal, dtype, tol):
+    """q, k, v sliced from one fused (B, S, 3, H, D) projection output, as
+    the card kernel takes them (no copies), against the Pallas mha_flash on
+    contiguous copies. f32 2e-5; bf16 3e-2 (the Pallas kernel rounds p)."""
+    rng = np.random.default_rng(13 + causal)
+    b, s, h, d = 2, 64, 3, 24
+    fused = np.array(jnp.asarray(
+        rng.standard_normal((b, s, 3, h, d)).astype(np.float32), dtype),
+        np.float32)                       # values exact in the test dtype
+    q, k, v = (fused[:, :, i] for i in range(3))
+    want = fk.mha_flash(*(jnp.asarray(x, dtype) for x in (q, k, v)),
+                        causal=causal, bq=32, bk=32, interpret=True)
+    t = torch.from_numpy(fused)
+    t = t.bfloat16() if dtype == jnp.bfloat16 else t
+    tq, tk_, tv = t[:, :, 0], t[:, :, 1], t[:, :, 2]
+    assert not tq.is_contiguous()
+    got = tfk.mha_flash(tq, tk_, tv, causal=causal)
+    assert got.shape == (b, s, h, d) and got.dtype == tq.dtype
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+def test_launch_args_strides_and_alignment():
+    """The launcher's layout: (batch, token, head) element strides of q, k,
+    v, o, and the 16-byte flag (bf16: D % 8 == 0 and aligned row starts)."""
+    b, s, h, d = 2, 10, 4, 72
+    fused = torch.zeros((b, s, 3, h, d), dtype=torch.bfloat16)
+    q, k, v = fused[:, :, 0], fused[:, :, 1], fused[:, :, 2]
+    o = torch.empty((b, s, h, d), dtype=torch.bfloat16)
+    got = tfk.launch_args(q, k, v, o)
+    fs = (s * 3 * h * d, 3 * h * d, d)
+    assert got == (b, s, h, d, fs * 3 + (s * h * d, h * d, d), True)
+    # (BH, S, D) as H = 1: the head stride is ignored for alignment.
+    x = torch.zeros((6, s, 16), dtype=torch.bfloat16).unsqueeze(2)
+    assert tfk.launch_args(x, x, x, x)[5]
+    # D = 36: no whole 16-byte chunks.
+    y = torch.zeros((b, s, h, 36), dtype=torch.bfloat16)
+    assert not tfk.launch_args(y, y, y, y)[5]
+    # A row start one element off 16 bytes.
+    base = torch.zeros(b * s * h * d + 1, dtype=torch.bfloat16)
+    z = base[1:].view(b, s, h, d)
+    assert not tfk.launch_args(z, q, v, o)[5]
+    # f32: 16 bytes are 4 elements.
+    f = torch.zeros((b, s, h, 36))
+    assert tfk.launch_args(f, f, f, f)[5]
+    with pytest.raises(ValueError):
+        t = torch.zeros((b, s, d, h), dtype=torch.bfloat16).transpose(2, 3)
+        tfk.launch_args(t, t, t, o)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "flips", "shape", "tile"])
@@ -219,4 +275,5 @@ def test_cpu_wrappers_do_not_count_launches():
     tak.abft_matmul(a, a, torch.zeros((32, 32), dtype=torch.int32))
     q = torch.zeros((1, 32, 8))
     tfk.flash_attention(q, q, q)
+    tfk.mha_flash(q[:, :, None], q[:, :, None], q[:, :, None], causal=True)
     assert (tak.launches, trk.launches, tfk.launches) == before
