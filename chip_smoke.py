@@ -15,9 +15,11 @@ Phases, each printing one JSON line with its wall time:
                at the shapes the serving path gives it: ``abft_matmul`` at
                the seven padded GEMM shapes of DiT-XL/2-512 at bucket 2
                (flips at BER 3e-3 plus one bit-31 flip; all five outputs
-               bit-equal), ``rollback_correct`` (union and cross, bit-equal)
-               and attention as the DiT block calls it (``mha_flash`` on
-               (2, 1024, 16, 72) reshaped projections in place, and the
+               bit-equal; achieved TOP/s and the ratio to
+               ``torch._int_mm``), ``rollback_correct`` (union and cross,
+               bit-equal) and attention as the DiT block calls it
+               (``mha_flash`` on (2, 1024, 16, 72) reshaped projections
+               in place, and the
                ``(BH, S, D)`` entry point ``flash_attention`` on folded
                copies; bf16 on the tensor cores within 1e-2 and f32
                within 2e-5 of the plain version). Device times
@@ -32,9 +34,10 @@ Phases, each printing one JSON line with its wall time:
                the L2, so each call reads its inputs cold from HBM. Then
                the autoregressive slice's: ``fault_inject`` at the decode
                GEMM outputs (2, 1, 2048) and (2, 1, 8192) f32 and at
-               8192 x 8192 int32 (bit-equal on int32 views), the prefill's
-               attention call ``mha_flash`` at (2, 8, 16, 128) causal
-               (bf16 and f32, within tolerance; one kernel on the
+               8192 x 8192 int32 (bit-equal on int32 views; timed over
+               ten times ``--reps``, beside ``torch.bitwise_xor``), the
+               prefill's attention call ``mha_flash`` at (2, 8, 16, 128)
+               causal (bf16 and f32, within tolerance; one kernel on the
                (B, S, H, D) inputs in place), and the composites
                ``stat_abft_matmul`` and ``drift_gemm`` at one DiT GEMM
                shape (bit-equal).
@@ -285,6 +288,8 @@ def phase_kernels(torch, reps: int):
                    int_mm_ms=int_mm,
                    flagged_rows=int(_exceeds(got[1] - got[2],
                                              THRESHOLD).sum()))
+        row.update(tops=2 * m * n * k / (row["ms"] * 1e-3) / 1e12,
+                   int_mm_ratio=row["ms"] / int_mm if int_mm else None)
         abft_rows.append(row)
         del ring
 
@@ -327,7 +332,9 @@ def phase_kernels(torch, reps: int):
     emit({"phase": "kernels", "kernel": "abft_matmul", "bit_equal": True,
           "shapes": abft_rows,
           "note": "int_mm_ms is torch._int_mm, the bare int8 product: a "
-                  "yardstick, not the same function"})
+                  "yardstick, not the same function; int_mm_ratio is "
+                  "ms / int_mm_ms; tops is the achieved int8 rate of the "
+                  "product (2*M*N*K over ms)"})
     emit({"phase": "kernels", "kernel": "rollback_correct",
           "bit_equal": True, "policies": ["union", "cross"],
           "shapes": rb_rows})
@@ -462,22 +469,28 @@ def phase_kernels_ar(torch, reps: int):
                            [fik.fault_inject_plain(x, mask)])
         n = x.numel()
         ring = ring_of((x, mask), 12 * n)
+        # 10x the launches: at ~1.4 us a call, 20 leave the kernel and
+        # torch.bitwise_xor within noise of each other.
+        fr = 10 * reps
 
         def xor(a, m):
             return torch.bitwise_xor(a.view(torch.int32), m)
         fi_rows.append(dict(
             name=name, shape=list(shape), dtype=str(dtype).split(".")[-1],
             per_step=per_step, max_abs_err=err, ring=len(ring),
-            ms=device_ms(fik.fault_inject, ring, reps, "fault_inject"),
-            wall_ms=time_ms(fik.fault_inject, ring, reps),
-            plain_ms=device_ms(fik.fault_inject_plain, ring, reps),
-            library_ms=device_ms(xor, ring, reps),
+            ms=device_ms(fik.fault_inject, ring, fr, "fault_inject"),
+            wall_ms=time_ms(fik.fault_inject, ring, fr),
+            plain_ms=device_ms(fik.fault_inject_plain, ring, fr),
+            library_ms=device_ms(xor, ring, fr),
             bound_ms=1e3 * 12 * n / HBM_BYTES_PER_S, bound_by="bytes"))
+        fi_rows[-1]["library_ratio"] = fi_rows[-1]["ms"] / \
+            fi_rows[-1]["library_ms"]
         del ring
     emit({"phase": "kernels", "kernel": "fault_inject", "bit_equal": True,
           "shapes": fi_rows,
           "note": "library_ms is torch.bitwise_xor on the int32 views; the "
-                  "plain version is the same xor"})
+                  "plain version is the same xor; library_ratio is "
+                  "ms / library_ms"})
 
     # The prefill's attention call: (B, 8, H, 128), causal.
     b, s, h, d = BUCKET, PROMPT_LEN, cfg.n_heads, cfg.hd
@@ -796,10 +809,13 @@ def _profile_request(torch, eng, argv):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     fa = sum(r[0] for r in rows if "flash_attention" in r[1]) / 1e6
+    ab = sum(r[0] for r in rows if "abft_matmul" in r[1]) / 1e6
     return dict(what="1 drift request, 3 steps, plus its clean reference "
                      "(6 evaluations)", wall_s=wall, device_busy_s=busy,
                 device_busy_share=busy / wall, flash_attention_s=fa,
                 flash_attention_share_of_busy=fa / busy if busy else None,
+                abft_matmul_s=ab,
+                abft_matmul_share_of_busy=ab / busy if busy else None,
                 n_kernels=sum(r[2] for r in rows),
                 top=[dict(kernel=k[:80], device_s=us / 1e6, calls=c)
                      for us, k, c in rows[:12]])

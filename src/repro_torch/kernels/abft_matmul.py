@@ -11,12 +11,15 @@ patterns it returns, all in wraparound int32:
     act_col (Mt, N)  per (M-tile, column) sums of c
     exp_col (Mt, N)  blocksum(aq) @ bq, the expected column sums
 
-The CUDA kernel (``csrc/abft_matmul.cu``) runs one block per 32x32 output
-tile, so the checksum tile is the block tile (``AbftConfig``'s 32x32); on
-an H100 it is bound by bytes (the int32 flips and C dominate: ~83 MB at
-2048x1152x4608, ~25 us at 3.35 TB/s, against ~11 us for the int8 product
-at the tensor-core peak). This first version multiplies on CUDA cores with
-``__dp4a``.
+The CUDA kernel (``csrc/abft_matmul.cu``) runs the product on the int8
+tensor cores (``mma.sync`` m16n8k32), one block of 8 warps per 128x128
+output tile and one warp per two 32x32 checksum tiles (``AbftConfig``'s
+tile), and takes the expected sums from the clean accumulator in the
+epilogue (exact mod 2^32; see the source). On an H100 it is bound by
+bytes: the int32 flips and C dominate (~83 MB at 2048x1152x4608, ~25 us
+at 3.35 TB/s, against ~11 us for the int8 product at the tensor-core
+peak). ``launch_args`` picks its vector loads (``K % 16 == 0`` and
+aligned operands) or its byte-wise staging for any other K.
 
 ``abft_matmul`` takes the plain version for CPU tensors only; a CUDA
 tensor launches the kernel or raises. ``launches`` counts kernel launches.
@@ -34,7 +37,7 @@ from repro_torch.kernels import _lib
 TILE = 32
 launches = 0
 
-_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
              + [ctypes.c_void_p] * 6)
 
 
@@ -78,6 +81,17 @@ def _check(aq, bq, flips, bm, bn):
         raise ValueError("abft_matmul operands on different devices")
 
 
+def launch_args(aq: torch.Tensor, bq: torch.Tensor) -> Tuple[int, ...]:
+    """(M, N, K, vec) for the CUDA launcher: ``vec`` takes the 16-byte
+    ``cp.async`` loads of A and 4-byte loads of B, which need K % 16 == 0,
+    A 16-byte and B 4-byte aligned; otherwise the kernel stages both byte
+    by byte."""
+    m, k = aq.shape
+    n = bq.shape[1]
+    vec = k % 16 == 0 and aq.data_ptr() % 16 == 0 and bq.data_ptr() % 4 == 0
+    return m, n, k, vec
+
+
 def abft_matmul(aq: torch.Tensor, bq: torch.Tensor, flips: torch.Tensor,
                 bm: int = TILE, bn: int = TILE) -> Tuple[torch.Tensor, ...]:
     """(c, act_row, exp_row, act_col, exp_col); see the module docstring."""
@@ -91,8 +105,7 @@ def abft_matmul(aq: torch.Tensor, bq: torch.Tensor, flips: torch.Tensor,
         raise ValueError(f"the CUDA kernel's checksum tile is {TILE}x{TILE}, "
                          f"got ({bm}, {bn})")
     aq, bq, flips = aq.contiguous(), bq.contiguous(), flips.contiguous()
-    m, k = aq.shape
-    n = bq.shape[1]
+    m, n, k, vec = launch_args(aq, bq)
     mt, nt = m // TILE, n // TILE
     dev = aq.device
     c = torch.empty((m, n), dtype=torch.int32, device=dev)
@@ -103,8 +116,9 @@ def abft_matmul(aq: torch.Tensor, bq: torch.Tensor, flips: torch.Tensor,
     fn = _lib.function("abft_matmul", "abft_matmul_launch", _ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(aq.data_ptr(), bq.data_ptr(), flips.data_ptr(), m, n, k,
-                 c.data_ptr(), act_row.data_ptr(), exp_row.data_ptr(),
-                 act_col.data_ptr(), exp_col.data_ptr(), _lib.stream_of(dev))
+                 int(vec), c.data_ptr(), act_row.data_ptr(),
+                 exp_row.data_ptr(), act_col.data_ptr(), exp_col.data_ptr(),
+                 _lib.stream_of(dev))
     _lib.check(err, "abft_matmul")
     launches += 1
     return c, act_row, exp_row, act_col, exp_col

@@ -7,10 +7,12 @@ returns ``x ^ mask`` in ``x``'s dtype; bit 31 of the mask is
 ``INT32_MIN``. Any shape: the Pallas kernel's (bm, bn) blocks are not
 carried over.
 
-The CUDA kernel (``csrc/fault_inject.cu``) is one flat grid-stride pass
-with 16-byte vector loads where the pointers allow. Bytes bound it on an
-H100 (12 bytes per word over 3.35 TB/s); at the decode path's shapes
-(16 to 64 KB per call) launch latency does.
+The CUDA kernel (``csrc/fault_inject.cu``) gives each thread one 16-byte
+vector of four words where the pointers allow (else one word), with the
+grid sized to the work and 32-bit indices. Bytes bound it on an H100 (12
+bytes per word over 3.35 TB/s); at the decode path's shapes (16 to 64 KB
+per call) launch latency does. One launch covers up to ``CHUNK`` words;
+larger inputs take one launch per ``CHUNK``.
 
 ``fault_inject`` takes the plain version for CPU tensors only; a CUDA
 tensor launches the kernel or raises. ``launches`` counts kernel launches.
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch.kernels import _lib
 
+CHUNK = 1 << 30                  # words per launch (csrc's CHUNK)
 launches = 0
 
 _DTYPES = (torch.int32, torch.float32)
@@ -62,5 +65,5 @@ def fault_inject(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         err = fn(x.data_ptr(), mask.data_ptr(), out.data_ptr(), x.numel(),
                  _lib.stream_of(x.device))
     _lib.check(err, "fault_inject")
-    launches += 1
+    launches += -(-x.numel() // CHUNK)
     return out

@@ -42,22 +42,67 @@ def cuda():
     return torch.device("cuda")
 
 
+def _abft_check(aq, bq, flips):
+    """One kernel launch, all five outputs bit-equal to the plain version."""
+    n0 = tak.launches
+    got = tak.abft_matmul(aq, bq, flips)
+    torch.cuda.synchronize()
+    assert tak.launches == n0 + 1
+    for label, g, w in zip(("c", "act_row", "exp_row", "act_col", "exp_col"),
+                           got, tak.abft_matmul_plain(aq, bq, flips)):
+        assert torch.equal(g, w), label
+    return got
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", [(64, 16, 96), (32, 4608, 64),
-                                   (96, 100, 32)])
+                                   (96, 100, 32), (32, 16, 32),
+                                   (32, 256, 1152), (160, 1152, 96),
+                                   (2048, 4608, 1152), (2048, 1152, 4608)])
 def test_abft_kernel_matches_plain_on_card(cuda, m, k, n):
+    """The tensor-core kernel: K of one half-empty k32 step (16), ragged
+    (100, byte-wise staging), deep (4608); M and N that are multiples of 32
+    but not of the 128 tile (32, 96, 160); the DiT's mlp shapes."""
     rng = np.random.default_rng(m + k + n)
     aq = torch.from_numpy(_int8(rng, (m, k), extreme=k > 1000)).to(cuda)
     bq = torch.from_numpy(_int8(rng, (k, n))).to(cuda)
     fl = _flips(rng, (m, n), p=0.05)
     fl[0, 0] = np.uint32(1 << 31)
     flips = torch.from_numpy(fl.view(np.int32)).to(cuda)
-    n0 = tak.launches
-    got = tak.abft_matmul(aq, bq, flips)
-    torch.cuda.synchronize()
-    assert tak.launches == n0 + 1
-    for g, w in zip(got, tak.abft_matmul_plain(aq, bq, flips)):
-        assert torch.equal(g, w)
+    _abft_check(aq, bq, flips)
+
+
+@pytest.mark.gpu
+def test_abft_kernel_wraps_at_k4608_on_card(cuda):
+    """Every operand 127 at K = 4608: the expected sums wrap mod 2^32
+    (32 * 127^2 * 4608 ~ 2.4e9), and a bit-31 flip comes through the xor
+    and the sums."""
+    m, k, n = 64, 4608, 96
+    aq = torch.full((m, k), 127, dtype=torch.int8, device=cuda)
+    bq = torch.full((k, n), 127, dtype=torch.int8, device=cuda)
+    flips = torch.zeros((m, n), dtype=torch.int32, device=cuda)
+    flips[3, 5] = -2 ** 31
+    got = _abft_check(aq, bq, flips)
+    assert int(got[2][0, 0]) == 32 * 127 * 127 * 4608 - 2 ** 32
+    assert int(got[1][3, 0] - got[2][3, 0]) % 2 ** 32 == 2 ** 31
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset_a,offset_b", [(1, 0), (0, 2), (16, 4)])
+def test_abft_kernel_on_offset_operands_on_card(cuda, offset_a, offset_b):
+    """Operands that start off 16 bytes (A) or 4 bytes (B) take the
+    byte-wise staging at K = 256; (16, 4) keeps the vector path."""
+    rng = np.random.default_rng(offset_a + offset_b)
+    m, k, n = 96, 256, 160
+    a = torch.from_numpy(_int8(rng, (m * k + offset_a,))).to(cuda)
+    b = torch.from_numpy(_int8(rng, (k * n + offset_b,))).to(cuda)
+    aq = a[offset_a:].view(m, k)
+    bq = b[offset_b:].view(k, n)
+    assert tak.launch_args(aq, bq)[3] == (offset_a % 16 == 0
+                                          and offset_b % 4 == 0)
+    fl = _flips(rng, (m, n), p=0.05)
+    flips = torch.from_numpy(fl.view(np.int32)).to(cuda)
+    _abft_check(aq, bq, flips)
 
 
 @pytest.mark.gpu
@@ -97,11 +142,16 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, tol, causal):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
 @pytest.mark.parametrize("shape,offset", [((2, 2048), 0), ((2, 1, 8192), 0),
-                                          ((7, 13), 0), ((1001,), 1)])
+                                          ((7, 13), 0), ((1001,), 1),
+                                          ((4097,), 0), ((4098,), 0),
+                                          ((4099,), 0), ((4097,), 1),
+                                          ((4098,), 2), ((4099,), 3),
+                                          ((3,), 0)])
 def test_fault_inject_kernel_matches_plain_on_card(cuda, dtype, shape,
                                                    offset):
-    """Bit-equal on int32 views, vector path, ragged tails and (offset 1)
-    the unaligned scalar path."""
+    """Bit-equal on int32 views: the vector path, its tails of 1, 2 and 3
+    words (lengths 4k + 1, 4k + 2, 4k + 3; a length of 3 is all tail), and
+    (offsets 1 to 3 words) the unaligned one-word path."""
     rng = np.random.default_rng(11)
     n = int(np.prod(shape)) + offset
     x = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64

@@ -85,6 +85,64 @@ def test_abft_matmul_wraps_at_k4608_with_bit31_flip():
     assert diff[3, 0] % 2 ** 32 == 2 ** 31          # the bit-31 delta
 
 
+@pytest.mark.parametrize("flipped", [False, True])
+@pytest.mark.parametrize("m,k,n,bm,bn,bk,extreme",
+                         [(*s, False) for s in SHAPES]
+                         + [(32, 4608, 64, 32, 32, 128, True)])
+def test_expected_sums_are_clean_tile_sums(m, k, n, bm, bn, bk, extreme,
+                                           flipped):
+    """The premise of the card kernel's epilogue: the Pallas kernel's
+    expected sums (aq @ blocksum(bq), blocksum(aq) @ bq) equal the row and
+    column sums of the clean product over each (bm, bn) tile, mod 2^32,
+    whatever the flips. Also at K = 4608 with every operand 127, where the
+    sums wrap. With no flips the actual sums equal them too."""
+    rng = np.random.default_rng(m + 3 * k + n)
+    if extreme:
+        aq = np.full((m, k), 127, np.int8)
+        bq = np.full((k, n), 127, np.int8)
+    else:
+        aq, bq = _int8(rng, (m, k)), _int8(rng, (k, n))
+    flips = np.zeros((m, n), np.uint32)
+    if flipped:
+        flips = _flips(rng, (m, n), p=0.05)
+        flips[0, 0] = np.uint32(1 << 31)
+    _, act_row, exp_row, act_col, exp_col = (np.asarray(x) for x in
+                                             ak.abft_matmul(
+        jnp.asarray(aq), jnp.asarray(bq), jnp.asarray(flips), bm=bm, bn=bn,
+        bk=bk, interpret=True))
+    clean = aq.astype(np.int64) @ bq.astype(np.int64)       # exact
+
+    def wrap(x):
+        return (x % 2 ** 32).astype(np.uint32).view(np.int32)
+    rows = wrap(clean.reshape(m, n // bn, bn).sum(2))
+    cols = wrap(clean.reshape(m // bm, bm, n).sum(1))
+    np.testing.assert_array_equal(exp_row, rows)
+    np.testing.assert_array_equal(exp_col, cols)
+    if extreme:
+        assert int(rows[0, 0]) == bn * 127 * 127 * k - 2 ** 32
+    if not flipped:
+        np.testing.assert_array_equal(act_row, rows)
+        np.testing.assert_array_equal(act_col, cols)
+
+
+def test_abft_launch_args_pick_vector_or_byte_loads():
+    """The launcher's vector path needs K % 16 == 0, A 16-byte and B 4-byte
+    aligned; K = 100 (or an offset operand) stages byte by byte."""
+    base = torch.zeros(64 * 1152 + 64, dtype=torch.int8)
+    a = base[:64 * 1152].view(64, 1152)
+    b = base[:1152 * 32].view(1152, 32)
+    assert tak.launch_args(a, b) == (64, 32, 1152, True)
+    assert tak.launch_args(base[16:16 + 64 * 1152].view(64, 1152), b)[3]
+    assert not tak.launch_args(base[1:1 + 64 * 1152].view(64, 1152), b)[3]
+    assert not tak.launch_args(a, base[2:2 + 1152 * 32].view(1152, 32))[3]
+    assert tak.launch_args(a, base[4:4 + 1152 * 32].view(1152, 32))[3]
+    a100 = torch.zeros((96, 100), dtype=torch.int8)
+    b100 = torch.zeros((100, 32), dtype=torch.int8)
+    assert tak.launch_args(a100, b100) == (96, 32, 100, False)
+    k16 = torch.zeros((32, 16), dtype=torch.int8)
+    assert tak.launch_args(k16, torch.zeros((16, 32), dtype=torch.int8))[3]
+
+
 def _mask_np(rd, cd, bm, bn, union, thr=1 << 10):
     """The union (or cross) element mask of the Pallas reference, in numpy."""
     r = np.repeat((rd >= thr) | (rd <= -thr), bn, axis=1)
