@@ -44,12 +44,17 @@ Phases, each printing one JSON line with its wall time:
 4. reference -- the SMOKE DiT and the SMOKE olmo-1b served on the card
                (kernels) and on the CPU (plain versions) with the same
                params, inputs and flip masks: latents, tokens and counts
-               must agree.
+               must agree. The DiT runs twice: plain drift, and with
+               TaylorSeer and ``int8-body4`` for 7 steps, whose corrected
+               counts, evaluations (3) and modeled joules must be equal.
 5. serve    -- ``repro_torch.launch.serve.main`` drives a full-width
                DiT-XL/2-512 engine (28 layers, random seeded weights): 2
                requests in drift/undervolt, then the same seeds in faulty
                mode. The launch counters are zeroed just before and read
-               just after; the counts must be exact.
+               just after; the counts must be exact. Then, counted on
+               their own the same way, the same seeds in drift/undervolt
+               with ``--taylorseer --precision int8-body4``: it and its
+               TaylorSeer clean reference compute steps 0, 3, 6 and 9.
 6. ar       -- the same CLI drives a full-width olmo-1b engine (16
                layers, random seeded weights): 2 requests at bucket 2, 16
                tokens, rollback window 4, in stat_abft at undervolt, then
@@ -59,9 +64,17 @@ Phases, each printing one JSON line with its wall time:
                back and match the clean decode token for token. Then the
                time per decode step and a profiled request.
 
-Then it prints the card's name and power limit, the ``kernels`` summary
-line and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device,
-or outside a checkout of the repository, it raises and exits non-zero.
+Every DiT and olmo-1b result carries the perfmodel's attribution; each
+must bill a ledger whose ``ledger_total`` equals its ``energy_j`` bit for
+bit, drift at undervolt must bill less than its baseline, the TaylorSeer
+run less than plain drift, and stat_abft's replays must bill as
+``compute_replay``. These joules and seconds are the modeled paper
+accelerator's, not this card's; the ``energy`` line says so.
+
+Then it prints the ``energy`` line, the card's name and power limit, the
+``kernels`` summary line and, last, ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or outside a checkout of the repository, it
+raises and exits non-zero.
 """
 from __future__ import annotations
 
@@ -90,7 +103,11 @@ THRESHOLD = 1 << 10
 AR_ARCH = "olmo-1b"
 AR_STEPS = 16
 AR_WINDOW = 4
+TS_ARGS = ["--taylorseer", "--precision", "int8-body4"]
+TS_KNOBS = dict(taylorseer=True, precision="int8-body4")
+TS_STEPS_SMOKE, TS_EVALS_SMOKE = 7, 3       # computes steps 0, 3, 6
 TIMERS = set()          # which timer produced the kernel times
+ENERGY_SOURCE = "perfmodel: modeled paper accelerator, not this card"
 
 
 def emit(obj) -> None:
@@ -637,10 +654,36 @@ def _to(tree, device):
     return tree.to(device)
 
 
+def check_energy(path, mode, results):
+    """The perfmodel fields of each result, checked: present, and the
+    ledger summing bit for bit to ``energy_j``. Returns their records."""
+    from repro_torch.perfmodel import energy
+    recs = []
+    for r in results:
+        fields = dict(energy_j=r.energy_j, latency_s=r.latency_s,
+                      baseline_energy_j=r.baseline_energy_j,
+                      baseline_latency_s=r.baseline_latency_s,
+                      completed_at_s=r.completed_at_s,
+                      energy_breakdown=r.energy_breakdown)
+        if any(v is None for v in fields.values()):
+            raise AssertionError(f"{path} {mode} request {r.request_id}: "
+                                 f"perfmodel fields missing: {fields}")
+        if energy.ledger_total(r.energy_breakdown) != r.energy_j:
+            raise AssertionError(f"{path} {mode} request {r.request_id}: "
+                                 "ledger does not sum to energy_j")
+        recs.append(dict(path=path, mode=mode, request_id=r.request_id,
+                         op=r.op, taylorseer=r.taylorseer,
+                         precision=r.precision, ledger_exact=True,
+                         source=ENERGY_SOURCE, **fields))
+    return recs
+
+
 def phase_reference(torch):
     """The SMOKE models on the card vs on the CPU, with the same params,
     inputs and flip masks (drawn on the CPU for both): the DiT for 3 drift
-    steps, olmo-1b for 8 stat_abft tokens (window 3), at undervolt."""
+    steps and, with ``--taylorseer --precision int8-body4``, for 7 (3
+    evaluations: forecasts and the narrowed ``eps`` checked on the card),
+    olmo-1b for 8 stat_abft tokens (window 3), at undervolt."""
     from repro_torch.configs import get_config
     from repro_torch.core import fault
     from repro_torch.models import dit, transformer
@@ -660,16 +703,18 @@ def phase_reference(torch):
     lm_cfg = get_config(AR_ARCH, smoke=True)
     lm_params = transformer.init_params(lm_cfg, 8)
     prompts = prompt_tokens(lm_cfg, [0, 1])
-    out, lm_out = {}, {}
+    lat = torch.randn((2, 8, 8, 4), generator=torch.Generator().manual_seed(6))
+    out, ts_out, lm_out = {}, {}, {}
     for device in ("cuda", "cpu"):
-        eng = engine(ARCH, device, cpu_params)
-        lat = torch.randn((2, 8, 8, 4),
-                          generator=torch.Generator().manual_seed(6))
-        eng.servable.batch_inputs = lambda c, seeds, d=device: (
-            lat.to(d), torch.tensor([1, 2], device=d))
-        for s in (0, 1):
-            eng.submit(steps=3, mode="drift", op="undervolt", seed=s)
-        out[device] = eng.run()
+        for steps, knobs, into in ((3, {}, out),
+                                   (TS_STEPS_SMOKE, TS_KNOBS, ts_out)):
+            eng = engine(ARCH, device, cpu_params)
+            eng.servable.batch_inputs = lambda c, seeds, d=device: (
+                lat.to(d), torch.tensor([1, 2], device=d))
+            for s in (0, 1):
+                eng.submit(steps=steps, mode="drift", op="undervolt", seed=s,
+                           **knobs)
+            into[device] = eng.run()
 
         eng = engine(AR_ARCH, device, lm_params)
         eng.servable_for(AR_ARCH).batch_inputs = lambda c, seeds, d=device: (
@@ -687,6 +732,24 @@ def phase_reference(torch):
     if not (err < 1e-3 and abs(ca - cb) <= 0.01 * max(cb, 1) and cb > 0):
         raise AssertionError(f"SMOKE card vs CPU: latents max err {err}, "
                              f"corrected {ca} vs {cb}")
+    # TaylorSeer + int8-body4: the same masks reach the same computed
+    # steps, so counts, evaluations and the bill are exact; the latents
+    # are held as the drift run's are.
+    ts_err = max(float((a.latents.cpu() - b.latents).abs().max())
+                 for a, b in zip(ts_out["cuda"], ts_out["cpu"]))
+    for a, b in zip(ts_out["cuda"], ts_out["cpu"]):
+        if ((a.batch_corrected_elems, a.n_model_evals, a.energy_j)
+                != (b.batch_corrected_elems, b.n_model_evals, b.energy_j)
+                or b.n_model_evals != TS_EVALS_SMOKE
+                or b.batch_corrected_elems <= 0):
+            raise AssertionError(
+                f"SMOKE TaylorSeer card vs CPU: corrected "
+                f"{a.batch_corrected_elems} vs {b.batch_corrected_elems}, "
+                f"evals {a.n_model_evals} vs {b.n_model_evals}, energy "
+                f"{a.energy_j} vs {b.energy_j}")
+    if not ts_err < 1e-3:
+        raise AssertionError(f"SMOKE TaylorSeer card vs CPU: latents max "
+                             f"err {ts_err}")
     # olmo-1b: tokens, rollbacks and evaluations exact; detections within
     # 2%, since a residual near its threshold may land on either side when
     # the f32 sums run in another order.
@@ -700,8 +763,16 @@ def phase_reference(torch):
             raise AssertionError(f"olmo-1b SMOKE card vs CPU: {a} vs {b}")
     if not (db > 0 and abs(da - db) <= 0.02 * db):
         raise AssertionError(f"olmo-1b SMOKE detections {da} vs {db}")
+    for device in ("cuda", "cpu"):
+        check_energy("reference", f"drift ({device})", out[device])
+        check_energy("reference", f"drift+taylorseer+int8-body4 ({device})",
+                     ts_out[device])
+        check_energy("reference", f"stat_abft ({device})", lm_out[device])
     return dict(latents_max_abs_err=err, corrected_card=ca,
-                corrected_cpu=cb, lm_detections_card=da,
+                corrected_cpu=cb, ts_latents_max_abs_err=ts_err,
+                ts_corrected=ts_out["cpu"][0].batch_corrected_elems,
+                ts_evals=ts_out["cpu"][0].n_model_evals,
+                lm_detections_card=da,
                 lm_detections_cpu=db,
                 lm_rollbacks=lm_out["cpu"][0].ar_rollbacks,
                 lm_tokens=[list(r.tokens) for r in lm_out["cpu"]])
@@ -776,15 +847,64 @@ def phase_serve(torch):
                              finite=finite))
     if not all(q["finite"] for q in reqs if q["mode"] == "drift"):
         raise AssertionError("non-finite drift latents")
-    (clean,) = eng._clean_samples.values()
-    if not bool(torch.isfinite(clean).all()):
-        raise AssertionError("non-finite clean reference latents")
+
+    # TaylorSeer + int8-body4, counted on its own: it and its clean
+    # reference (TaylorSeer on, int8) each compute steps 0, 3, 6, 9.
+    ak.launches = rk.launches = fk.launches = fik.launches = 0
+    t0 = time.perf_counter()
+    ts_res = serve.main(argv + ["--mode", "drift"] + TS_ARGS, engine=eng)
+    torch.cuda.synchronize()
+    t_ts = time.perf_counter() - t0
+    ts_launches = {"abft_matmul": ak.launches,
+                   "rollback_correct": rk.launches,
+                   "flash_attention": fk.launches,
+                   "fault_inject": fik.launches}
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    ts_evals = len(range(0, SERVE_STEPS, 3))                   # 4
+    ts_want = {"abft_matmul": gemms * ts_evals * 2,
+               "rollback_correct": gemms * ts_evals * 2,
+               "flash_attention": cfg.n_layers * ts_evals * 2,
+               "fault_inject": 0}
+    if ts_launches != ts_want:
+        raise AssertionError(f"TaylorSeer launch counts {ts_launches} != "
+                             f"{ts_want}")
+    for r in ts_res:
+        finite = bool(torch.isfinite(r.latents).all())
+        if not (finite and r.n_model_evals == ts_evals
+                and (r.taylorseer, r.precision) == (True, "int8-body4")):
+            raise AssertionError(f"TaylorSeer request {r.request_id}: finite "
+                                 f"{finite}, evals {r.n_model_evals}")
+        reqs.append(dict(mode="drift+taylorseer+int8-body4",
+                         request_id=r.request_id,
+                         psnr_vs_clean_db=r.psnr_vs_clean_db,
+                         lpips_vs_clean=r.lpips_vs_clean,
+                         batch_corrected_elems=r.batch_corrected_elems,
+                         n_model_evals=r.n_model_evals, finite=finite))
+    for clean in eng._clean_samples.values():
+        if not bool(torch.isfinite(clean).all()):
+            raise AssertionError("non-finite clean reference latents")
+
+    energy = (check_energy("serve", "drift", drift)
+              + check_energy("serve", "faulty", faulty)
+              + check_energy("serve", "drift+taylorseer+int8-body4",
+                             ts_res))
+    for d, t in zip(drift, ts_res):
+        if not d.energy_j < d.baseline_energy_j:
+            raise AssertionError(f"drift request {d.request_id} bills "
+                                 f"{d.energy_j} J, not below its baseline "
+                                 f"{d.baseline_energy_j} J")
+        if not t.energy_j < d.energy_j:
+            raise AssertionError(f"TaylorSeer request {t.request_id} bills "
+                                 f"{t.energy_j} J, not below drift's "
+                                 f"{d.energy_j} J")
     return dict(arch=ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
                 tokens=cfg.tokens, bucket=BUCKET, steps=SERVE_STEPS,
                 setup_s=setup_s, drift_run_s=t_drift, faulty_run_s=t_faulty,
-                peak_mem_bytes=peak, launches=launches, requests=reqs,
-                builds=eng.cache.builds,
+                taylorseer_run_s=t_ts, peak_mem_bytes=peak,
+                launches=launches, taylorseer_launches=ts_launches,
+                requests=reqs, builds=eng.cache.builds,
                 clean_samples=eng.stats.clean_samples_computed,
+                energy=energy,
                 breakdown=_profile_request(torch, eng, argv))
 
 
@@ -897,11 +1017,18 @@ def phase_ar(torch):
                              monitor_ber=r.monitor_ber,
                              monitor_op_index=r.monitor_op_index))
     (clean,) = eng._clean_samples.values()
+    energy = (check_energy("ar", "stat_abft", stat)
+              + check_energy("ar", "faulty", faulty))
+    for r in stat:
+        if not r.energy_breakdown["compute_replay"] > 0:
+            raise AssertionError(f"stat_abft request {r.request_id}: "
+                                 "replays billed no compute_replay")
     return dict(arch=AR_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
                 d_ff=cfg.d_ff, vocab=cfg.vocab, bucket=BUCKET,
                 steps=AR_STEPS, window=AR_WINDOW, setup_s=setup_s,
                 stat_abft_run_s=t_stat, faulty_run_s=t_faulty,
                 peak_mem_bytes=peak, launches=launches, requests=reqs,
+                energy=energy,
                 clean_tokens=clean.tolist(), builds=eng.cache.builds,
                 step_ms=_ar_step_ms(torch, eng, cfg, params),
                 breakdown=_profile_ar(torch, eng, argv))
@@ -1088,6 +1215,7 @@ def main(argv=None) -> int:
     smi = nvidia_smi()
     kernels_out = None
     path_launches = {}
+    energy_recs = []
     for phase in PHASES:
         if phase not in phases:
             continue
@@ -1111,10 +1239,16 @@ def main(argv=None) -> int:
         elif phase in ("serve", "ar"):
             out = phase_serve(torch) if phase == "serve" else phase_ar(torch)
             path_launches[phase] = out["launches"]
+            if phase == "serve":
+                path_launches["serve+taylorseer"] = \
+                    out["taylorseer_launches"]
+            energy_recs += out.pop("energy")
             rec.update(out)
         rec["wall_s"] = time.perf_counter() - t0
         emit(rec)
 
+    if energy_recs:
+        emit({"energy": energy_recs})
     print(smi, flush=True)
     if kernels_out is not None:
         emit({"kernels": kernel_summary(kernels_out, path_launches)})

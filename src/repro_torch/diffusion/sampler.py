@@ -1,22 +1,29 @@
 """The DRIFT sampling loop: DDIM steps with fine-grained DVFS, rollback-ABFT
-checkpointing and BER monitoring.
+checkpointing, BER monitoring, and optional TaylorSeer caching and
+narrowed precision plans.
 
 Counterpart of ``repro.diffusion.sampler``'s one-shot ``sample``. The
-reference's ``lax.scan`` becomes a Python loop over steps around one
-``step_fn``; per step:
+reference's ``lax.scan`` becomes a Python loop over steps; per step:
 
-  1. the DVFS schedule's host BER table gives the BER per resilience class
-     (nominal for the first ``nominal_steps`` and the embedding GEMMs),
-  2. the DiT runs with fault injection, ABFT and tile rollback
-     (``ExecContext`` inside the model), checkpoints refreshing in place
-     every ``interval`` steps (``have_ckpt`` is false on step 0),
-  3. the BER monitor folds the step's detected-error count into its
-     estimate (Sec 5.1 feedback loop),
-  4. DDIM updates the latents.
+  1. with TaylorSeer on, steps off its interval grid forecast ``eps``
+     from the Taylor table instead of running the model: no GEMM, no flip
+     mask, 0 corrected and 0 detected, a zero heatmap row, and the
+     checkpoint stores left alone,
+  2. otherwise the DVFS schedule's host BER table gives the BER per
+     resilience class (nominal for the first ``nominal_steps`` and the
+     embedding GEMMs) and the DiT runs with fault injection, ABFT and tile
+     rollback (``ExecContext`` inside the model), checkpoints refreshing
+     in place every ``interval`` steps of the step index (``have_ckpt`` is
+     false on step 0),
+  3. a narrowed precision plan fake-quantizes ``eps`` on steps
+     ``>= protect_steps`` (gated on the host step index: the default
+     ``"int8"`` plan adds no op),
+  4. the BER monitor folds the step's detected-error count into its
+     estimate (Sec 5.1 feedback loop), forecast steps included,
+  5. DDIM updates the latents.
 
-Clean mode runs as drift at BER 0, as in the reference. Streaming,
-TaylorSeer and narrowed precision plans are not yet ported (ROADMAP
-Queue A item 6).
+Clean mode runs as drift at BER 0, as in the reference. Streaming is not
+yet ported (ROADMAP Queue A item 6).
 """
 from __future__ import annotations
 
@@ -28,8 +35,10 @@ import torch
 
 from repro_torch.core import dvfs as dvfs_lib
 from repro_torch.core import fault
+from repro_torch.core import quant as quant_lib
 from repro_torch.core.exec_ctx import DriftSystemConfig
 from repro_torch.diffusion import schedule as sched_lib
+from repro_torch.diffusion import taylorseer as ts_lib
 from repro_torch.models import dit as dit_lib
 from repro_torch.models.common import ModelConfig
 
@@ -41,26 +50,17 @@ class SamplerConfig:
     drift: DriftSystemConfig = dataclasses.field(
         default_factory=lambda: DriftSystemConfig(mode="clean"))
     schedule: Optional[dvfs_lib.DvfsSchedule] = None   # None -> error-free
-    taylorseer: bool = False
-    precision: str = "int8"
+    taylorseer: ts_lib.TaylorSeerConfig = dataclasses.field(
+        default_factory=lambda: ts_lib.TaylorSeerConfig(enabled=False))
+    precision: quant_lib.PrecisionPlan = quant_lib.DEFAULT_PLAN
     monitor_target_ber: float = 3e-3
-
-    def __post_init__(self):
-        if self.taylorseer:
-            raise NotImplementedError(
-                "TaylorSeer is not yet ported to repro_torch (ROADMAP "
-                "Queue A item 6)")
-        if self.precision != "int8":
-            raise NotImplementedError(
-                f"precision plan {self.precision!r} is not yet ported to "
-                "repro_torch (ROADMAP Queue A item 3); only 'int8' runs")
 
 
 class SampleOutput(NamedTuple):
     latents: torch.Tensor
     monitor: dvfs_lib.BerMonitorState
     total_corrected: torch.Tensor     # 0-d int64 on the device
-    n_model_evals: int
+    n_model_evals: int                # computed (not forecast) steps
     # Detected row errors per (step, site): row 0 the embedding GEMMs,
     # rows 1..L the blocks; (steps, L + 1) int64 on the device.
     heatmap: Optional[torch.Tensor] = None
@@ -119,12 +119,26 @@ def sample(model_cfg: ModelConfig, params, flip_source: fault.FlipSource,
                 stats.get("detected_row_errors", zero),
                 stats.get("detected_per_block", zero_rows))
 
+    ts_cfg, plan = cfg.taylorseer, cfg.precision
+    taylor = (ts_lib.init_state(latents0.shape, device=device)
+              if ts_cfg.enabled else None)
     latents = latents0
     corrected = zero
+    nevals = 0
     heat = []
     with torch.no_grad():
         for i in range(len(ts)):
-            eps, corr, detected, det_blocks = step_fn(i, latents)
+            if ts_lib.should_compute(i, ts_cfg):
+                eps, corr, detected, det_blocks = step_fn(i, latents)
+                if ts_cfg.enabled:
+                    taylor = ts_lib.update_on_compute(taylor, eps)
+                nevals += 1
+            else:
+                eps = ts_lib.forecast(taylor, i % ts_cfg.interval,
+                                      ts_cfg.interval, ts_cfg.order)
+                corr, detected, det_blocks = zero, zero, zero_rows
+            if plan.narrowed and i >= plan.protect_steps:
+                eps = quant_lib.fake_quant(eps, plan.body_bits)
             mon = dvfs_lib.ber_monitor_update(
                 mon, detected, n_words, scfg.abft.threshold_bit,
                 cfg.monitor_target_ber)
@@ -132,4 +146,4 @@ def sample(model_cfg: ModelConfig, params, flip_source: fault.FlipSource,
                                       int(t_prev[i]))
             corrected = corrected + corr
             heat.append(det_blocks)
-    return SampleOutput(latents, mon, corrected, len(ts), torch.stack(heat))
+    return SampleOutput(latents, mon, corrected, nevals, torch.stack(heat))

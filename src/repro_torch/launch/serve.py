@@ -12,7 +12,15 @@ model evaluations; for autoregressive archs the generated tokens, their
 match against the clean decode, detections, rolled-back windows and model
 evaluations. ``--mode`` defaults to ``drift`` for diffusion archs and to
 ``stat_abft`` (statistical ABFT with KV-window rollback) for
-autoregressive ones.
+autoregressive ones. ``--taylorseer`` and ``--precision`` (diffusion
+only) forecast two of every three denoising steps and narrow the
+resilient body's output on resilient steps.
+
+Each result's ``perfmodel/request:`` line is the perfmodel's attribution
+(``perfmodel.energy.per_request_cost``): baseline and billed joules and
+seconds, with the energy saving and speedup. Like the engine line's
+virtual ``clock``, these are the modeled paper accelerator's numbers,
+not measurements of the GPU the port runs on.
 
 Its flags are a subset of ``repro.launch.serve``'s plus ``--device``
 (default "cuda"; without a GPU the engine raises). ``--smoke/--no-smoke``
@@ -27,6 +35,7 @@ import time
 from typing import Optional, Sequence
 
 from repro_torch.core import dvfs as dvfs_lib
+from repro_torch.core.quant import PRECISION_PLANS
 from repro_torch.core.rollback import DEFAULT_INTERVAL
 from repro_torch.serving import DriftServeEngine
 from repro_torch.serving.request import REQUEST_OPS
@@ -81,6 +90,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="rollback checkpoint-refresh interval in steps "
                          "(autoregressive: the KV rollback window in "
                          f"tokens; default: {DEFAULT_INTERVAL})")
+    ap.add_argument("--taylorseer", action="store_true",
+                    help="TaylorSeer (diffusion only): compute every third "
+                         "denoising step, forecast the others")
+    ap.add_argument("--precision", default="int8",
+                    choices=sorted(PRECISION_PLANS),
+                    help="precision plan for the resilient denoiser body "
+                         "(diffusion only); 'int8' is the baseline path")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda; there is no CPU "
                          "fallback)")
@@ -100,13 +116,15 @@ def main(argv: Optional[Sequence[str]] = None,
     for i in range(n_requests):
         eng.submit(arch=args.arch, smoke=args.smoke, steps=args.steps,
                    mode=mode, op=args.op, seed=args.seed + i,
+                   taylorseer=args.taylorseer, precision=args.precision,
                    rollback_interval=args.rollback_interval)
     t0 = time.perf_counter()
     results = eng.run()
     wall = time.perf_counter() - t0
 
     print(f"[serve] {args.arch} smoke={args.smoke} mode={mode} "
-          f"op={args.op} steps={args.steps} requests={n_requests} "
+          f"op={args.op} steps={args.steps} taylorseer={args.taylorseer} "
+          f"precision={args.precision} requests={n_requests} "
           f"bucket={bucket} device={eng.device} wall={wall:.2f}s")
     for r in results:
         head = f"  req {r.request_id} (batch {r.batch_index}, op {r.op}): "
@@ -120,11 +138,17 @@ def main(argv: Optional[Sequence[str]] = None,
                   f"psnr {r.psnr_vs_clean_db:.2f} dB  "
                   f"corrected(batch) {r.batch_corrected_elems}  "
                   f"evals {r.n_model_evals}")
+        print(f"    perfmodel/request (modeled accelerator): baseline "
+              f"{r.baseline_energy_j:.4f}J/{r.baseline_latency_s:.4f}s -> "
+              f"{r.energy_j:.4f}J/{r.latency_s:.4f}s "
+              f"({100 * (1 - r.energy_j / r.baseline_energy_j):.1f}% energy, "
+              f"{r.baseline_latency_s / r.latency_s:.2f}x speed)")
     print(f"  engine: {eng.cache.builds} sampler builds, {eng.cache.hits} "
           f"cache hits, {eng.stats.batches} batches, "
           f"{eng.stats.padded_slots} padded slots; monitor "
           f"ber={float(eng.monitor.ema_ber):.2e} "
-          f"ladder={int(eng.monitor.op_index)}")
+          f"ladder={int(eng.monitor.op_index)}; modeled clock "
+          f"{eng.clock_s:.4f}s")
     return results
 
 

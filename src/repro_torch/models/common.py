@@ -66,6 +66,11 @@ class ModelConfig:
         p = self.attn_pattern
         return tuple(p[i % len(p)] for i in range(self.n_layers))
 
+    def layer_windows(self) -> Tuple[int, ...]:
+        """Per-layer window (0 = unbounded/global)."""
+        return tuple(0 if k == "global" else self.window
+                     for k in self.layer_kinds())
+
 
 # ----------------------------------------------------------------- inits
 def trunc_normal(shape, std: float, dtype: torch.dtype, device,

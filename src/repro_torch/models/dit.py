@@ -286,3 +286,16 @@ def drift_store_spec(cfg: ModelConfig, batch: int, device="cpu"
              "mlp.w1": z(cfg.n_layers, bt, f),
              "mlp.w2": z(cfg.n_layers, bt, d)}
     return embed, block
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Analytical parameter count, the reference's formula. The port's
+    DiT is class-conditional only, so the reference's cross-attention term
+    (``cond_tokens``) is zero here."""
+    _check_cfg(cfg)
+    d, f = cfg.d_model, cfg.d_ff
+    per_block = 6 * d * d + 4 * d * d + 2 * d * f
+    t = (cfg.latent_size // cfg.patch_size) ** 2
+    pdim = cfg.patch_size ** 2 * cfg.latent_channels
+    base = (pdim * d + t * d + 256 * d + d * d + 2 * d * d + d * pdim)
+    return cfg.n_layers * per_block + base

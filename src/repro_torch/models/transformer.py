@@ -283,3 +283,19 @@ def decode_step_mixed(cfg: ModelConfig, params, cache, tokens):
     raise NotImplementedError(
         "the windowed (ring-buffer) decode is not yet ported to repro_torch "
         "(ROADMAP Queue A item 12, local/global families)")
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Analytical parameter count, the reference's formula for the dense
+    family (its MoE and SSM terms wait for the families themselves)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: param_count of the {cfg.family!r} family is not "
+            "yet ported to repro_torch (ROADMAP Queue A item 12)")
+    d, h, hkv, hd, f, v = (cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd,
+                           cfg.d_ff, cfg.vocab)
+    per_layer = d * h * hd + 2 * d * hkv * hd + h * hd * d + 3 * d * f
+    n = cfg.n_layers * per_layer + v * d
+    if not cfg.tie_embeddings:
+        n += v * d
+    return n

@@ -1,0 +1,147 @@
+"""Analytical FLOPs/bytes accounting per (architecture x shape).
+
+Counterpart of ``repro.perfmodel.flops``, copied with every expression's
+association unchanged. MODEL_FLOPS definitions:
+  train:  6 * N_active * D        (fwd 2ND + bwd 4ND)
+  prefill: 2 * N_active * D  + attention term
+  decode: 2 * N_active * B   + attention-read term
+plus explicit attention FLOPs (2 * 2 * S^2 * d per layer at train/prefill,
+window-clipped for local layers), which the 6ND rule ignores.
+
+The port has the DiT and the dense LM families. The reference's terms
+that only other families reach -- MoE experts, the SSM scan, the UNet's
+conv sweep, PixArt's cross-attention -- raise ``NotImplementedError``
+naming ROADMAP Queue A item 12, which ports those families.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.configs import shapes as shapes_lib
+from repro_torch.models import dit as dit_lib
+from repro_torch.models import transformer as tf_lib
+from repro_torch.models.common import ModelConfig
+
+
+def not_ported(cfg: ModelConfig, what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{cfg.name}: {what} of the {cfg.family!r} family is not yet "
+        "ported to repro_torch (ROADMAP Queue A item 12)")
+
+
+def active_params(cfg: ModelConfig) -> float:
+    """Parameters touched per token."""
+    if cfg.family == "moe":
+        raise not_ported(cfg, "active_params")
+    n = tf_lib.param_count(cfg) if cfg.family not in ("dit", "unet") \
+        else dit_lib.param_count(cfg)
+    return float(n)
+
+
+def _attn_flops_full(cfg: ModelConfig, batch: int, seq: int) -> float:
+    """Score + mix FLOPs over all layers, window-aware (causal halves it)."""
+    total = 0.0
+    if cfg.family != "ssm":
+        for w in cfg.layer_windows():
+            eff = seq if w == 0 else min(w, seq)
+            # sum over query positions of attended length (causal avg)
+            attended = seq * eff * (0.5 if w == 0 else 1.0)
+            total += 2 * 2 * attended * cfg.n_heads * cfg.hd * batch
+    if cfg.family in ("ssm", "hybrid"):
+        total += cfg.n_layers * _ssd_flops(cfg, batch, seq)
+    return total
+
+
+def _ssd_flops(cfg: ModelConfig, batch: int, seq: int) -> float:
+    """The SSM scan's FLOPs: not ported with its families."""
+    raise not_ported(cfg, "the SSD scan")
+
+
+def cell_flops(cfg: ModelConfig, shape: shapes_lib.ShapeSpec
+               ) -> Dict[str, float]:
+    """MODEL_FLOPS for one (arch, shape) cell."""
+    n_act = active_params(cfg)
+    if shape.kind == "train":
+        d_tokens = shape.global_batch * shape.seq_len
+        return {"model_flops": 6.0 * n_act * d_tokens
+                + 3.0 * _attn_flops_full(cfg, shape.global_batch,
+                                         shape.seq_len),
+                "tokens": float(d_tokens)}
+    if shape.kind == "prefill":
+        d_tokens = shape.global_batch * shape.seq_len
+        return {"model_flops": 2.0 * n_act * d_tokens
+                + _attn_flops_full(cfg, shape.global_batch, shape.seq_len),
+                "tokens": float(d_tokens)}
+    if shape.kind == "decode":
+        b = shape.global_batch
+        attn = 0.0
+        if cfg.family != "ssm":
+            for w in cfg.layer_windows():
+                eff = shape.seq_len if w == 0 else min(w, shape.seq_len)
+                attn += 2 * 2 * eff * cfg.n_heads * cfg.hd * b
+        if cfg.family in ("ssm", "hybrid"):
+            attn += cfg.n_layers * _ssd_flops(cfg, b, 1)
+        return {"model_flops": 2.0 * n_act * b + attn, "tokens": float(b)}
+    if shape.kind in ("denoise_train", "sample"):
+        if cfg.family != "dit":
+            raise not_ported(cfg, "cell_flops")
+        t = (cfg.latent_size // cfg.patch_size) ** 2
+        d_tokens = shape.global_batch * t
+        mult = 6.0 if shape.kind == "denoise_train" else 2.0
+        extra = _attn_flops_full(cfg, shape.global_batch, t)
+        return {"model_flops": mult * active_params(cfg) * d_tokens
+                + (mult / 2) * extra,
+                "tokens": float(d_tokens)}
+    raise ValueError(shape.kind)
+
+
+def mac_bit_energy_scale(bits: int, base_bits: int = 8) -> float:
+    """On-die energy per MAC at a narrowed operand width, relative to the
+    INT8 baseline: multiplier area/energy grows with the product of operand
+    widths, so e_mac ~ (bits/8)^2. Exactly 1.0 at the baseline width --
+    the degenerate precision plan prices (and computes) identically to the
+    pre-plan path."""
+    return (bits / base_bits) ** 2
+
+
+def mac_bit_time_scale(bits: int, base_bits: int = 8) -> float:
+    """MAC time at a narrowed operand width relative to INT8: a
+    weight-stationary systolic array streams ``bits``-wide operands, so
+    throughput scales ~ 1/bits (int4 packs two ops where int8 packs one).
+    Exactly 1.0 at the baseline width."""
+    return bits / base_bits
+
+
+#: nominal decode context length the per-token serving cost is quoted at
+#: (KV reads grow with position; the engine charges a fixed mid-stream
+#: context so batch cost stays affine in step count like diffusion).
+DECODE_CONTEXT = 1024
+
+
+def gemm_macs_per_model_eval(cfg: ModelConfig, batch: int = 1) -> float:
+    """INT8 MACs for one model evaluation (the perf/energy model unit).
+
+    For the DiT one eval is a denoiser pass over the latent grid; for LM
+    families one eval is ONE DECODE STEP (a token per sequence): weight
+    MACs ~= active params, plus window-clipped KV attention reads at
+    ``DECODE_CONTEXT``.
+    """
+    if cfg.family not in ("dit", "unet"):
+        macs = active_params(cfg)
+        attn = 0.0
+        if cfg.family != "ssm":
+            for w in cfg.layer_windows():
+                eff = DECODE_CONTEXT if w == 0 else min(w, DECODE_CONTEXT)
+                attn += 2.0 * eff * cfg.n_heads * cfg.hd
+        if cfg.family in ("ssm", "hybrid"):
+            attn += cfg.n_layers * _ssd_flops(cfg, 1, 1) / 2.0
+        return batch * (macs + attn)
+    if cfg.family == "dit":
+        t = (cfg.latent_size // cfg.patch_size) ** 2
+        d = cfg.d_model
+        per_block = t * (4 * d * d + 2 * d * cfg.d_ff + 6 * d * d / t)
+        attn = 2 * t * t * d
+        pdim = cfg.patch_size ** 2 * cfg.latent_channels
+        embed = t * pdim * d * 2 + 256 * d + d * d
+        return batch * (cfg.n_layers * (per_block + attn) + embed)
+    raise not_ported(cfg, "gemm_macs_per_model_eval")

@@ -35,7 +35,8 @@ def request_key(req: GenerationRequest, bucket: int, resolved_op: str
     return SamplerKey(arch=req.arch, smoke=req.smoke, steps=req.steps,
                       mode=req.mode,
                       op="" if req.mode == "clean" else resolved_op,
-                      bucket=bucket,
+                      bucket=bucket, taylorseer=req.taylorseer,
+                      precision=req.precision,
                       rollback_interval=int(req.rollback_interval))
 
 

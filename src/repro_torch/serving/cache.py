@@ -22,6 +22,11 @@ class SamplerKey:
     mode: str
     op: str            # operating-point name; "" when no DVFS schedule
     bucket: int        # batch size
+    taylorseer: bool = False
+    # Precision-plan name (core.quant.PRECISION_PLANS). The clean
+    # reference's key resets it to "int8": references are scored at full
+    # width.
+    precision: str = "int8"
     rollback_interval: int = DEFAULT_INTERVAL
 
 

@@ -12,14 +12,25 @@ and the monitor carried from batch to batch (Sec 5.1); a bounded LRU of
 error-free reference samples per (configuration, latent seeds); and
 per-request quality scores returned as ``RequestResult`` records.
 
+Every result carries the perfmodel's attribution: the batch is priced
+once (``energy.run_cost`` on the full-width config at the bucket size,
+from the servable's ``RunConfig``), each live request bills an equal
+share (``per_request_cost``, whose breakdown sums bitwise to its
+``energy_j``), beside the nominal unprotected baseline
+(``baseline_rc``). A **virtual clock** (``clock_s``) advances by each
+batch's modeled latency; requests are stamped with it at submission and
+completion. These joules and seconds are the modeled paper
+accelerator's, not the GPU's. The attribution runs once per batch, after
+the servable has read the batch's counts, so it adds no device work.
+
 The engine runs on ``device`` ("cuda" by default). Without a GPU it raises;
 it never falls back to the CPU -- the tests pass ``device="cpu"``. Flip
 masks come from ``flip_source_factory(batch_index)``, by default a Philox
 source seeded from (base seed, batch index, site); see ``core.fault``.
 
-The perfmodel's energy/latency attribution and virtual clock, streaming,
-the scheduler, telemetry, tracing and offload are later slices (ROADMAP
-Queue A items 8 and 10).
+Streaming, the scheduler, telemetry, tracing and offload (and with it
+the offload stall on the clock) are later slices (ROADMAP Queue A items 6
+and 10).
 """
 from __future__ import annotations
 
@@ -34,14 +45,12 @@ from repro_torch import configs
 from repro_torch.core import dvfs as dvfs_lib
 from repro_torch.core import fault
 from repro_torch.diffusion import sampler as sampler_lib
+from repro_torch.perfmodel import energy
 from repro_torch.serving import servable as servable_lib
 from repro_torch.serving.batcher import MicroBatch, MicroBatcher
 from repro_torch.serving.cache import CompiledSamplerCache, SamplerKey
 from repro_torch.serving.request import (GenerationRequest, RequestQueue,
                                          RequestResult)
-
-# Modes whose ABFT detections feed the BER monitor.
-_MONITORED_MODES = ("drift", "stat_abft")
 
 
 def resolve_device(device) -> torch.device:
@@ -115,6 +124,10 @@ class DriftServeEngine:
             collections.OrderedDict()
         self._clean_cache_size = clean_cache_size
         self._servables: Dict[str, object] = {}
+        # perfmodel: calibrated on first use
+        self._energy_model: Optional[energy.EnergyModel] = None
+        # virtual clock, modeled-accelerator seconds
+        self.clock_s = 0.0
 
     # ---------------------------------------------------------- servables
     def servable_for(self, arch: str):
@@ -148,6 +161,7 @@ class DriftServeEngine:
                 "steps"].default
             fields["steps"] = min(fields.get("steps", default_steps), budget)
         configs.get_config(fields["arch"], smoke=fields["smoke"])
+        fields.setdefault("submitted_at_s", self.clock_s)
         fields = self.servable_for(fields["arch"]).validate_request(fields)
         return self.queue.submit(**fields)
 
@@ -190,6 +204,16 @@ class DriftServeEngine:
         """Put ``params`` into the params cache for (arch, smoke)."""
         self._params[(arch, smoke)] = params
 
+    def _energy_model_for(self) -> energy.EnergyModel:
+        if self._energy_model is None:
+            self._energy_model = energy.calibrate()
+        return self._energy_model
+
+    def _full_cfg(self, arch: str):
+        """The full-width config the perfmodel prices (smoke runs bill as
+        the model they stand in for, as in the reference)."""
+        return configs.get_config(arch)
+
     # ---------------------------------------------------------- one batch
     def _prepare_batch(self, mb: MicroBatch) -> _BatchCtx:
         key = mb.key
@@ -213,15 +237,36 @@ class DriftServeEngine:
         key = mb.key
         sv = self.servable_for(key.arch)
         out = sv.execute(mb, ctx)
-        if key.mode in _MONITORED_MODES:
+        if key.mode in servable_lib.MONITORED_MODES:
             self.monitor = out.monitor   # Sec 5.1 carry-over across batches
         outcome = sv.finalize(mb, ctx, out)
         mon_ber = float(self.monitor.ema_ber)
         mon_idx = int(self.monitor.op_index)
+
+        # perfmodel attribution: the bucket priced once, its ledger shared
+        # evenly by the live requests (padding lands on them)
+        em = self._energy_model_for()
+        full = self._full_cfg(key.arch)
+        n_live = len(mb.requests)
+        bcost = energy.run_cost(full, outcome.rc, batch=key.bucket, em=em)
+        cost = energy.per_request_cost(full, outcome.rc, batch=key.bucket,
+                                       n_live=n_live, em=em, cost=bcost)
+        base = energy.per_request_cost(full, energy.baseline_rc(key.steps),
+                                       batch=key.bucket, n_live=n_live,
+                                       em=em)
+        # every request completes when the batch's modeled latency has
+        # passed (the offload stall joins it with ROADMAP Queue A item 10)
+        batch_latency_s = cost["latency_s"]
+        self.clock_s += batch_latency_s
         return [RequestResult(
             request_id=req.request_id, batch_index=ctx.batch_index,
             bucket_size=key.bucket, op=key.op or "nominal", mode=key.mode,
-            steps=key.steps, batch_corrected_elems=outcome.corrected,
-            n_model_evals=outcome.n_model_evals, monitor_ber=mon_ber,
-            monitor_op_index=mon_idx, **outcome.per_slot[slot])
+            steps=key.steps, taylorseer=key.taylorseer,
+            precision=key.precision, batch_corrected_elems=outcome.corrected,
+            n_model_evals=outcome.n_model_evals, energy_j=cost["energy_j"],
+            energy_breakdown=cost["breakdown"], latency_s=batch_latency_s,
+            baseline_energy_j=base["energy_j"],
+            baseline_latency_s=base["latency_s"], monitor_ber=mon_ber,
+            monitor_op_index=mon_idx, completed_at_s=self.clock_s,
+            **outcome.per_slot[slot])
             for slot, req in enumerate(mb.requests)]

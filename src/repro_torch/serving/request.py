@@ -2,13 +2,19 @@
 
 Counterpart of ``repro.serving.request``. A ``GenerationRequest`` names
 the arch, step count (denoising steps, or tokens to decode), protection
-mode and DVFS operating point (``"auto"`` defers to the engine's
-BER-monitor ladder). Which modes an arch takes depends on its paradigm and
-is checked at submit by its servable (``servable.validate_request``). The request schema keeps the
-reference's fields, but those whose machinery is not yet ported --
-TaylorSeer, narrowed precision plans, ``rollback_interval="auto"``,
-priority and deadlines, energy budgets and quality floors -- raise a
-``ValueError`` naming the ROADMAP item when a request sets them.
+mode, DVFS operating point (``"auto"`` defers to the engine's
+BER-monitor ladder), TaylorSeer and the precision plan. Which modes and
+knobs an arch takes depends on its paradigm and is checked at submit by
+its servable (``servable.validate_request``). The request schema keeps
+the reference's fields, but those whose machinery is not yet ported --
+``rollback_interval="auto"``, priority and deadlines, energy budgets and
+quality floors -- raise a ``ValueError`` naming the ROADMAP item when a
+request sets them.
+
+Time base: ``submitted_at_s`` and ``RequestResult.completed_at_s`` are
+stamps of the engine's virtual clock (``DriftServeEngine.clock_s``),
+which advances by the perfmodel latency of each served batch: seconds
+on the modeled paper accelerator, not on the GPU or the host.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from typing import Deque, List, Optional, Union
 
 from repro_torch.core.dvfs import OP_LADDER
 from repro_torch.core.exec_ctx import MODES
+from repro_torch.core.quant import get_plan
 from repro_torch.core.rollback import DEFAULT_INTERVAL
 
 REQUEST_OPS = ("nominal", "undervolt", "overclock", "auto") + tuple(
@@ -48,6 +55,8 @@ class GenerationRequest:
     step_budget: Optional[int] = None
     energy_budget_j: Optional[float] = None
     quality_floor: Optional[float] = None
+    # engine virtual-clock stamp at submission; set by the engine
+    submitted_at_s: float = 0.0
 
     def __post_init__(self):
         if self.op not in REQUEST_OPS:
@@ -58,11 +67,7 @@ class GenerationRequest:
                 f"unknown DRIFT mode {self.mode!r}; one of {MODES}")
         if self.steps < 1:
             raise ValueError(f"steps must be >= 1, got {self.steps}")
-        if self.taylorseer:
-            raise _not_ported("taylorseer=True", "6 (TaylorSeer)")
-        if self.precision != "int8":
-            raise _not_ported(f"precision={self.precision!r}",
-                              "3 (precision plans)")
+        get_plan(self.precision)          # unknown plan names raise
         if isinstance(self.rollback_interval, str):
             raise _not_ported(
                 f"rollback_interval={self.rollback_interval!r}",
@@ -95,10 +100,22 @@ class RequestResult:
     # rollback-corrected elements summed over the WHOLE batch tensor
     # (padded slots included): one count per batch, not per request
     batch_corrected_elems: int
+    # computed model evaluations of the batch (< steps when TaylorSeer
+    # forecasts; prefill, decodes and replays for autoregressive requests)
     n_model_evals: int
+    # perfmodel attribution, in joules and virtual seconds of the modeled
+    # paper accelerator (not the GPU): this request's share of the
+    # bucket's cost; latency is the shared batch latency
+    energy_j: float
+    latency_s: float
+    baseline_energy_j: float
+    baseline_latency_s: float
     # BER-monitor state after this request's batch
     monitor_ber: float
     monitor_op_index: int
+    # knobs the batch ran under
+    taylorseer: bool = False
+    precision: str = "int8"
     # this request's sample: its slot of the batch latents, clipped to
     # [-1, 1], shape (H, W, C); None for autoregressive requests
     latents: Optional[object] = None
@@ -109,6 +126,11 @@ class RequestResult:
     token_match_vs_clean: Optional[float] = None
     ar_detections: int = 0
     ar_rollbacks: int = 0
+    # engine virtual clock after this request's batch
+    completed_at_s: float = 0.0
+    # this request's share of the batch cost per perfmodel.energy.
+    # ENERGY_COMPONENTS; its ledger_total equals energy_j bitwise
+    energy_breakdown: Optional[dict] = None
 
 
 class RequestQueue:

@@ -1,18 +1,21 @@
 """Servables: how one micro-batch of a paradigm computes.
 
 Counterpart of ``repro.serving.servable``. The engine owns the queue,
-batcher, cache and monitor; a servable checks a request's mode for its
-paradigm (``validate_request``), turns request seeds into model inputs
+batcher, cache, monitor, virtual clock and perfmodel attribution; a
+servable checks a request's mode and knobs for its paradigm
+(``validate_request``), turns request seeds into model inputs
 (``batch_inputs``), a ``SamplerKey`` into built callables (``build_fn``),
-runs a batch (``execute``) and scores it against the cached error-free
-reference of the same inputs (``finalize``). Two ship, as in the
-reference; ``SERVABLE_BY_FAMILY`` maps each ported family to one, and each
-provides its family's params init (``init_params``):
+runs a batch (``execute``), and scores it against the cached error-free
+reference of the same inputs and states its perfmodel ``RunConfig``
+(``finalize``). Two ship, as in the reference; ``SERVABLE_BY_FAMILY`` maps
+each ported family to one, and each provides its family's params init
+(``init_params``):
 
-* ``DiffusionServable`` -- the DRIFT denoising path (DiT).
+* ``DiffusionServable`` -- the DRIFT denoising path (DiT), with
+  TaylorSeer and the precision plans.
 * ``AutoregressiveServable`` -- token-by-token decode with statistical
   ABFT and KV-window rollback (``serving.ar``), without the reference's
-  perfmodel run shape and tracer taps (ROADMAP Queue A items 8 and 10).
+  tracer taps (ROADMAP Queue A item 10).
 
 Initial latents and prompts come from the port's own generator, one
 ``torch.Generator`` per request seed; tests that compare with the
@@ -30,10 +33,13 @@ import torch
 from repro_torch import configs
 from repro_torch.core import dvfs as dvfs_lib
 from repro_torch.core import fault, metrics
+from repro_torch.core import quant as quant_lib
 from repro_torch.core.exec_ctx import PORTED_MODES, DriftSystemConfig
 from repro_torch.core.rollback import RollbackConfig
 from repro_torch.diffusion import sampler as sampler_lib
+from repro_torch.diffusion.taylorseer import TaylorSeerConfig
 from repro_torch.models import dit, transformer
+from repro_torch.perfmodel import energy
 from repro_torch.serving import ar
 from repro_torch.serving.cache import SamplerKey
 
@@ -41,12 +47,23 @@ from repro_torch.serving.cache import SamplerKey
 # reference folds 7 into the seed's key).
 LATENT_TAG = 7
 
+# Modes whose ABFT detections feed the BER monitor; only they pay ABFT
+# compute and checkpoint traffic in the perfmodel.
+MONITORED_MODES = ("drift", "stat_abft")
+
+
+def _taylorseer_cfg(key: SamplerKey) -> TaylorSeerConfig:
+    """The TaylorSeer schedule a DiT key runs, and so the one it is
+    billed for."""
+    return TaylorSeerConfig(enabled=key.taylorseer)
+
 
 @dataclasses.dataclass
 class BatchOutcome:
     """What ``finalize`` hands back to the engine."""
     corrected: int
     n_model_evals: int
+    rc: energy.RunConfig        # the batch's perfmodel run shape
     per_slot: List[dict]
 
 
@@ -98,6 +115,11 @@ class DiffusionServable:
                 mode=key.mode,
                 rollback=RollbackConfig(interval=key.rollback_interval)),
             schedule=schedule,
+            taylorseer=_taylorseer_cfg(key),
+            # protect_steps rides the engine's nominal_steps so the
+            # precision protection window matches the DVFS one
+            precision=quant_lib.get_plan(key.precision).with_protect_steps(
+                eng.nominal_steps),
             monitor_target_ber=eng.monitor_target_ber)
         return eng._sampler_factory(key, model_cfg, scfg)
 
@@ -106,7 +128,10 @@ class DiffusionServable:
         """Error-free reference latents for this batch, cached by
         (configuration, latent seeds) in the engine's bounded LRU."""
         eng = self.eng
-        ckey = dataclasses.replace(key, mode="clean", op="")
+        # precision="int8": a narrowed run is scored against the
+        # full-width error-free sample; TaylorSeer stays as requested.
+        ckey = dataclasses.replace(key, mode="clean", op="",
+                                   precision="int8")
         sample_id = (ckey, seeds)
         cached = eng._clean_samples.get(sample_id)
         if cached is not None:
@@ -139,6 +164,20 @@ class DiffusionServable:
         else:
             clean = self._clean_reference(key, ctx.padded_seeds, ctx.params,
                                           latents, cond)
+        # the true int64 count: the reference's int32 carry wraps it at
+        # full width (ROADMAP Queue C item 7)
+        corrected = int(out.total_corrected)
+        protected = key.mode in MONITORED_MODES
+        ts = _taylorseer_cfg(key)
+        rc = energy.RunConfig(
+            num_steps=key.steps, nominal_steps=self.eng.nominal_steps,
+            aggressive=dvfs_lib.OP_BY_NAME.get(key.op, dvfs_lib.NOMINAL),
+            ckpt_interval=key.rollback_interval if protected else 10 ** 9,
+            abft_enabled=protected,
+            taylorseer_interval=ts.interval if ts.enabled else 0,
+            body_bits=quant_lib.get_plan(key.precision).body_bits,
+            recovery_tiles_per_step=corrected / max(key.steps, 1)
+            / (32 * 32))
         per_slot = []
         for slot in range(len(mb.requests)):
             a, b = img[slot:slot + 1], clean[slot:slot + 1]
@@ -146,8 +185,8 @@ class DiffusionServable:
                 lpips_vs_clean=float(metrics.lpips_proxy(a, b)),
                 psnr_vs_clean_db=float(metrics.psnr(a, b)),
                 latents=a[0]))
-        return BatchOutcome(corrected=int(out.total_corrected),
-                            n_model_evals=int(out.n_model_evals),
+        return BatchOutcome(corrected=corrected,
+                            n_model_evals=int(out.n_model_evals), rc=rc,
                             per_slot=per_slot)
 
 
@@ -169,10 +208,24 @@ class AutoregressiveServable:
         self._weights: Dict[Tuple[str, bool], tuple] = {}
 
     def validate_request(self, fields: dict) -> dict:
+        arch = fields.get("arch", "?")
+        if fields.get("taylorseer"):
+            raise ValueError(
+                f"request for AR arch {arch!r} sets taylorseer=True: "
+                "TaylorSeer caches diffusion denoiser features across "
+                "timesteps and does not apply to token decoding. Drop the "
+                "flag (or serve a dit arch).")
+        if fields.get("precision", "int8") != "int8":
+            raise ValueError(
+                f"request for AR arch {arch!r} sets precision="
+                f"{fields['precision']!r}: precision plans narrow the "
+                "diffusion denoiser body per timestep and do not apply to "
+                "token decoding. Use the default 'int8' (or serve a dit "
+                "arch).")
         mode = fields.get("mode", "drift")
         if mode not in self.ALLOWED_MODES:
             raise ValueError(
-                f"request for AR arch {fields.get('arch')!r} has mode="
+                f"request for AR arch {arch!r} has mode="
                 f"{mode!r}: autoregressive serving supports modes "
                 f"{'/'.join(self.ALLOWED_MODES)} (statistical ABFT with "
                 "KV-cache window rollback)")
@@ -258,9 +311,21 @@ class AutoregressiveServable:
                 token_match_vs_clean=1.0 - mismatch,
                 ar_detections=int(out.detections),
                 ar_rollbacks=int(out.rollbacks)))
+        # Replays are real decode steps: evals = 1 prefill + key.steps
+        # first-pass decodes + window re-decodes, and everything past the
+        # first two terms bills as compute_replay.
+        nevals = int(out.n_model_evals)
+        protected = mb.key.mode in MONITORED_MODES
+        rc = energy.RunConfig(
+            num_steps=nevals, nominal_steps=self.eng.nominal_steps,
+            aggressive=dvfs_lib.OP_BY_NAME.get(mb.key.op, dvfs_lib.NOMINAL),
+            ckpt_interval=(mb.key.rollback_interval if protected
+                           else 10 ** 9),
+            abft_enabled=protected, taylorseer_interval=0,
+            recovery_tiles_per_step=0.0,
+            replay_evals=max(nevals - 1 - mb.key.steps, 0))
         return BatchOutcome(corrected=int(out.rollbacks),
-                            n_model_evals=int(out.n_model_evals),
-                            per_slot=per_slot)
+                            n_model_evals=nevals, rc=rc, per_slot=per_slot)
 
 
 # family -> its servable class, for the families the port has.

@@ -34,6 +34,7 @@ from repro_torch.kernels import rollback_correct as trk
 from repro_torch.kernels import stat_abft
 from repro_torch.launch import serve
 from repro_torch.models import transformer
+from repro_torch.perfmodel import energy
 from repro_torch.serving import DriftServeEngine
 from repro_torch.serving import ar
 
@@ -393,7 +394,9 @@ def _port_engine(np_params, prompts):
 def test_engine_matches_jax_engine(lm_setup, jax_engine_run):
     """The port's engine on the CPU, through its CLI: per request tokens,
     token match, detections, rollbacks and evaluations equal the
-    reference engine's; 2 builds (stat_abft and its clean reference)."""
+    reference engine's, and so, with ==, does the perfmodel attribution
+    (replayed decodes billed as compute_replay); 2 builds (stat_abft and
+    its clean reference)."""
     _, np_params, prompts = lm_setup
     eng = _port_engine(np_params, prompts)
     got = serve.main(["--arch", ARCH, "--steps", str(STEPS), "--requests",
@@ -409,6 +412,17 @@ def test_engine_matches_jax_engine(lm_setup, jax_engine_run):
         assert g.n_model_evals == w.n_model_evals > STEPS
         assert g.latents is None and g.op == w.op == "undervolt"
         assert g.monitor_op_index == w.monitor_op_index
+        for f in ("energy_j", "baseline_energy_j", "latency_s",
+                  "baseline_latency_s", "completed_at_s"):
+            assert getattr(g, f) == getattr(w, f), f
+        assert g.energy_breakdown == w.energy_breakdown
+        assert energy.ledger_total(g.energy_breakdown) == g.energy_j
+        # evals = 1 prefill + STEPS decodes + replays; nominal_steps 2
+        replays = g.n_model_evals - 1 - STEPS
+        assert g.energy_breakdown["compute_replay"] > 0
+        assert g.energy_breakdown["compute_replay"] / g.energy_breakdown[
+            "compute_aggressive"] == pytest.approx(
+                replays / (g.n_model_evals - 2 - replays))
     assert eng.cache.builds == 2
     assert eng.stats.clean_samples_computed == 1
     assert int(eng.monitor.n_updates) == STEPS - 1
@@ -433,6 +447,19 @@ def test_engine_serves_both_paradigms_and_rejects_unported():
     (res,) = eng.run()
     assert res.tokens is not None and len(res.tokens) == 3
     assert res.ar_rollbacks == 0 and res.mode == "faulty"
+
+
+@pytest.mark.parametrize("field,value", [("taylorseer", True),
+                                         ("precision", "int8-body6")])
+def test_ar_rejects_diffusion_knobs(field, value):
+    """TaylorSeer and precision plans are diffusion knobs: an AR request
+    setting one raises at submit with the reference's reason."""
+    eng = DriftServeEngine(device="cpu")
+    with pytest.raises(ValueError, match="does not apply to token decoding"
+                       if field == "taylorseer" else "do not apply to token "
+                       "decoding"):
+        eng.submit(arch=ARCH, mode="stat_abft", **{field: value})
+    assert len(eng.queue) == 0
 
 
 def test_cli_default_mode_per_paradigm():

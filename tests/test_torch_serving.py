@@ -1,11 +1,13 @@
 """The port's serving path: queue, batcher, cache and engine, and the slice
 as a whole against the JAX engine.
 
-The whole-slice test serves 2 drift/undervolt requests through the
-reference ``DriftServeEngine`` (SMOKE DiT, 3 steps) and through the port's
-engine on the CPU, fed the same perturbed params, the reference's latents
-and the reference's flip masks (``jax_replay_factory``). Logic tests use a
-stub sampler and run in milliseconds.
+The whole-slice tests serve 2 drift/undervolt requests through the
+reference ``DriftServeEngine`` (SMOKE DiT; 3 steps, and 7 steps with
+TaylorSeer and the ``int8-body4`` plan) and through the port's engine on
+the CPU, fed the same perturbed params, the reference's latents and the
+reference's flip masks (``jax_replay_factory``). The perfmodel's
+attribution must equal the reference engine's with ``==``. Logic tests use
+a stub sampler and run in milliseconds.
 """
 import subprocess
 import sys
@@ -21,8 +23,10 @@ import torch
 from repro.serving import DriftServeEngine as JaxEngine
 from repro_torch.core import dvfs
 from repro_torch.diffusion.sampler import SampleOutput
+from repro_torch import configs
 from repro_torch.launch import serve
 from repro_torch.models import dit
+from repro_torch.perfmodel import energy
 from repro_torch.serving import DriftServeEngine, SamplerKey
 
 from test_torch_core import jax_replay_factory
@@ -34,10 +38,13 @@ SEEDS = (0, 1)
 REPO = Path(__file__).resolve().parents[1]
 
 
-@pytest.fixture(scope="module")
-def jax_run():
-    """One reference engine run shared by the module: (params as numpy,
-    latents per seed batch, results)."""
+TS_STEPS = 7
+TS_ARGS = ["--taylorseer", "--precision", "int8-body4"]
+
+
+def _jax_engine_run(**fields):
+    """One reference engine run of 2 drift/undervolt requests: (params as
+    numpy, latents, class ids, results)."""
     eng = JaxEngine(arch=ARCH, smoke=True, bucket=2, base_seed=0)
     from repro import configs as jconfigs
     jcfg = jconfigs.get_config(ARCH, smoke=True)
@@ -45,9 +52,32 @@ def jax_run():
     eng._params[(ARCH, True)] = jax.tree.map(jnp.asarray, np_params)
     lat, cond, _ = eng.servable_for(ARCH).batch_inputs(jcfg, list(SEEDS))
     for s in SEEDS:
-        eng.submit(steps=STEPS, mode="drift", op="undervolt", seed=s)
+        eng.submit(mode="drift", op="undervolt", seed=s, **fields)
     results = eng.run()
     return np_params, np.asarray(lat), np.asarray(cond), results
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    return _jax_engine_run(steps=STEPS)
+
+
+@pytest.fixture(scope="module")
+def jax_ts_run():
+    return _jax_engine_run(steps=TS_STEPS, taylorseer=True,
+                           precision="int8-body4")
+
+
+def assert_attribution_equal(got, want):
+    """The perfmodel fields of a result equal the reference engine's with
+    ==, and the breakdown sums bitwise to energy_j."""
+    for f in ("energy_j", "baseline_energy_j", "latency_s",
+              "baseline_latency_s", "completed_at_s", "taylorseer",
+              "precision"):
+        assert getattr(got, f) == getattr(want, f), f
+    assert got.energy_breakdown == want.energy_breakdown
+    assert tuple(got.energy_breakdown) == energy.ENERGY_COMPONENTS
+    assert energy.ledger_total(got.energy_breakdown) == got.energy_j
 
 
 def _port_engine(np_params, lat, cond, **kw):
@@ -83,8 +113,34 @@ def test_slice_matches_jax_engine(jax_run):
         assert abs(g.psnr_vs_clean_db - w.psnr_vs_clean_db) < 0.05
         assert abs(g.lpips_vs_clean - w.lpips_vs_clean) < 1e-4
         assert g.psnr_vs_clean_db < 90       # the faults changed something
+        assert_attribution_equal(g, w)
+        assert g.energy_j < g.baseline_energy_j
     assert eng.cache.builds == 2             # drift + its clean reference
     assert eng.stats.clean_samples_computed == 1
+    assert eng.clock_s == got[0].completed_at_s == got[0].latency_s
+
+
+def test_slice_with_taylorseer_and_body4_matches_jax_engine(jax_ts_run):
+    """--taylorseer --precision int8-body4 --steps 7: the drift run and its
+    clean reference (TaylorSeer on, int8) compute steps 0, 3 and 6. Counts
+    and attribution exact, latents within 1e-4 as above."""
+    np_params, lat, cond, want = jax_ts_run
+    eng = _port_engine(np_params, lat, cond)
+    got = serve.main(["--steps", str(TS_STEPS), "--requests", "2",
+                      "--mode", "drift", "--op", "undervolt", "--device",
+                      "cpu"] + TS_ARGS, engine=eng)
+    for g, w in zip(got, want):
+        assert (g.taylorseer, g.precision) == (True, "int8-body4")
+        assert g.batch_corrected_elems == w.batch_corrected_elems > 0
+        assert g.n_model_evals == w.n_model_evals == 3
+        assert g.monitor_op_index == w.monitor_op_index
+        np.testing.assert_allclose(g.latents.numpy(), np.asarray(w.latents),
+                                   atol=1e-4, rtol=0)
+        assert abs(g.psnr_vs_clean_db - w.psnr_vs_clean_db) < 0.05
+        assert_attribution_equal(g, w)
+    keys = {k.precision: k for k in eng.cache._fns}
+    assert set(keys) == {"int8", "int8-body4"}
+    assert keys["int8"].mode == "clean" and keys["int8"].taylorseer
 
 
 # ------------------------------------------------------------ logic (stub)
@@ -155,7 +211,6 @@ def test_monitor_carries_over_only_for_drift():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("taylorseer", True), ("precision", "int8-body6"),
     ("rollback_interval", "auto"), ("priority", "interactive"),
     ("deadline_s", 1.0), ("energy_budget_j", 5.0), ("quality_floor", 0.5),
     ("stream", 2), ("mode", "dmr"), ("op", "warp-speed"),
@@ -165,6 +220,79 @@ def test_unported_request_fields_raise_at_submit(field, value):
     with pytest.raises(ValueError):
         eng.submit(steps=2, **{field: value})
     assert len(eng.queue) == 0
+
+
+@pytest.mark.parametrize("fields", [
+    dict(taylorseer=True), dict(precision="int8-body6"),
+    dict(precision="int8-body4"), dict(taylorseer=True, precision="int8-body4"),
+])
+def test_taylorseer_and_plans_accepted_and_keyed_apart(fields):
+    """Each knob is a field of the sampler key: a request setting it does
+    not share a batch or a built sampler with a default one, and the
+    sampler config carries the engine's protection window."""
+    calls, scfgs = [], []
+    factory = stub_factory(calls)
+
+    def spy(key, model_cfg, scfg):
+        scfgs.append(scfg)
+        return factory(key, model_cfg, scfg)
+    eng = DriftServeEngine(arch=ARCH, smoke=True, bucket=2, device="cpu",
+                           sampler_factory=spy, nominal_steps=3)
+    eng.submit(steps=4, seed=0)
+    eng.submit(steps=4, seed=1, **fields)
+    a, b = eng.run()
+    assert a.batch_index != b.batch_index
+    assert (a.taylorseer, a.precision) == (False, "int8")
+    assert b.taylorseer == fields.get("taylorseer", False)
+    assert b.precision == fields.get("precision", "int8")
+    drift_keys = [k for k in calls if k.mode == "drift"]
+    assert len(set(drift_keys)) == 2
+    assert all(s.precision.protect_steps == 3 for s in scfgs)
+    assert scfgs[-1].taylorseer.enabled == b.taylorseer
+
+
+def test_unknown_precision_plan_raises_at_submit():
+    eng = stub_engine()
+    with pytest.raises(ValueError, match="unknown precision plan"):
+        eng.submit(steps=2, precision="int3")
+    assert len(eng.queue) == 0
+
+
+def test_attribution_reads_the_true_corrected_count():
+    """A count past 2**32 (the reference's int32 carry would wrap it;
+    ROADMAP Queue C item 7) reaches the result and the billed recovery
+    energy as it is."""
+    big = 2 ** 32 + 5
+
+    def factory(key, model_cfg, scfg):
+        def run(params, flip_source, latents, cond, monitor0):
+            return SampleOutput(latents, monitor0, torch.tensor(big),
+                                scfg.num_sample_steps)
+        return run
+    eng = DriftServeEngine(arch=ARCH, smoke=True, bucket=2, device="cpu",
+                           sampler_factory=factory)
+    eng.submit(steps=4, seed=0)
+    (res,) = eng.run()
+    assert res.batch_corrected_elems == big
+    full = configs.get_config(ARCH)
+    rc = energy.RunConfig(num_steps=4, aggressive=dvfs.UNDERVOLT,
+                          recovery_tiles_per_step=big / 4 / 1024)
+    want = energy.per_request_cost(full, rc, batch=2, n_live=1,
+                                   em=energy.calibrate())
+    assert res.energy_j == want["energy_j"]
+    assert res.energy_breakdown == want["breakdown"]
+    assert res.energy_breakdown["recovery"] > 0
+
+
+def test_virtual_clock_stamps_submission_and_completion():
+    eng = stub_engine(bucket=1)
+    eng.submit(steps=3, seed=0)
+    (r0,) = eng.run()
+    assert r0.completed_at_s == eng.clock_s == r0.latency_s > 0
+    eng.submit(steps=3, seed=1)
+    assert eng.queue.peek().submitted_at_s == eng.clock_s
+    (r1,) = eng.run()
+    assert r1.completed_at_s == r0.completed_at_s + r1.latency_s
 
 
 def test_step_budget_clamps_steps():
@@ -192,6 +320,12 @@ def test_cli_smoke_flag_is_a_real_switch():
     assert ap.parse_args([]).device == "cuda"
     with pytest.raises(SystemExit):
         ap.parse_args(["--mode", "thundervolt"])
+    args = ap.parse_args([])
+    assert (args.taylorseer, args.precision) == (False, "int8")
+    args = ap.parse_args(TS_ARGS)
+    assert (args.taylorseer, args.precision) == (True, "int8-body4")
+    with pytest.raises(SystemExit):
+        ap.parse_args(["--precision", "int3"])
 
 
 def test_port_imports_neither_jax_nor_repro():
