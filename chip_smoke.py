@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, as the check runs it
     python3 chip_smoke.py --phases device,build,kernels --reps 3
     python3 chip_smoke.py --phases device,build,kernels,ar
+    python3 chip_smoke.py --phases device,build,offload
 
 Phases, each printing one JSON line with its wall time:
 
@@ -55,7 +56,31 @@ Phases, each printing one JSON line with its wall time:
                their own the same way, the same seeds in drift/undervolt
                with ``--taylorseer --precision int8-body4``: it and its
                TaylorSeer clean reference compute steps 0, 3, 6 and 9.
-6. ar       -- the same CLI drives a full-width olmo-1b engine (16
+6. offload  -- the same CLI serves the full-width DiT's 2 requests at
+               rollback interval 2 in turns on fresh engines with one base
+               seed: plain, ``--offload --stream 2``, the same again,
+               plain; each engine serves them 4 times, a cold batch (drift
+               and its clean reference; the pinned host sets allocated)
+               and 3 steady ones (drift alone, everything reused). Every
+               batch's launch counts are exact (3440 / 3440 / 560 / 0
+               cold, half that steady) and its finals ``torch.equal`` to
+               the first plain turn's batch of the same index (the flip
+               source is keyed by batch index); each offloaded batch
+               commits 5 snapshots of the 2,388,164,608-byte store and
+               yields 8 previews, and the first offloaded turn's first
+               steady batch's ``restore()`` equals its live store at step
+               8 bit for bit.
+               The ``{"offload": ...}`` line gives, beside the card's name
+               and power limit, each batch's wall and peak memory over
+               its start (the previous engine dropped and collected
+               first), each commit's repack and device-to-host ms (CUDA
+               events on their streams), GB/s, waits, the pinned
+               allocation's seconds, the ``auto`` interval and the
+               *modeled* stall; then the SMOKE DiT with ``--offload
+               --stream 1 --rollback-interval 2`` on the card and the CPU
+               (latents and corrected counts as in ``reference``; commits,
+               committed bytes and previews equal).
+7. ar       -- the same CLI drives a full-width olmo-1b engine (16
                layers, random seeded weights): 2 requests at bucket 2, 16
                tokens, rollback window 4, in stat_abft at undervolt, then
                faulty. Counters as in ``serve``: 105 fault_inject launches
@@ -67,8 +92,9 @@ Phases, each printing one JSON line with its wall time:
 Every DiT and olmo-1b result carries the perfmodel's attribution; each
 must bill a ledger whose ``ledger_total`` equals its ``energy_j`` bit for
 bit, drift at undervolt must bill less than its baseline, the TaylorSeer
-run less than plain drift, and stat_abft's replays must bill as
-``compute_replay``. These joules and seconds are the modeled paper
+run less than plain drift, an offloaded result what its plain twin
+bills (its modeled latency plus the planner's modeled stall), and
+stat_abft's replays must bill as ``compute_replay``. These joules and seconds are the modeled paper
 accelerator's, not this card's; the ``energy`` line says so.
 
 Then it prints the ``energy`` line, the card's name and power limit, the
@@ -80,13 +106,15 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("device", "build", "kernels", "reference", "serve", "ar")
+PHASES = ("device", "build", "kernels", "reference", "serve", "offload",
+          "ar")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, int8 and bf16
 # tensor-core rates, float32 rate outside the tensor cores.
@@ -106,6 +134,8 @@ AR_WINDOW = 4
 TS_ARGS = ["--taylorseer", "--precision", "int8-body4"]
 TS_KNOBS = dict(taylorseer=True, precision="int8-body4")
 TS_STEPS_SMOKE, TS_EVALS_SMOKE = 7, 3       # computes steps 0, 3, 6
+OFFLOAD_INTERVAL = 2        # refresh interval and stream window
+STEADY_BATCHES = 3          # batches after an offload engine's first
 TIMERS = set()          # which timer produced the kernel times
 ENERGY_SOURCE = "perfmodel: modeled paper accelerator, not this card"
 
@@ -941,6 +971,247 @@ def _profile_request(torch, eng, argv):
                      for us, k, c in rows[:12]])
 
 
+def _launch_counts(ak, rk, fk, fik):
+    return {"abft_matmul": ak.launches, "rollback_correct": rk.launches,
+            "flash_attention": fk.launches, "fault_inject": fik.launches}
+
+
+def phase_offload(torch, smi):
+    """The full-width DiT with checkpoint offload and streamed previews
+    through the CLI, against the same requests without offload, and the
+    SMOKE DiT with offload on the card against the CPU."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import abft_matmul as ak
+    from repro_torch.kernels import fault_inject as fik
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import rollback_correct as rk
+    from repro_torch.launch import serve
+    from repro_torch.models import dit
+    from repro_torch.serving import DriftServeEngine, OffloadConfig
+    from repro_torch.serving.offload.layout import tree_leaves
+
+    dev = torch.device("cuda")
+    cfg = get_config(ARCH)
+    params = _perturb(torch, dit.init_params(cfg, 11, dev), cfg, 12, dev)
+    argv = ["--arch", ARCH, "--no-smoke", "--batch", str(BUCKET),
+            "--steps", str(SERVE_STEPS), "--requests", "2", "--op",
+            "undervolt", "--device", "cuda", "--mode", "drift",
+            "--rollback-interval", str(OFFLOAD_INTERVAL)]
+    # The flip source is keyed by batch index: each turn gets a fresh
+    # engine with the same base seed, so the turns' batches draw the same
+    # masks. Turns: plain, offload, offload, plain; each serves the same
+    # 2 requests 1 + STEADY_BATCHES times. The first batch ("cold") runs
+    # drift and its clean reference and, offloaded, allocates the pinned
+    # host sets; the later ("steady") ones reuse both (the clean sample is
+    # a cache hit), so they run drift alone.
+    gemms = sum(p[4] for p in path_gemms(cfg, BUCKET))        # 172
+
+    def want(evals):
+        return {"abft_matmul": gemms * evals,
+                "rollback_correct": gemms * evals,
+                "flash_attention": cfg.n_layers * evals, "fault_inject": 0}
+    wants = {"cold": want(SERVE_STEPS * 2), "steady": want(SERVE_STEPS)}
+    commits = len(range(0, SERVE_STEPS, OFFLOAD_INTERVAL))      # 5
+    windows = -(-SERVE_STEPS // OFFLOAD_INTERVAL) - 1            # 4
+    nbytes = None
+    turns, first = [], {}
+    for turn, label in enumerate(("plain", "offload", "offload", "plain")):
+        # drop the previous turn's engine (it holds a reference cycle)
+        # before reading this turn's memory
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        offload = OffloadConfig() if label == "offload" else None
+        eng = DriftServeEngine(arch=ARCH, smoke=False, bucket=BUCKET,
+                               device="cuda", offload=offload)
+        eng.set_params(ARCH, False, params)
+        store = eng.offload_store
+        extra = (["--offload", "--stream", str(OFFLOAD_INTERVAL)]
+                 if offload is not None else [])
+        batches = []
+        for n, batch in enumerate(("cold",) + ("steady",) * STEADY_BATCHES):
+            live = {}
+            if turn == 1 and n == 1:
+                # keep the live store for the restore check, made after
+                # the batch's memory is read
+                tap = eng._offload_on_carry
+
+                def keep(done, carry, tap=tap):
+                    live["stores"] = carry[1]
+                    tap(done, carry)
+                eng._offload_on_carry = keep
+            st0 = store.stats.snapshot() if store is not None else None
+            alloc0 = store.pinned_alloc_s if store is not None else 0.0
+            previews0 = eng.stats.preview_events
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            ak.launches = rk.launches = fk.launches = fik.launches = 0
+            t0 = time.perf_counter()
+            results = serve.main(argv + extra, engine=eng)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            b = dict(batch=batch, wall_s=wall, start_bytes=start,
+                     peak_over_start_bytes=(torch.cuda.max_memory_allocated()
+                                            - start),
+                     launches=_launch_counts(ak, rk, fk, fik),
+                     results=results)
+            if b["launches"] != wants[batch]:
+                raise AssertionError(f"{label} {batch} launch counts "
+                                     f"{b['launches']} != {wants[batch]}")
+            first.setdefault(n, results)
+            # compared as bits: a batch's drift latents may hold NaN
+            # (ROADMAP Queue C 10), which torch.equal never calls equal
+            b["finite"] = all(bool(torch.isfinite(r.latents).all())
+                              for r in results)
+            for x, y in zip(first[n], results):
+                if not (torch.equal(x.latents.view(torch.int32),
+                                    y.latents.view(torch.int32))
+                        and x.batch_corrected_elems
+                        == y.batch_corrected_elems > 0):
+                    raise AssertionError(
+                        f"{label} {batch} request {x.request_id}: not "
+                        f"bit-identical to the plain run (corrected "
+                        f"{x.batch_corrected_elems} vs "
+                        f"{y.batch_corrected_elems})")
+            batches.append(b)
+            if store is None:
+                continue
+            if live:
+                # the live store at the end of the batch holds the refresh
+                # of the last committed step; restore() must give it back
+                # bit for bit
+                stores = tree_leaves(live.pop("stores"))
+                nbytes = sum(-(-math.prod(t.shape[:-1]) // 32) * 32
+                             * -(-t.shape[-1] // 32) * 32 * t.element_size()
+                             for t in stores)
+                restored = tree_leaves(store.restore())
+                if not (len(restored) == len(stores) == 10
+                        and all(torch.equal(x, y)
+                                for x, y in zip(restored, stores))):
+                    raise AssertionError("restore() differs from the live "
+                                         "store")
+                # untap, so later batches keep nothing alive and the
+                # engine can be freed with its turn
+                del eng._offload_on_carry
+                del restored, stores, keep, tap
+            st = store.stats.delta(st0)
+            previews = eng.stats.preview_events - previews0
+            if not (st.commits == commits and st.skipped == 0
+                    and st.bytes_offloaded == commits
+                    * store.committed_nbytes
+                    and previews == windows * BUCKET
+                    and store.committed_step
+                    == SERVE_STEPS - OFFLOAD_INTERVAL
+                    and len(store.commit_ms) == commits):
+                raise AssertionError(
+                    f"offload {batch}: {st}, committed "
+                    f"{store.committed_nbytes} B at step "
+                    f"{store.committed_step}, {previews} previews")
+            b.update(waits=st.waits,
+                     pinned_alloc_s=store.pinned_alloc_s - alloc0,
+                     repack_ms=[r for r, _ in store.commit_ms],
+                     d2h_ms=[c for _, c in store.commit_ms],
+                     d2h_gb_per_s=[store.committed_nbytes / (c * 1e-3) / 1e9
+                                   for _, c in store.commit_ms])
+        rec = dict(label=label, batches=batches)
+        if store is not None:
+            if store.committed_nbytes != nbytes:
+                raise AssertionError(f"committed {store.committed_nbytes} B"
+                                     f", the live store has {nbytes} B")
+            rec.update(
+                stall=eng.offload_stall_s(ARCH, "undervolt", SERVE_STEPS,
+                                          OFFLOAD_INTERVAL),
+                auto=eng.auto_rollback_interval(ARCH, "undervolt",
+                                                SERVE_STEPS))
+        turns.append(rec)
+        del eng, store
+
+    plain, off = turns[0], turns[1]
+    stall = off["stall"]
+    for pb, ob in zip(plain["batches"], off["batches"]):
+        for x, y in zip(pb["results"], ob["results"]):
+            if y.latency_s != x.latency_s + stall or y.energy_j != x.energy_j:
+                raise AssertionError(
+                    f"{ob['batch']} request {x.request_id}: modeled latency"
+                    f"/energy {y.latency_s}/{y.energy_j} vs {x.latency_s}/"
+                    f"{x.energy_j} + stall")
+    keys = ("wall_s", "start_bytes", "peak_over_start_bytes", "finite",
+            "waits", "pinned_alloc_s", "repack_ms", "d2h_ms",
+            "d2h_gb_per_s")
+    rec = dict(
+        card=smi, arch=ARCH, layers=cfg.n_layers, bucket=BUCKET,
+        steps=SERVE_STEPS, rollback_interval=OFFLOAD_INTERVAL,
+        stream=OFFLOAD_INTERVAL, commits=commits, commit_bytes=nbytes,
+        pinned_bytes=2 * nbytes, previews=windows * BUCKET,
+        turns=[dict(label=t["label"],
+                    cold={k: t["batches"][0][k] for k in keys
+                          if k in t["batches"][0]},
+                    steady=[{k: b[k] for k in keys if k in b}
+                            for b in t["batches"][1:]]) for t in turns],
+        auto_interval=off["auto"], modeled_stall_s=stall,
+        modeled_stall_source=ENERGY_SOURCE,
+        launches={b["batch"]: b["launches"] for b in off["batches"][:2]},
+        bit_identical=True, restore_equal=True,
+        smoke=_offload_smoke(torch))
+    emit({"offload": rec})
+    energy = (check_energy("offload", "drift",
+                           plain["batches"][0]["results"])
+              + check_energy("offload", "drift+offload+stream",
+                             off["batches"][0]["results"]))
+    return dict(launches=off["batches"][0]["launches"],
+                steady_launches=off["batches"][1]["launches"],
+                energy=energy, commits=commits,
+                waits=[b["waits"] for t in turns for b in t["batches"]
+                       if "waits" in b])
+
+
+def _offload_smoke(torch):
+    """The SMOKE DiT with ``--offload --stream 1 --rollback-interval 2`` on
+    the card and on the CPU with the same params, inputs and masks: held
+    as the ``reference`` phase holds latents and corrected counts;
+    commits and committed bytes equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import fault
+    from repro_torch.launch import serve
+    from repro_torch.models import dit
+    from repro_torch.serving import DriftServeEngine, OffloadConfig
+
+    cfg = get_config(ARCH, smoke=True)
+    params = _perturb(torch, dit.init_params(cfg, 3, "cpu"), cfg, 4, "cpu")
+    lat = torch.randn((2, 8, 8, 4), generator=torch.Generator().manual_seed(6))
+    out = {}
+    for device in ("cuda", "cpu"):
+        eng = DriftServeEngine(arch=ARCH, smoke=True, bucket=2, base_seed=5,
+                               device=device, offload=OffloadConfig(),
+                               flip_source_factory=fault.philox_source_factory
+                               (5, "cpu"))
+        eng.set_params(ARCH, True, _to(params, device))
+        eng.servable.batch_inputs = lambda c, seeds, d=device: (
+            lat.to(d), torch.tensor([1, 2], device=d))
+        res = serve.main(["--steps", "3", "--requests", "2", "--mode",
+                          "drift", "--op", "undervolt", "--device", device,
+                          "--offload", "--stream", "1",
+                          "--rollback-interval", "2"], engine=eng)
+        out[device] = (res, eng.offload_store.stats.commits,
+                       eng.offload_store.committed_nbytes,
+                       eng.stats.preview_events)
+    (ra, ca, na, pa), (rb, cb, nb, pb) = out["cuda"], out["cpu"]
+    err = max(float((a.latents.cpu() - b.latents).abs().max())
+              for a, b in zip(ra, rb))
+    xa, xb = ra[0].batch_corrected_elems, rb[0].batch_corrected_elems
+    if not (err < 1e-3 and abs(xa - xb) <= 0.01 * max(xb, 1) and xb > 0
+            and (ca, na, pa) == (cb, nb, pb) == (2, nb, 4) and nb > 0):
+        raise AssertionError(
+            f"SMOKE offload card vs CPU: latents max err {err}, corrected "
+            f"{xa} vs {xb}, commits {ca} vs {cb}, bytes {na} vs {nb}, "
+            f"previews {pa} vs {pb}")
+    return dict(latents_max_abs_err=err, corrected_card=xa,
+                corrected_cpu=xb, commits=cb, commit_bytes=nb, previews=pb)
+
+
 def phase_ar(torch):
     """Full-width olmo-1b through the CLI: stat_abft, then faulty."""
     from repro_torch.configs import get_config
@@ -1236,12 +1507,16 @@ def main(argv=None) -> int:
                            + phase_kernels_ar(torch, args.reps))
         elif phase == "reference":
             rec.update(phase_reference(torch))
-        elif phase in ("serve", "ar"):
-            out = phase_serve(torch) if phase == "serve" else phase_ar(torch)
+        elif phase in ("serve", "offload", "ar"):
+            out = (phase_serve(torch) if phase == "serve"
+                   else phase_offload(torch, smi) if phase == "offload"
+                   else phase_ar(torch))
             path_launches[phase] = out["launches"]
             if phase == "serve":
                 path_launches["serve+taylorseer"] = \
                     out["taylorseer_launches"]
+            if phase == "offload":
+                path_launches["offload+steady"] = out["steady_launches"]
             energy_recs += out.pop("energy")
             rec.update(out)
         rec["wall_s"] = time.perf_counter() - t0

@@ -22,13 +22,23 @@ reference's ``lax.scan`` becomes a Python loop over steps; per step:
      estimate (Sec 5.1 feedback loop), forecast steps included,
   5. DDIM updates the latents.
 
-Clean mode runs as drift at BER 0, as in the reference. Streaming is not
-yet ported (ROADMAP Queue A item 6).
+Clean mode runs as drift at BER 0, as in the reference.
+
+One step loop serves both execution shapes. ``sample_stream`` runs it in
+windows of ``window`` steps: after each window it hands the carry
+``(latents, (embed_store, block_store), taylor, monitor, corrected,
+nevals)`` to ``on_carry`` (the checkpoint-offload store reads
+``carry[1]`` and ``carry[3]``), the completed-step count to
+``on_window``, and yields a ``StreamEvent`` preview, except after the
+last window, where it yields the ``SampleOutput``. ``sample`` drains it
+as one window, so streamed finals are bit-identical to one-shot ones.
+The Fig 6 gates (``layer_gate``, ``embed_gate``) scale the per-layer and
+embedding BERs.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Any, Callable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +64,9 @@ class SamplerConfig:
         default_factory=lambda: ts_lib.TaylorSeerConfig(enabled=False))
     precision: quant_lib.PrecisionPlan = quant_lib.DEFAULT_PLAN
     monitor_target_ber: float = 3e-3
+    # Fig 6 block-level study: per-layer / embed BER multipliers
+    layer_gate: Optional[Any] = None
+    embed_gate: Optional[Any] = None
 
 
 class SampleOutput(NamedTuple):
@@ -66,6 +79,14 @@ class SampleOutput(NamedTuple):
     heatmap: Optional[torch.Tensor] = None
 
 
+class StreamEvent(NamedTuple):
+    """Intermediate preview: the latents after ``step`` completed
+    denoising steps (1-based, < num_sample_steps -- the final state
+    arrives as the terminating ``SampleOutput``)."""
+    step: int
+    latents: torch.Tensor
+
+
 def detection_rows(model_cfg: ModelConfig) -> int:
     return model_cfg.n_layers + 1
 
@@ -74,10 +95,32 @@ def sample(model_cfg: ModelConfig, params, flip_source: fault.FlipSource,
            latents0: torch.Tensor, cond: torch.Tensor, cfg: SamplerConfig,
            monitor0: Optional[dvfs_lib.BerMonitorState] = None
            ) -> SampleOutput:
-    """Run the full denoising chain from Gaussian latents.
+    """Run the full denoising chain from Gaussian latents: the one-window
+    drain of :func:`sample_stream`.
 
     ``flip_source`` draws each GEMM's flip mask; ``monitor0`` seeds the BER
     monitor (the serving engine passes the previous batch's)."""
+    *_, out = sample_stream(model_cfg, params, flip_source, latents0, cond,
+                            cfg, monitor0,
+                            window=max(cfg.num_sample_steps, 1))
+    return out
+
+
+def sample_stream(model_cfg: ModelConfig, params,
+                  flip_source: fault.FlipSource, latents0: torch.Tensor,
+                  cond: torch.Tensor, cfg: SamplerConfig,
+                  monitor0: Optional[dvfs_lib.BerMonitorState] = None,
+                  window: int = 1,
+                  on_window: Optional[Callable[[int], None]] = None,
+                  on_carry: Optional[Callable[[int, Tuple], None]] = None
+                  ) -> Iterator:
+    """The denoising chain in windows of ``window`` steps: a
+    :class:`StreamEvent` after every window but the last, then the
+    :class:`SampleOutput`. ``on_carry(done, carry)`` and
+    ``on_window(done)`` run after every window, the last included,
+    before its event is yielded."""
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
     device = latents0.device
     sched = sched_lib.DdpmSchedule.default(cfg.num_train_steps)
     ts = sched_lib.ddim_timesteps(cfg.num_train_steps, cfg.num_sample_steps)
@@ -112,7 +155,8 @@ def sample(model_cfg: ModelConfig, params, flip_source: fault.FlipSource,
                 cfg=scfg, flip_source=flip_source, step=i,
                 ber_by_class=ber_table[min(i, ber_table.shape[0] - 1)],
                 embed_store=embed_store, block_store=block_store,
-                have_ckpt=i > 0)
+                have_ckpt=i > 0, layer_gate=cfg.layer_gate,
+                embed_gate=cfg.embed_gate)
         eps, stats = dit_lib.forward(model_cfg, params, latents, tvec, cond,
                                      drift=drift)
         return (eps, stats.get("corrected_elems", zero),
@@ -126,24 +170,34 @@ def sample(model_cfg: ModelConfig, params, flip_source: fault.FlipSource,
     corrected = zero
     nevals = 0
     heat = []
-    with torch.no_grad():
-        for i in range(len(ts)):
-            if ts_lib.should_compute(i, ts_cfg):
-                eps, corr, detected, det_blocks = step_fn(i, latents)
-                if ts_cfg.enabled:
-                    taylor = ts_lib.update_on_compute(taylor, eps)
-                nevals += 1
-            else:
-                eps = ts_lib.forecast(taylor, i % ts_cfg.interval,
-                                      ts_cfg.interval, ts_cfg.order)
-                corr, detected, det_blocks = zero, zero, zero_rows
-            if plan.narrowed and i >= plan.protect_steps:
-                eps = quant_lib.fake_quant(eps, plan.body_bits)
-            mon = dvfs_lib.ber_monitor_update(
-                mon, detected, n_words, scfg.abft.threshold_bit,
-                cfg.monitor_target_ber)
-            latents = sched.ddim_step(latents, eps, int(ts[i]),
-                                      int(t_prev[i]))
-            corrected = corrected + corr
-            heat.append(det_blocks)
-    return SampleOutput(latents, mon, corrected, nevals, torch.stack(heat))
+    n = len(ts)
+    for start in range(0, n, window):
+        done = min(start + window, n)
+        with torch.no_grad():
+            for i in range(start, done):
+                if ts_lib.should_compute(i, ts_cfg):
+                    eps, corr, detected, det_blocks = step_fn(i, latents)
+                    if ts_cfg.enabled:
+                        taylor = ts_lib.update_on_compute(taylor, eps)
+                    nevals += 1
+                else:
+                    eps = ts_lib.forecast(taylor, i % ts_cfg.interval,
+                                          ts_cfg.interval, ts_cfg.order)
+                    corr, detected, det_blocks = zero, zero, zero_rows
+                if plan.narrowed and i >= plan.protect_steps:
+                    eps = quant_lib.fake_quant(eps, plan.body_bits)
+                mon = dvfs_lib.ber_monitor_update(
+                    mon, detected, n_words, scfg.abft.threshold_bit,
+                    cfg.monitor_target_ber)
+                latents = sched.ddim_step(latents, eps, int(ts[i]),
+                                          int(t_prev[i]))
+                corrected = corrected + corr
+                heat.append(det_blocks)
+        if on_carry is not None:
+            on_carry(done, (latents, (embed_store, block_store), taylor,
+                            mon, corrected, nevals))
+        if on_window is not None:
+            on_window(done)
+        if done < n:
+            yield StreamEvent(step=done, latents=latents)
+    yield SampleOutput(latents, mon, corrected, nevals, torch.stack(heat))

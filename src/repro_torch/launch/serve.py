@@ -16,6 +16,14 @@ autoregressive ones. ``--taylorseer`` and ``--precision`` (diffusion
 only) forecast two of every three denoising steps and narrow the
 resilient body's output on resilient steps.
 
+``--stream K`` streams each batch: a latent preview (a ``[preview]`` line)
+for every live request after each K denoising steps, before the final
+results, whose latents are bit-identical to the unstreamed path.
+``--offload`` snapshots the rollback checkpoints between windows into
+pinned host memory on a side CUDA stream (an ``offload:`` line sums the
+commits), and ``--rollback-interval auto`` lets the offload planner pick
+the refresh interval.
+
 Each result's ``perfmodel/request:`` line is the perfmodel's attribution
 (``perfmodel.energy.per_request_cost``): baseline and billed joules and
 seconds, with the energy saving and speedup. Like the engine line's
@@ -37,8 +45,8 @@ from typing import Optional, Sequence
 from repro_torch.core import dvfs as dvfs_lib
 from repro_torch.core.quant import PRECISION_PLANS
 from repro_torch.core.rollback import DEFAULT_INTERVAL
-from repro_torch.serving import DriftServeEngine
-from repro_torch.serving.request import REQUEST_OPS
+from repro_torch.serving import DriftServeEngine, OffloadConfig
+from repro_torch.serving.request import REQUEST_OPS, PreviewEvent
 from repro_torch.serving.servable import paradigm_for
 
 OP_LADDER_HELP = " -> ".join(p.name for p in dvfs_lib.OP_LADDER)
@@ -48,6 +56,18 @@ def positive_int(value: str) -> int:
     iv = int(value)
     if iv < 1:
         raise argparse.ArgumentTypeError(f"must be >= 1, got {value}")
+    return iv
+
+
+def rollback_interval_arg(value: str):
+    """--rollback-interval parser: a positive int or 'auto' (the offload
+    planner picks per configuration)."""
+    if value.strip().lower() == "auto":
+        return "auto"
+    iv = int(value)
+    if iv < 1:
+        raise argparse.ArgumentTypeError(
+            f"rollback interval must be >= 1 or 'auto', got {value}")
     return iv
 
 
@@ -85,11 +105,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--op", default="undervolt", choices=list(REQUEST_OPS),
                     help="DVFS operating point; 'auto' walks the BER-monitor "
                          f"ladder ({OP_LADDER_HELP})")
-    ap.add_argument("--rollback-interval", type=positive_int,
-                    default=DEFAULT_INTERVAL, metavar="N",
+    ap.add_argument("--rollback-interval", type=rollback_interval_arg,
+                    default=DEFAULT_INTERVAL, metavar="N|auto",
                     help="rollback checkpoint-refresh interval in steps "
                          "(autoregressive: the KV rollback window in "
-                         f"tokens; default: {DEFAULT_INTERVAL})")
+                         f"tokens; default: {DEFAULT_INTERVAL}); 'auto' "
+                         "lets the offload planner pick per (arch, op, "
+                         "steps, bucket) from modeled energy+stall at the "
+                         "monitor's target detection rate")
+    ap.add_argument("--offload", action="store_true",
+                    help="offload rollback checkpoints to a host-side "
+                         "double buffer asynchronously, overlapped with "
+                         "the next denoising window (tile-contiguous "
+                         "layout; finals stay bit-identical)")
+    ap.add_argument("--stream", type=int, default=0, metavar="K",
+                    help="stream a latent preview every K denoising steps "
+                         "(0 = off); final latents are bit-identical to "
+                         "the unstreamed path")
     ap.add_argument("--taylorseer", action="store_true",
                     help="TaylorSeer (diffusion only): compute every third "
                          "denoising step, forecast the others")
@@ -110,7 +142,8 @@ def main(argv: Optional[Sequence[str]] = None,
     mode = args.mode or default_mode_for(args.arch)
     eng = engine if engine is not None else DriftServeEngine(
         arch=args.arch, smoke=args.smoke, bucket=args.batch,
-        base_seed=args.seed, device=args.device)
+        base_seed=args.seed, device=args.device,
+        offload=OffloadConfig() if args.offload else None)
     bucket = eng.batcher.bucket
     n_requests = args.requests or bucket
     for i in range(n_requests):
@@ -119,13 +152,26 @@ def main(argv: Optional[Sequence[str]] = None,
                    taylorseer=args.taylorseer, precision=args.precision,
                    rollback_interval=args.rollback_interval)
     t0 = time.perf_counter()
-    results = eng.run()
+    previews = 0
+    if args.stream:
+        results = []
+        for ev in eng.run_stream(args.stream):
+            if isinstance(ev, PreviewEvent):
+                previews += 1
+                print(f"  [preview] req {ev.request_id} step "
+                      f"{ev.step}/{ev.total_steps}")
+            else:
+                results.append(ev)
+        results.sort(key=lambda r: r.request_id)
+    else:
+        results = eng.run()
     wall = time.perf_counter() - t0
 
     print(f"[serve] {args.arch} smoke={args.smoke} mode={mode} "
           f"op={args.op} steps={args.steps} taylorseer={args.taylorseer} "
           f"precision={args.precision} requests={n_requests} "
-          f"bucket={bucket} device={eng.device} wall={wall:.2f}s")
+          f"bucket={bucket} device={eng.device} wall={wall:.2f}s"
+          + (f" previews={previews}" if args.stream else ""))
     for r in results:
         head = f"  req {r.request_id} (batch {r.batch_index}, op {r.op}): "
         if r.tokens is not None:
@@ -149,6 +195,12 @@ def main(argv: Optional[Sequence[str]] = None,
           f"ber={float(eng.monitor.ema_ber):.2e} "
           f"ladder={int(eng.monitor.op_index)}; modeled clock "
           f"{eng.clock_s:.4f}s")
+    if eng.offload_store is not None:
+        ost = eng.offload_store.stats
+        print(f"  offload: {ost.commits} commits "
+              f"({ost.bytes_offloaded / 1e6:.2f} MB tile-contiguous), "
+              f"{ost.skipped} spike-skipped, {ost.restores} restores; "
+              f"last committed step {eng.offload_store.committed_step}")
     return results
 
 

@@ -179,7 +179,10 @@ class DriftState:
 
     ``embed_store`` maps the embedding GEMM names to (rows, N) f32 buffers;
     ``block_store`` maps each block GEMM name to an (L, rows, N) buffer,
-    refreshed in place layer by layer."""
+    refreshed in place layer by layer. The Fig 6 block-level study's
+    gates multiply the BER per site: ``layer_gate[layer]`` for block
+    ``layer``, ``embed_gate`` for the embedding GEMMs (f32, as the
+    reference multiplies them); None = all on, and no op is added."""
     cfg: DriftSystemConfig
     flip_source: Any
     step: int
@@ -187,6 +190,13 @@ class DriftState:
     embed_store: Dict[str, torch.Tensor]
     block_store: Dict[str, torch.Tensor]
     have_ckpt: bool = False
+    layer_gate: Any = None              # (L,) or None
+    embed_gate: Any = None              # scalar or None
+
+
+def _gated(ber_by_class, gate) -> np.ndarray:
+    """The per-class BER scaled by a Fig 6 gate, in f32."""
+    return np.asarray(ber_by_class, np.float32) * np.float32(gate)
 
 
 def forward(cfg: ModelConfig, params: Params, latents: torch.Tensor,
@@ -205,9 +215,12 @@ def forward(cfg: ModelConfig, params: Params, latents: torch.Tensor,
 
     ectx = None
     if drift is not None:
+        e_ber = drift.ber_by_class
+        if drift.embed_gate is not None:
+            e_ber = _gated(e_ber, drift.embed_gate)
         ectx = ExecContext(drift.cfg, flip_source=drift.flip_source,
                            step=drift.step, scope=EMBED_SCOPE,
-                           ber_by_class=drift.ber_by_class,
+                           ber_by_class=e_ber,
                            state_in=drift.embed_store,
                            have_ckpt=drift.have_ckpt)
 
@@ -230,9 +243,12 @@ def forward(cfg: ModelConfig, params: Params, latents: torch.Tensor,
         if drift is not None:
             rcl = dvfs.CLASS_FIRST_BLOCK if i < 1 else dvfs.CLASS_BODY
             store_i = {k: v[i] for k, v in drift.block_store.items()}
+            b_ber = drift.ber_by_class
+            if drift.layer_gate is not None:
+                b_ber = _gated(b_ber, drift.layer_gate[i])
             bctx = ExecContext(drift.cfg, flip_source=drift.flip_source,
                                step=drift.step, scope=i,
-                               ber_by_class=drift.ber_by_class,
+                               ber_by_class=b_ber,
                                state_in=store_i, have_ckpt=drift.have_ckpt)
             x = dit_block(cfg, p_i, x, c, ctx=bctx, rclass=rcl)
             corrected.append(_as_count(bctx.stats["corrected_elems"],

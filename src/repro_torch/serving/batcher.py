@@ -11,7 +11,7 @@ call, so ``op="auto"`` reads the live BER-monitor state between batches.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 from repro_torch.serving.cache import SamplerKey
 from repro_torch.serving.request import GenerationRequest, RequestQueue
@@ -28,16 +28,23 @@ class MicroBatch:
         return self.key.bucket - len(self.requests)
 
 
-def request_key(req: GenerationRequest, bucket: int, resolved_op: str
-                ) -> SamplerKey:
+def request_key(req: GenerationRequest, bucket: int, resolved_op: str,
+                resolved_interval: Optional[int] = None) -> SamplerKey:
     """SamplerKey for a request whose operating point is resolved. Clean
-    mode runs no DVFS schedule, so its op normalises to ""."""
+    mode runs no DVFS schedule, so its op normalises to "".
+    ``resolved_interval`` is the concrete refresh interval of a
+    ``rollback_interval="auto"`` request; a key never carries "auto"."""
+    interval = (resolved_interval if resolved_interval is not None
+                else req.rollback_interval)
+    if isinstance(interval, str):
+        raise ValueError("resolve rollback_interval='auto' before building "
+                         "a SamplerKey")
     return SamplerKey(arch=req.arch, smoke=req.smoke, steps=req.steps,
                       mode=req.mode,
                       op="" if req.mode == "clean" else resolved_op,
                       bucket=bucket, taylorseer=req.taylorseer,
                       precision=req.precision,
-                      rollback_interval=int(req.rollback_interval))
+                      rollback_interval=int(interval))
 
 
 class MicroBatcher:
@@ -49,14 +56,24 @@ class MicroBatcher:
         self.bucket = bucket
 
     def next_batch(self, queue: RequestQueue,
-                   resolve_op: Callable[[GenerationRequest], str]
+                   resolve_op: Callable[[GenerationRequest], str],
+                   resolve_interval: Optional[
+                       Callable[[GenerationRequest], int]] = None
                    ) -> MicroBatch:
+        """Pop the next bucket. ``resolve_op`` and ``resolve_interval``
+        map a request to its concrete operating point and refresh
+        interval ("auto" through the monitor ladder and the offload
+        planner), per request, so two "auto" requests share a bucket only
+        if they resolve alike."""
         head = queue.peek()
         if head is None:
             raise ValueError("next_batch on an empty queue")
 
         def key_of(r):
-            return request_key(r, self.bucket, resolve_op(r))
+            return request_key(
+                r, self.bucket, resolve_op(r),
+                resolve_interval(r) if resolve_interval is not None
+                else None)
         key = key_of(head)
         return MicroBatch(key=key,
                           requests=queue.take_matching(key, key_of,

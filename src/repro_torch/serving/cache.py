@@ -27,6 +27,8 @@ class SamplerKey:
     # reference's key resets it to "int8": references are scored at full
     # width.
     precision: str = "int8"
+    # Always a concrete int here: "auto" requests resolve through the
+    # offload planner (engine.auto_rollback_interval) before keying.
     rollback_interval: int = DEFAULT_INTERVAL
 
 

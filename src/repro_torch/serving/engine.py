@@ -28,9 +28,27 @@ it never falls back to the CPU -- the tests pass ``device="cpu"``. Flip
 masks come from ``flip_source_factory(batch_index)``, by default a Philox
 source seeded from (base seed, batch index, site); see ``core.fault``.
 
-Streaming, the scheduler, telemetry, tracing and offload (and with it
-the offload stall on the clock) are later slices (ROADMAP Queue A items 6
-and 10).
+Every batch drains one windowed sampler (``sample_stream``); the window
+is a call argument, so a configuration is built once whatever its
+window. **Streaming** (``run_stream``): the same queue drain, with the
+preview interval as the window, yielding ``PreviewEvent`` latent
+previews between windows before the final ``RequestResult`` records,
+with final latents bit-identical to ``run()``.
+
+**Checkpoint offload** (``offload=OffloadConfig()``, the CLI's
+``--offload``): monitored-mode batches run the windowed sampler with the
+rollback refresh interval as the window, and the engine's one
+``OffloadStore`` snapshots the live checkpoint stores between windows
+into pinned host memory on a side CUDA stream, overlapped with the next
+window (``serving.offload``). Finals are bit-identical with offload on or
+off; the planner's modeled residual refresh stall is charged on the
+virtual clock, and ``rollback_interval="auto"`` requests resolve their
+refresh interval through the offload planner
+(``auto_rollback_interval``, the ``auto_op_index`` analogue).
+
+The scheduler, telemetry and tracing are later slices (ROADMAP Queue A
+item 10); ``_detect_rate`` takes the reference's telemetry-disabled
+branch.
 """
 from __future__ import annotations
 
@@ -49,6 +67,8 @@ from repro_torch.perfmodel import energy
 from repro_torch.serving import servable as servable_lib
 from repro_torch.serving.batcher import MicroBatch, MicroBatcher
 from repro_torch.serving.cache import CompiledSamplerCache, SamplerKey
+from repro_torch.serving.offload import (OffloadConfig, OffloadPlanner,
+                                         OffloadStore)
 from repro_torch.serving.request import (GenerationRequest, RequestQueue,
                                          RequestResult)
 
@@ -71,6 +91,7 @@ class EngineStats:
     padded_slots: int = 0
     clean_samples_computed: int = 0
     clean_sample_hits: int = 0
+    preview_events: int = 0        # streamed previews yielded (live slots)
 
 
 @dataclasses.dataclass
@@ -81,13 +102,6 @@ class _BatchCtx:
     padded_seeds: Tuple[int, ...]
     inputs: Tuple                 # (latents, cond) or (prompt tokens,)
     flip_source: fault.FlipSource
-
-
-def _default_sampler_factory(key: SamplerKey, model_cfg, scfg):
-    def run(params, flip_source, latents, cond, monitor0):
-        return sampler_lib.sample(model_cfg, params, flip_source, latents,
-                                  cond, scfg, monitor0=monitor0)
-    return run
 
 
 class DriftServeEngine:
@@ -102,7 +116,8 @@ class DriftServeEngine:
                  device="cuda",
                  flip_source_factory: Optional[
                      Callable[[int], fault.FlipSource]] = None,
-                 sampler_factory: Optional[Callable] = None):
+                 sampler_factory: Optional[Callable] = None,
+                 offload: Optional[OffloadConfig] = None):
         self.device = resolve_device(device)
         self.default_arch = arch
         self.default_smoke = smoke
@@ -117,7 +132,8 @@ class DriftServeEngine:
         self.flip_source_factory = (
             flip_source_factory if flip_source_factory is not None
             else fault.philox_source_factory(self.base_seed, self.device))
-        self._sampler_factory = sampler_factory or _default_sampler_factory
+        self._sampler_factory = (sampler_factory
+                                 or self._default_sampler_factory)
         self._batch_counter = 0
         self._params: Dict[Tuple[str, bool], object] = {}
         self._clean_samples: "collections.OrderedDict" = \
@@ -128,6 +144,27 @@ class DriftServeEngine:
         self._energy_model: Optional[energy.EnergyModel] = None
         # virtual clock, modeled-accelerator seconds
         self.clock_s = 0.0
+        # One offload store for the whole engine, rebound per batch; None
+        # = offload off. The planner exists regardless, so "auto"
+        # intervals resolve on an offload-free engine too.
+        self.offload_cfg = offload
+        self._offload_store = (OffloadStore(self.offload_cfg)
+                               if self.offload_cfg is not None else None)
+        self._active_offload: Optional[OffloadStore] = None
+        self._planner: Optional[OffloadPlanner] = None
+        self._interval_memo: Dict[Tuple, int] = {}
+        self._stall_memo: Dict[Tuple, float] = {}
+
+    def _default_sampler_factory(self, key: SamplerKey, model_cfg, scfg):
+        """The windowed ``sample_stream`` with the offload tap on its
+        carry; the caller picks the window per call (the whole chain, the
+        refresh interval, or the preview interval)."""
+        def run(params, flip_source, latents, cond, monitor0, window):
+            return sampler_lib.sample_stream(
+                model_cfg, params, flip_source, latents, cond, scfg,
+                monitor0=monitor0, window=window,
+                on_carry=self._offload_on_carry)
+        return run
 
     # ---------------------------------------------------------- servables
     def servable_for(self, arch: str):
@@ -151,10 +188,6 @@ class DriftServeEngine:
         fields whose machinery is not yet ported, raise a ``ValueError``."""
         fields.setdefault("arch", self.default_arch)
         fields.setdefault("smoke", self.default_smoke)
-        if fields.get("stream"):
-            raise ValueError("streaming previews are not yet ported to "
-                             "repro_torch (ROADMAP Queue A item 6)")
-        fields.pop("stream", None)
         budget = fields.get("step_budget")
         if budget is not None:
             default_steps = GenerationRequest.__dataclass_fields__[
@@ -171,10 +204,25 @@ class DriftServeEngine:
         submission order."""
         results: Dict[int, RequestResult] = {}
         while len(self.queue):
-            mb = self.batcher.next_batch(self.queue, self._resolve_op)
+            mb = self.batcher.next_batch(self.queue, self._resolve_op,
+                                         self._resolve_interval)
             for res in self._run_batch(mb):
                 results[res.request_id] = res
         return [results[rid] for rid in sorted(results)]
+
+    def run_stream(self, preview_interval: int = 1):
+        """Drain the queue as a generator of streamed events: per
+        micro-batch, a ``PreviewEvent`` for every live request after each
+        ``preview_interval`` denoising steps, then the batch's
+        ``RequestResult`` records (in batch order). Final latents are
+        bit-identical to ``run()``'s, from the same built sampler."""
+        if preview_interval < 1:
+            raise ValueError(f"preview_interval must be >= 1, got "
+                             f"{preview_interval}")
+        while len(self.queue):
+            mb = self.batcher.next_batch(self.queue, self._resolve_op,
+                                         self._resolve_interval)
+            yield from self._run_batch_stream(mb, preview_interval)
 
     def _resolve_op(self, req: GenerationRequest) -> str:
         if req.op == "auto":
@@ -187,6 +235,94 @@ class DriftServeEngine:
 
     def auto_op_name(self) -> str:
         return dvfs_lib.ladder_op(self.auto_op_index()).name
+
+    # -------------------------------------------- rollback-interval auto
+    def _resolve_interval(self, req: GenerationRequest) -> int:
+        """A request's concrete refresh interval: its own int, or for
+        ``rollback_interval="auto"`` the offload planner's choice for
+        (arch, resolved op, steps, bucket)."""
+        if req.rollback_interval == "auto":
+            return self.auto_rollback_interval(req.arch,
+                                               self._resolve_op(req),
+                                               req.steps)
+        return int(req.rollback_interval)
+
+    def auto_rollback_interval(self, arch: str, op_name: str,
+                               steps: int) -> int:
+        """The ``rollback_interval="auto"`` resolution point: the offload
+        planner's argmin interval for this configuration at the
+        detection rate of :meth:`_detect_rate`. Memoized per (arch, op,
+        steps, bucket, quantized detection rate)."""
+        rate = self._detect_rate(op_name, arch)
+        bucket = self.batcher.bucket
+        key = (arch, op_name, steps, bucket, f"{rate:.1e}")
+        cached = self._interval_memo.get(key)
+        if cached is None:
+            op = dvfs_lib.OP_BY_NAME.get(op_name, dvfs_lib.NOMINAL)
+            plan = self._planner_for().plan(self._full_cfg(arch), op,
+                                            steps, bucket,
+                                            detect_rate=rate)
+            cached = self._interval_memo[key] = plan.interval
+        return cached
+
+    def _detect_rate(self, op_name: str, arch: str) -> float:
+        """Expected rollback-triggering detections per denoising step, in
+        [0, 1]: the monitor's target BER times the per-step GEMM word
+        count, saturated. This is the reference's telemetry-disabled
+        branch; its telemetry history waits for ROADMAP Queue A 10.2."""
+        ber = self.monitor_target_ber
+        words = energy.activation_bytes(self._full_cfg(arch), 1) / 4.0
+        return min(1.0, float(ber) * words)
+
+    def _planner_for(self) -> OffloadPlanner:
+        if self._planner is None:
+            cfg = self.offload_cfg or OffloadConfig()
+            self._planner = OffloadPlanner(
+                em=self._energy_model_for(),
+                nominal_steps=self.nominal_steps,
+                repacked=cfg.repacked, overlapped=cfg.async_commit,
+                tile_m=cfg.tile_m, tile_n=cfg.tile_n)
+        return self._planner
+
+    def offload_stall_s(self, arch: str, op_name: str, steps: int,
+                        interval, mode: str = "drift") -> float:
+        """Modeled residual refresh stall one batch of this configuration
+        pays with offload on (0.0 when offload is off or the mode writes
+        no checkpoints); charged on the virtual clock."""
+        if (self._offload_store is None
+                or mode not in servable_lib.MONITORED_MODES):
+            return 0.0
+        if interval == "auto":
+            interval = self.auto_rollback_interval(arch, op_name, steps)
+        key = (arch, op_name, steps, int(interval))
+        cached = self._stall_memo.get(key)
+        if cached is None:
+            op = dvfs_lib.OP_BY_NAME.get(op_name, dvfs_lib.NOMINAL)
+            cached = self._stall_memo[key] = \
+                self._planner_for().residual_stall_s(
+                    self._full_cfg(arch), op, steps, self.batcher.bucket,
+                    int(interval))
+        return cached
+
+    @property
+    def offload_store(self) -> Optional[OffloadStore]:
+        """The engine's checkpoint-offload store, or None when offload is
+        off: the handle for reading commit stats or driving a restore."""
+        return self._offload_store
+
+    def _offload_for(self, key: SamplerKey) -> Optional[OffloadStore]:
+        """This batch's offload store, or None: only monitored modes write
+        rollback checkpoints worth offloading."""
+        if key.mode not in servable_lib.MONITORED_MODES:
+            return None
+        return self._offload_store
+
+    def _offload_on_carry(self, done_steps: int, carry) -> None:
+        """Sampler window tap: forwards the carry to the batch's bound
+        offload store; a no-op unless the servable bound one."""
+        store = self._active_offload
+        if store is not None:
+            store.on_window(done_steps, carry)
 
     # ------------------------------------------------------------ helpers
     def params_for(self, arch: str, smoke: bool):
@@ -234,9 +370,27 @@ class DriftServeEngine:
 
     def _run_batch(self, mb: MicroBatch) -> List[RequestResult]:
         ctx = self._prepare_batch(mb)
+        out = self.servable_for(mb.key.arch).execute(mb, ctx)
+        return self._finish_batch(mb, ctx, out)
+
+    def _run_batch_stream(self, mb: MicroBatch, preview_interval: int):
+        """Streaming twin of ``_run_batch``: the servable's previews, then
+        the same accounting as the one-shot path. Paradigms without
+        previews (autoregressive) raise."""
+        ctx = self._prepare_batch(mb)
+        out = None
+        for ev in self.servable_for(mb.key.arch).execute_stream(
+                mb, ctx, preview_interval):
+            if isinstance(ev, tuple) and ev and ev[0] == "final":
+                out = ev[1]
+            else:
+                yield ev
+        yield from self._finish_batch(mb, ctx, out)
+
+    def _finish_batch(self, mb: MicroBatch, ctx: _BatchCtx,
+                      out) -> List[RequestResult]:
         key = mb.key
         sv = self.servable_for(key.arch)
-        out = sv.execute(mb, ctx)
         if key.mode in servable_lib.MONITORED_MODES:
             self.monitor = out.monitor   # Sec 5.1 carry-over across batches
         outcome = sv.finalize(mb, ctx, out)
@@ -255,8 +409,13 @@ class DriftServeEngine:
                                        batch=key.bucket, n_live=n_live,
                                        em=em)
         # every request completes when the batch's modeled latency has
-        # passed (the offload stall joins it with ROADMAP Queue A item 10)
-        batch_latency_s = cost["latency_s"]
+        # passed, plus, with offload on, the planner's residual refresh
+        # stall (the part of the host offload the next window's compute
+        # could not hide)
+        stall_s = self.offload_stall_s(key.arch, key.op or "nominal",
+                                       key.steps, key.rollback_interval,
+                                       key.mode)
+        batch_latency_s = cost["latency_s"] + stall_s
         self.clock_s += batch_latency_s
         return [RequestResult(
             request_id=req.request_id, batch_index=ctx.batch_index,

@@ -5,11 +5,13 @@ the arch, step count (denoising steps, or tokens to decode), protection
 mode, DVFS operating point (``"auto"`` defers to the engine's
 BER-monitor ladder), TaylorSeer and the precision plan. Which modes and
 knobs an arch takes depends on its paradigm and is checked at submit by
-its servable (``servable.validate_request``). The request schema keeps
-the reference's fields, but those whose machinery is not yet ported --
-``rollback_interval="auto"``, priority and deadlines, energy budgets and
-quality floors -- raise a ``ValueError`` naming the ROADMAP item when a
-request sets them.
+its servable (``servable.validate_request``). ``rollback_interval`` is an
+int >= 1 or ``"auto"`` (the engine's offload planner picks it). The
+request schema keeps the reference's fields, but those whose machinery is
+not yet ported -- priority and deadlines, energy budgets and quality
+floors -- raise a ``ValueError`` naming the ROADMAP item when a request
+sets them. ``PreviewEvent`` is one streamed preview
+(``DriftServeEngine.run_stream``).
 
 Time base: ``submitted_at_s`` and ``RequestResult.completed_at_s`` are
 stamps of the engine's virtual clock (``DriftServeEngine.clock_s``),
@@ -69,12 +71,14 @@ class GenerationRequest:
             raise ValueError(f"steps must be >= 1, got {self.steps}")
         get_plan(self.precision)          # unknown plan names raise
         if isinstance(self.rollback_interval, str):
-            raise _not_ported(
-                f"rollback_interval={self.rollback_interval!r}",
-                "10 (offload planner)")
-        if self.rollback_interval < 1:
-            raise ValueError(f"rollback_interval must be >= 1, got "
-                             f"{self.rollback_interval}")
+            if self.rollback_interval != "auto":
+                raise ValueError(
+                    f"rollback_interval must be an int >= 1 or 'auto', "
+                    f"got {self.rollback_interval!r}")
+        elif self.rollback_interval < 1:
+            raise ValueError(
+                f"rollback_interval must be >= 1, got "
+                f"{self.rollback_interval}")
         if self.priority != "standard" or self.deadline_s is not None:
             raise _not_ported("priority/deadline_s", "10 (scheduler)")
         if self.energy_budget_j is not None or self.quality_floor is not None:
@@ -83,6 +87,19 @@ class GenerationRequest:
         if self.step_budget is not None and self.step_budget < 1:
             raise ValueError(
                 f"step_budget must be >= 1, got {self.step_budget}")
+
+
+@dataclasses.dataclass(frozen=True)
+class PreviewEvent:
+    """One streamed intermediate result: a request's slot of the batch
+    latents after ``step`` of ``total_steps`` denoising steps. Yielded by
+    ``DriftServeEngine.run_stream`` between windows; the matching
+    ``RequestResult`` follows once the batch finishes."""
+    request_id: int
+    batch_index: int
+    step: int                      # completed denoising steps (1-based)
+    total_steps: int
+    latents: object                # (H, W, C), clipped to [-1, 1]
 
 
 @dataclasses.dataclass(frozen=True)

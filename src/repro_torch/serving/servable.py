@@ -7,12 +7,14 @@ servable checks a request's mode and knobs for its paradigm
 (``batch_inputs``), a ``SamplerKey`` into built callables (``build_fn``),
 runs a batch (``execute``), and scores it against the cached error-free
 reference of the same inputs and states its perfmodel ``RunConfig``
-(``finalize``). Two ship, as in the reference; ``SERVABLE_BY_FAMILY`` maps
-each ported family to one, and each provides its family's params init
-(``init_params``):
+(``finalize``); ``execute_stream`` is the generator twin of ``execute``
+(``PreviewEvent``s, then ``("final", output)``). Two ship, as in the
+reference; ``SERVABLE_BY_FAMILY`` maps each ported family to one, and each
+provides its family's params init (``init_params``):
 
 * ``DiffusionServable`` -- the DRIFT denoising path (DiT), with
-  TaylorSeer and the precision plans.
+  TaylorSeer, the precision plans, streaming previews and, with the
+  engine's offload store, checkpoint commits between windows.
 * ``AutoregressiveServable`` -- token-by-token decode with statistical
   ABFT and KV-window rollback (``serving.ar``), without the reference's
   tracer taps (ROADMAP Queue A item 10).
@@ -20,12 +22,11 @@ each ported family to one, and each provides its family's params init
 Initial latents and prompts come from the port's own generator, one
 ``torch.Generator`` per request seed; tests that compare with the
 reference hand the reference's inputs in by replacing ``batch_inputs``.
-Streaming waits for a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +43,7 @@ from repro_torch.models import dit, transformer
 from repro_torch.perfmodel import energy
 from repro_torch.serving import ar
 from repro_torch.serving.cache import SamplerKey
+from repro_torch.serving.request import PreviewEvent
 
 # Stream tag mixed into a request seed for its initial latents (the
 # reference folds 7 into the seed's key).
@@ -140,8 +142,9 @@ class DiffusionServable:
             return cached
         fn = eng.cache.get(ckey, self.build_fn)
         # BER 0 everywhere: the flip source is never asked for a mask.
-        out = fn(params, None, latents, cond,
-                 dvfs_lib.ber_monitor_init(eng.device))
+        *_, out = fn(params, None, latents, cond,
+                     dvfs_lib.ber_monitor_init(eng.device),
+                     window=max(key.steps, 1))
         clean = torch.clamp(out.latents, -1, 1)
         eng._clean_samples[sample_id] = clean
         while len(eng._clean_samples) > eng._clean_cache_size:
@@ -150,10 +153,56 @@ class DiffusionServable:
         return clean
 
     def execute(self, mb, ctx):
-        fn = self.eng.cache.get(mb.key, self.build_fn)
-        latents, cond = ctx.inputs
-        return fn(ctx.params, ctx.flip_source, latents, cond,
-                  self.eng.monitor)
+        """One drain of the windowed sampler: the whole chain as one
+        window, or with offload on the refresh interval, so every
+        committed snapshot offloads between windows. Streamed finals are
+        bit-identical to one-shot ones, so offload changes no latent
+        bit."""
+        key = mb.key
+        store = self.eng._offload_for(key)
+        window = (max(key.steps, 1) if store is None
+                  else min(key.rollback_interval, key.steps))
+        *_, out = self._windows(mb, ctx, window, store)
+        return out
+
+    def execute_stream(self, mb, ctx, preview_interval: int) -> Iterator:
+        """A ``PreviewEvent`` per live request after each window of
+        ``preview_interval`` steps, then ``("final", output)``; offload
+        commits ride the same windows."""
+        eng = self.eng
+        out = None
+        for ev in self._windows(mb, ctx, preview_interval,
+                                eng._offload_for(mb.key)):
+            if isinstance(ev, sampler_lib.SampleOutput):
+                out = ev
+                continue
+            preview = torch.clamp(ev.latents, -1, 1)
+            for slot, req in enumerate(mb.requests):   # live slots only
+                eng.stats.preview_events += 1
+                yield PreviewEvent(request_id=req.request_id,
+                                   batch_index=ctx.batch_index,
+                                   step=int(ev.step),
+                                   total_steps=mb.key.steps,
+                                   latents=preview[slot])
+        yield ("final", out)
+
+    def _windows(self, mb, ctx, window: int, store) -> Iterator:
+        """The windowed sampler's events for one batch, with ``store``
+        (or None) bound to the batch and joined when it ends."""
+        eng = self.eng
+        fn = eng.cache.get(mb.key, self.build_fn)
+        if store is not None:
+            store.begin_batch(interval=mb.key.rollback_interval,
+                              batch_index=ctx.batch_index)
+            eng._active_offload = store
+        try:
+            latents, cond = ctx.inputs
+            yield from fn(ctx.params, ctx.flip_source, latents, cond,
+                          eng.monitor, window=window)
+        finally:
+            if store is not None:
+                eng._active_offload = None
+                store.finish_batch()
 
     def finalize(self, mb, ctx, out) -> BatchOutcome:
         key = mb.key
@@ -268,6 +317,12 @@ class AutoregressiveServable:
         (tokens,) = ctx.inputs
         return ar.decode_batch(fns, self._weights_for(mb.key, ctx.params),
                                tokens, self.eng.monitor, ctx.flip_source)
+
+    def execute_stream(self, mb, ctx, preview_interval: int) -> Iterator:
+        raise ValueError(
+            "run_stream() previews are latent images -- a diffusion "
+            "mechanism. Autoregressive requests return their tokens in "
+            "RequestResult.tokens via run().")
 
     def _clean_tokens(self, mb, ctx) -> torch.Tensor:
         """Fault-free reference decode of this (configuration, prompts),

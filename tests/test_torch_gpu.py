@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+checkpoint-offload store's side-stream copies into pinned memory, on the
+card.
 
 Marked ``gpu``: each test skips without a CUDA device. This module imports
 no JAX, so it runs on a machine that has only PyTorch:
@@ -16,6 +18,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import rollback_correct as trk
 from repro_torch.kernels import stat_abft
 from repro_torch.models.attention import full_attention
+from repro_torch.serving.offload import OffloadConfig, OffloadStore
+from repro_torch.serving.offload.layout import tree_leaves, tree_map
 
 
 def _int8(rng, shape, extreme=False):
@@ -271,3 +275,76 @@ def test_drift_gemm_matches_plain_on_card(cuda):
     for g, w_ in zip(got, want):
         assert torch.equal(g, w_)
     assert int(got.n_flagged_tiles) > 0
+
+
+# --------------------------------------------------------------- offload
+def _stores(cuda, seed=0):
+    """A DiT-shaped store, 56 MB: an (L, rows, N) block leaf, a tile-padded
+    embedding leaf and a 1-D leaf."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return ({"t.w1": torch.randn((2, 1152), generator=g, device=cuda),
+             "bias": torch.randn((37,), generator=g, device=cuda)},
+            {"mlp.w1": torch.randn((3, 1024, 4608), generator=g,
+                                   device=cuda)})
+
+
+def _carry(stores):
+    mon = type("Monitor", (), {"ema_ber": 0.0})()
+    return (None, stores, None, mon, None, None)
+
+
+@pytest.mark.gpu
+def test_offload_survives_an_overwrite_right_after_commit(cuda):
+    """The next refresh step overwrites the live store in place on the
+    main stream right after the commit returns; the snapshot still holds
+    the values at the commit, because the repack ran on the main stream
+    before the overwrite and the copy reads the staging buffer."""
+    stores = _stores(cuda)
+    want = tree_map(torch.clone, stores)
+    s = OffloadStore(OffloadConfig())
+    s.begin_batch(interval=1, batch_index=0)
+    s.on_window(1, _carry(stores))
+    for _ in range(4):
+        tree_map(lambda t: t.mul_(-3.0).add_(1.0), stores)
+    assert s.finish_batch().commits == 1
+    for got, ref in zip(tree_leaves(s.restore()), tree_leaves(want)):
+        assert got.is_cuda and torch.equal(got, ref)
+    ms = s.commit_ms[-1]
+    assert len(s.commit_ms) == 1 and ms[0] > 0 and ms[1] > 0
+
+
+@pytest.mark.gpu
+def test_offload_reuses_its_pinned_buffers_on_a_side_stream(cuda):
+    s = OffloadStore(OffloadConfig())
+    host_ids = []
+    for batch in range(2):
+        stores = _stores(cuda, seed=batch)
+        s.begin_batch(interval=1, batch_index=batch)
+        s.on_window(1, _carry(stores))
+        s.on_window(2, _carry(stores))
+        assert s.finish_batch().commits == 2
+        host_ids.append([id(h) for hs in s._host_sets for h in hs])
+        assert all(h.is_pinned() for hs in s._host_sets for h in hs)
+        for got, ref in zip(tree_leaves(s.restore()), tree_leaves(stores)):
+            assert torch.equal(got, ref)
+    assert host_ids[0] == host_ids[1] and len(host_ids[0]) == 6
+    assert s._side is not None
+    assert s._side != torch.cuda.current_stream(cuda)
+    assert s.pinned_alloc_s > 0 and len(s.commit_ms) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("async_commit", [True, False])
+@pytest.mark.parametrize("repacked", [True, False])
+def test_offload_restore_is_bit_equal_on_card(cuda, repacked, async_commit):
+    stores = _stores(cuda, seed=3)
+    s = OffloadStore(OffloadConfig(repacked=repacked,
+                                   async_commit=async_commit))
+    s.begin_batch(interval=2, batch_index=0)
+    s.on_window(2, _carry(stores))
+    if not async_commit:
+        assert s._flight is None and s.stats.commits == 1
+    assert s.finish_batch().commits == 1 and s.committed_step == 0
+    restored = s.restore()
+    for got, ref in zip(tree_leaves(restored), tree_leaves(stores)):
+        assert got.shape == ref.shape and torch.equal(got, ref)

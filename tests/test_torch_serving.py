@@ -146,13 +146,13 @@ def test_slice_with_taylorseer_and_body4_matches_jax_engine(jax_ts_run):
 # ------------------------------------------------------------ logic (stub)
 def stub_factory(calls=None):
     def factory(key: SamplerKey, model_cfg, scfg):
-        def run(params, flip_source, latents, cond, monitor0):
+        def run(params, flip_source, latents, cond, monitor0, window):
             if calls is not None:
                 calls.append(key)
             mon = dvfs.BerMonitorState(monitor0.ema_ber, monitor0.op_index,
                                        monitor0.n_updates + 1)
-            return SampleOutput(latents, mon, torch.tensor(0),
-                                scfg.num_sample_steps)
+            return iter([SampleOutput(latents, mon, torch.tensor(0),
+                                      scfg.num_sample_steps)])
         return run
     return factory
 
@@ -211,9 +211,9 @@ def test_monitor_carries_over_only_for_drift():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("rollback_interval", "auto"), ("priority", "interactive"),
+    ("rollback_interval", "sometimes"), ("priority", "interactive"),
     ("deadline_s", 1.0), ("energy_budget_j", 5.0), ("quality_floor", 0.5),
-    ("stream", 2), ("mode", "dmr"), ("op", "warp-speed"),
+    ("rollback_interval", 0), ("mode", "dmr"), ("op", "warp-speed"),
 ])
 def test_unported_request_fields_raise_at_submit(field, value):
     eng = stub_engine()
@@ -265,9 +265,9 @@ def test_attribution_reads_the_true_corrected_count():
     big = 2 ** 32 + 5
 
     def factory(key, model_cfg, scfg):
-        def run(params, flip_source, latents, cond, monitor0):
-            return SampleOutput(latents, monitor0, torch.tensor(big),
-                                scfg.num_sample_steps)
+        def run(params, flip_source, latents, cond, monitor0, window):
+            return iter([SampleOutput(latents, monitor0, torch.tensor(big),
+                                      scfg.num_sample_steps)])
         return run
     eng = DriftServeEngine(arch=ARCH, smoke=True, bucket=2, device="cpu",
                            sampler_factory=factory)
