@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases device,build,kernels --reps 3
     python3 chip_smoke.py --phases device,build,kernels,ar
     python3 chip_smoke.py --phases device,build,offload
+    python3 chip_smoke.py --phases device,build,sched
 
 Phases, each printing one JSON line with its wall time:
 
@@ -80,7 +81,25 @@ Phases, each printing one JSON line with its wall time:
                --stream 1 --rollback-interval 2`` on the card and the CPU
                (latents and corrected counts as in ``reference``; commits,
                committed bytes and previews equal).
-7. ar       -- the same CLI drives a full-width olmo-1b engine (16
+7. sched    -- ``DeadlineScheduler`` with telemetry, the flight recorder
+               and the HTTP front end. The SMOKE DiT (4 requests) and
+               olmo-1b (2) through the scheduler on the card and the CPU
+               with the same masks: admissions, masked ``/metrics``,
+               spans and heatmaps equal. The full-width DiT: 6 requests
+               (2 background; 2 interactive whose deadlines, from the
+               scheduler's projection, force ``escalated-op``; one with
+               ``step_budget=5``; one energy budget the frontier
+               resolves), admissions equal to a CPU twin's that only
+               submits, served in turns on fresh engines with telemetry,
+               recorder and server on and with both off: launch counts
+               exact per evaluation, finals bit-identical across turns,
+               run walls; then the background pair again drained through
+               ``/events?interval=2`` (``urllib``), and the routes
+               scraped and timed, a Chrome trace written and loaded.
+               Last, 4 ``op="auto"`` batches: the guardband floor, ladder
+               index and monitor BER per batch. One
+               ``{"phase": "sched", "part": ...}`` line per part.
+8. ar       -- the same CLI drives a full-width olmo-1b engine (16
                layers, random seeded weights): 2 requests at bucket 2, 16
                tokens, rollback window 4, in stat_abft at undervolt, then
                faulty. Counters as in ``serve``: 105 fault_inject launches
@@ -114,7 +133,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "reference", "serve", "offload",
-          "ar")
+          "sched", "ar")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, int8 and bf16
 # tensor-core rates, float32 rate outside the tensor cores.
@@ -1212,6 +1231,320 @@ def _offload_smoke(torch):
                 corrected_cpu=xb, commits=cb, commit_bytes=nb, previews=pb)
 
 
+SCHED_TURNS = ("on", "off", "on", "off")   # telemetry and recorder
+AUTO_BATCHES = 4
+# Wall-clock samples and the build label: all an exposition may differ by.
+WALL_METRICS = ("drift_engine_uptime_seconds", "drift_clock_skew_ratio")
+
+
+def _mask_metrics(text: str) -> str:
+    import re
+    out = []
+    for line in text.splitlines():
+        if line.split("{")[0].split(" ")[0] in WALL_METRICS:
+            line = line.rsplit(" ", 1)[0] + " <wall>"
+        out.append(re.sub(r'version="[^"]*"', 'version="<v>"', line))
+    return "\n".join(out)
+
+
+def _span_view(tracer):
+    """Spans without their wall-clock fields."""
+    return [(s.name, s.kind, s.request_ids, s.batch_index, s.t0_virtual_s,
+             s.t1_virtual_s, s.attrs) for s in tracer.spans()]
+
+
+def _parse_sse(payload: str):
+    events, kind = [], None
+    for line in payload.splitlines():
+        if line.startswith("event: "):
+            kind = line[len("event: "):]
+        elif line.startswith("data: "):
+            events.append((kind, json.loads(line[len("data: "):])))
+    return events
+
+
+def _get(url: str):
+    """(seconds, body) of one GET on the loopback front end."""
+    import urllib.request
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=600) as resp:
+        body = resp.read().decode("utf-8")
+    return time.perf_counter() - t0, body
+
+
+def _sched_requests(sched, steps: int):
+    """The full-width workload: 2 background requests at undervolt, 2
+    interactive ones whose deadlines (from the scheduler's own projection)
+    force overclock, one with ``step_budget=5`` and one whose energy
+    budget the frontier resolves. Returns (requests, the numbers used)."""
+    bucket = sched.engine.batcher.bucket
+    uv = sched.batch_latency_s(ARCH, "undervolt", steps)
+    oc = sched.batch_latency_s(ARCH, "overclock", steps)
+    dl = (uv + oc) / 2
+    pts = sched.frontier_builder().frontier(sched.engine._full_cfg(ARCH),
+                                            steps, bucket)
+    budget = sorted(p.energy_j for p in pts)[len(pts) // 2]
+    base = dict(steps=steps, mode="drift", op="undervolt")
+    reqs = [dict(base, priority="background", seed=0),
+            dict(base, priority="background", seed=1),
+            dict(base, priority="interactive", deadline_s=dl, seed=2),
+            dict(base, priority="interactive", deadline_s=oc + dl, seed=3),
+            dict(base, step_budget=5, seed=4),
+            dict(base, energy_budget_j=budget, seed=5)]
+    return reqs, dict(undervolt_s=uv, overclock_s=oc, deadline_s=dl,
+                      second_deadline_s=oc + dl, energy_budget_j=budget,
+                      source=ENERGY_SOURCE)
+
+
+def _sched_smoke(torch):
+    """The SMOKE DiT (4 requests, 3 steps) and olmo-1b (2 requests, 8
+    tokens) through ``DeadlineScheduler`` with telemetry and the recorder
+    on, on the card and on the CPU with the same params, inputs and flip
+    masks: admissions, masked ``/metrics``, spans (wall fields dropped)
+    and heatmaps equal."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import fault
+    from repro_torch.models import dit, transformer
+    from repro_torch.serving import DeadlineScheduler, DriftServeEngine
+    from repro_torch.serving.ar import prompt_tokens
+
+    cfg = get_config(ARCH, smoke=True)
+    params = _perturb(torch, dit.init_params(cfg, 3, "cpu"), cfg, 4, "cpu")
+    lm_cfg = get_config(AR_ARCH, smoke=True)
+    lm_params = transformer.init_params(lm_cfg, 8)
+    prompts = prompt_tokens(lm_cfg, [0, 1])
+    lat = torch.randn((2, 8, 8, 4), generator=torch.Generator().manual_seed(6))
+    out = {}
+    for device in ("cuda", "cpu"):
+        eng = DriftServeEngine(arch=ARCH, smoke=True, bucket=2, base_seed=5,
+                               device=device,
+                               flip_source_factory=fault.philox_source_factory
+                               (5, "cpu"))
+        eng.set_params(ARCH, True, _to(params, device))
+        eng.set_params(AR_ARCH, True, _to(lm_params, device))
+        eng.servable.batch_inputs = lambda c, seeds, d=device: (
+            lat.to(d), torch.tensor([1, 2], device=d))
+        eng.servable_for(AR_ARCH).batch_inputs = \
+            lambda c, seeds, d=device: (prompts.to(d),)
+        sched = DeadlineScheduler(eng)
+        reqs, _ = _sched_requests(sched, 3)
+        reqs = reqs[:4] + [dict(arch=AR_ARCH, steps=8, mode="stat_abft",
+                                op="undervolt", rollback_interval=3,
+                                priority=p, seed=10 + i)
+                           for i, p in enumerate(("background",
+                                                  "interactive"))]
+        adms = [dataclasses.asdict(sched.submit(**f)) for f in reqs]
+        res = sched.run()
+        out[device] = dict(
+            adms=adms, metrics=_mask_metrics(eng.telemetry.registry.expose()),
+            spans=_span_view(eng.tracer),
+            heat=[(r.detect_heatmap, r.detect_heatmap_blocks) for r in res],
+            corrected=[r.batch_corrected_elems for r in res],
+            replays=sum(1 for s in eng.tracer.spans() if s.kind == "replay"))
+    a, b = out["cuda"], out["cpu"]
+    same = {k: a[k] == b[k] for k in a}
+    if not all(same.values()) or b["replays"] < 1:
+        lines = [(x, y) for x, y in zip(a["metrics"].splitlines(),
+                                        b["metrics"].splitlines()) if x != y]
+        raise AssertionError(f"sched SMOKE card vs CPU differ: {same}, "
+                             f"corrected {a['corrected']} vs "
+                             f"{b['corrected']}, replays {b['replays']}, "
+                             f"metric lines {lines[:6]}")
+    return dict(equal=sorted(same), actions=[x["action"] for x in b["adms"]],
+                corrected=b["corrected"], replay_spans=b["replays"],
+                spans=len(b["spans"]))
+
+
+def phase_sched(torch, smi):
+    """``DeadlineScheduler`` with telemetry, the flight recorder and the
+    HTTP front end on the full-width DiT, against a CPU twin's admissions
+    and, in turns, engines with telemetry and the recorder off; then
+    ``op="auto"`` batches under the guardband controller."""
+    import dataclasses
+    import gc
+    import hashlib
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import abft_matmul as ak
+    from repro_torch.kernels import fault_inject as fik
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import rollback_correct as rk
+    from repro_torch.models import dit
+    from repro_torch.serving import (DeadlineScheduler, DriftServeEngine,
+                                     EngineTelemetry, FlightRecorder,
+                                     serve_telemetry)
+    from repro_torch.serving.trace import write_chrome_trace
+
+    smoke = _sched_smoke(torch)
+    emit({"phase": "sched", "part": "smoke", **smoke})
+
+    dev = torch.device("cuda")
+    cfg = get_config(ARCH)
+    params = _perturb(torch, dit.init_params(cfg, 11, dev), cfg, 12, dev)
+    gemms = sum(p[4] for p in path_gemms(cfg, BUCKET))        # 172
+    twin = DeadlineScheduler(DriftServeEngine(arch=ARCH, smoke=False,
+                                              bucket=BUCKET, device="cpu"))
+    reqs, numbers = _sched_requests(twin, SERVE_STEPS)
+    want_adms = [dataclasses.asdict(twin.submit(**f)) for f in reqs]
+    actions = [a["action"] for a in want_adms]
+    if actions != ["as-requested"] * 2 + ["escalated-op"] * 2 \
+            + ["as-requested", "frontier"]:
+        raise AssertionError(f"twin admissions: {actions}")
+    emit({"phase": "sched", "part": "admissions", "requests": reqs,
+          "projection": numbers, "admissions": want_adms})
+
+    def want(evals):
+        return {"abft_matmul": gemms * evals,
+                "rollback_correct": gemms * evals,
+                "flash_attention": cfg.n_layers * evals, "fault_inject": 0}
+
+    def bits(t):
+        return hashlib.sha256(t.view(torch.int32).cpu().numpy().tobytes()
+                              ).hexdigest()
+
+    turns, first, launches_on = [], None, None
+    for label in SCHED_TURNS:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        kw = ({} if label == "on" else
+              dict(telemetry=EngineTelemetry(enabled=False),
+                   tracer=FlightRecorder(enabled=False)))
+        eng = DriftServeEngine(arch=ARCH, smoke=False, bucket=BUCKET,
+                               device="cuda", **kw)
+        eng.set_params(ARCH, False, params)
+        sched = DeadlineScheduler(eng)
+        server = serve_telemetry(eng, port=0)
+        rec = dict(label=label)
+        try:
+            with server.engine_lock:
+                adms = [dataclasses.asdict(sched.submit(**f)) for f in reqs]
+                if adms != want_adms:
+                    raise AssertionError(f"{label}: admissions differ from "
+                                         f"the CPU twin's: {adms}")
+                torch.cuda.synchronize()
+                ak.launches = rk.launches = fk.launches = fik.launches = 0
+                t0 = time.perf_counter()
+                results = sched.run()
+                torch.cuda.synchronize()
+                rec["run_wall_s"] = time.perf_counter() - t0
+            launches = _launch_counts(ak, rk, fk, fik)
+            evals = sum({r.batch_index: 2 * r.n_model_evals
+                         for r in results}.values())
+            if launches != want(evals):
+                raise AssertionError(f"{label} run launches {launches} != "
+                                     f"{want(evals)} ({evals} evaluations)")
+            # the background pair again, drained through /events on the
+            # server's thread (its clean samples cached: drift alone)
+            for f in reqs[:2]:
+                sched.submit(**f)
+            ak.launches = rk.launches = fk.launches = fik.launches = 0
+            rec["events_wall_s"], body = _get(server.url
+                                              + "/events?interval=2")
+            torch.cuda.synchronize()
+            frames = _parse_sse(body)
+            sse = [d for k, d in frames if k == "result"]
+            ev_launches = _launch_counts(ak, rk, fk, fik)
+            if (len(sse) != 2 or frames[-1][0] != "end"
+                    or ev_launches != want(sse[0]["n_model_evals"])):
+                raise AssertionError(f"{label} /events: {len(sse)} results,"
+                                     f" launches {ev_launches}")
+            # the off turns' recorder is disabled: /trace/<id> is a 404
+            paths = ("/healthz", "/metrics", "/slo") + (
+                ("/trace/2",) if label == "on" else ())
+            rec["scrape_s"], text = {}, {}
+            for path in paths:
+                rec["scrape_s"][path], text[path] = _get(server.url + path)
+            if label == "off" and text["/metrics"] != \
+                    "# telemetry disabled\n":
+                raise AssertionError("/metrics with telemetry off")
+            if label == "on":
+                tree = json.loads(text["/trace/2"])
+                if tree["decision"]["action"] != "escalated-op":
+                    raise AssertionError(f"/trace/2: {tree['decision']}")
+                if "drift_requests_served_total 8" not in text["/metrics"]:
+                    raise AssertionError("/metrics: not 8 served")
+                rec.update(
+                    trace_2_kinds=[s["kind"] for s in tree["spans"]],
+                    metrics_lines=len(text["/metrics"].splitlines()),
+                    slo_breached=[o for o, v in json.loads(
+                        text["/slo"])["objectives"].items()
+                        if v["breached"]])
+                with tempfile.TemporaryDirectory() as d:
+                    path = Path(d) / "flight.json"
+                    write_chrome_trace(str(path), eng.tracer.spans())
+                    chrome = json.loads(path.read_text())
+                rec["chrome_events"] = len(chrome["traceEvents"])
+                rec["spans"] = len(eng.tracer)
+                rec["guard_index"] = eng.telemetry.controller.guard_index
+                launches_on = launches_on or launches
+        finally:
+            server.close()
+        finals = ([bits(r.latents) for r in results]
+                  + [d["latents_sha256"] for d in sse])
+        rec.update(finite=[bool(torch.isfinite(r.latents).all())
+                           for r in results],
+                   ops=[r.op for r in results],
+                   steps=[r.steps for r in results],
+                   evals=evals, launches=launches,
+                   deadline_missed=[r.deadline_missed for r in results],
+                   queue_wait_s=[r.queue_wait_s for r in results])
+        if first is None:
+            first = finals
+            energy = check_energy("sched", "drift via DeadlineScheduler",
+                                  results)
+        elif finals[:len(results)] != first[:len(results)]:
+            raise AssertionError(f"{label}: finals differ from the first "
+                                 "turn's")
+        sse_sha = finals[len(results):]
+        rec["sse_equal_to_first_turn"] = sse_sha == first[len(results):]
+        if not rec["sse_equal_to_first_turn"]:
+            raise AssertionError(f"{label}: /events finals differ")
+        emit({"phase": "sched", "part": "turn", **rec})
+        turns.append(rec)
+        del eng, sched, server, results
+
+    # op="auto" under the guardband controller: 4 batches of the same
+    # seeds (the clean sample cached after the first)
+    gc.collect()
+    eng = DriftServeEngine(arch=ARCH, smoke=False, bucket=BUCKET,
+                           device="cuda")
+    eng.set_params(ARCH, False, params)
+    ctrl = eng.telemetry.controller
+    auto = []
+    ak.launches = rk.launches = fk.launches = fik.launches = 0
+    for b in range(AUTO_BATCHES):
+        idx = eng.auto_op_index()
+        for s in (0, 1):
+            eng.submit(steps=SERVE_STEPS, mode="drift", op="auto", seed=s)
+        (r, _) = eng.run()
+        auto.append(dict(batch=b, auto_index=idx, op_served=r.op,
+                         monitor_ber=r.monitor_ber,
+                         monitor_index=r.monitor_op_index,
+                         guard_floor=ctrl.guard_index,
+                         action=ctrl.stats.last_action,
+                         realized_ber=dict(ctrl.realized_ber),
+                         corrected=r.batch_corrected_elems,
+                         finite=bool(torch.isfinite(r.latents).all())))
+    auto_launches = _launch_counts(ak, rk, fk, fik)
+    emit({"phase": "sched", "part": "auto", "target_ber":
+          eng.monitor_target_ber, "batches": auto})
+    return dict(card=smi, arch=ARCH, bucket=BUCKET, steps=SERVE_STEPS,
+                turns=[{k: t[k] for k in ("label", "run_wall_s",
+                                          "events_wall_s", "scrape_s")}
+                       for t in turns],
+                run_wall_on_s=[t["run_wall_s"] for t in turns
+                               if t["label"] == "on"],
+                run_wall_off_s=[t["run_wall_s"] for t in turns
+                                if t["label"] == "off"],
+                bit_identical=True, launches=launches_on,
+                auto_launches=auto_launches, smoke=smoke["equal"],
+                energy=energy)
+
+
 def phase_ar(torch):
     """Full-width olmo-1b through the CLI: stat_abft, then faulty."""
     from repro_torch.configs import get_config
@@ -1507,9 +1840,10 @@ def main(argv=None) -> int:
                            + phase_kernels_ar(torch, args.reps))
         elif phase == "reference":
             rec.update(phase_reference(torch))
-        elif phase in ("serve", "offload", "ar"):
+        elif phase in ("serve", "offload", "sched", "ar"):
             out = (phase_serve(torch) if phase == "serve"
                    else phase_offload(torch, smi) if phase == "offload"
+                   else phase_sched(torch, smi) if phase == "sched"
                    else phase_ar(torch))
             path_launches[phase] = out["launches"]
             if phase == "serve":
@@ -1517,6 +1851,8 @@ def main(argv=None) -> int:
                     out["taylorseer_launches"]
             if phase == "offload":
                 path_launches["offload+steady"] = out["steady_launches"]
+            if phase == "sched":
+                path_launches["sched+auto"] = out["auto_launches"]
             energy_recs += out.pop("energy")
             rec.update(out)
         rec["wall_s"] = time.perf_counter() - t0

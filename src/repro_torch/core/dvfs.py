@@ -141,7 +141,9 @@ def ber_monitor_update(state: BerMonitorState, detected_errors: torch.Tensor,
     walk the ladder: +1 when the EMA runs hot (> 2x target), -1 when cold
     (< target / 2)."""
     visible_bits = max(32 - threshold_bit, 1)
-    est = detected_errors.float() / (n_words * visible_bits)
+    # a product with the reciprocal, as XLA and PyTorch's CUDA division by
+    # a scalar compute it: the card and the CPU agree bit for bit
+    est = detected_errors.float() * (1.0 / (n_words * visible_bits))
     if state.n_updates == 0:
         ema = est
     else:

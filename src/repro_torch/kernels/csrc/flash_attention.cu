@@ -28,8 +28,13 @@
 //     are padded by 16 bytes, so ldmatrix's eight rows hit distinct banks.
 //   - S = Q K^T in f32 registers (K read as the col-major B operand with
 //     plain ldmatrix); the online softmax runs in registers, row max and
-//     sum reduced over the 4 lanes of each mma row quad, exp2 of
-//     log2(e)-scaled scores with the scale folded into one FFMA.
+//     sum reduced over the 4 lanes of each mma row quad, exp2 of the
+//     log2(e)-scaled difference to the row max. The difference is taken
+//     before the scale, as the reference takes s - m: it is <= 0, so no
+//     p exceeds 1. (Folding the scale into one FFMA, s * c - round(m * c),
+//     leaves a residual of up to half an ulp of m * c, which past 2^32
+//     exceeds 128 and sends exp2 to inf: inf / inf = NaN rows once
+//     undervolted activations reach ~3e5.)
 //   - P is rounded to bf16, as the Pallas kernel rounds it before P V,
 //     and reused from the accumulator registers as the A operand of P V
 //     (no shared-memory round trip); V is read with ldmatrix.trans.
@@ -476,17 +481,16 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const float alpha1 = ex2((m[mt][1] - mx1) * scale_log2);
       m[mt][0] = mx0;
       m[mt][1] = mx1;
-      const float off0 = mx0 * scale_log2, off1 = mx1 * scale_log2;
 
       // P in bf16 as the A operand of P V: k-step kk covers keys
       // 16 kk .. 16 kk + 15, i.e. S tiles 2 kk and 2 kk + 1.
       float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
-        const float p0 = ex2(fmaf(s[mt][n][0], scale_log2, -off0));
-        const float p1 = ex2(fmaf(s[mt][n][1], scale_log2, -off0));
-        const float p2 = ex2(fmaf(s[mt][n][2], scale_log2, -off1));
-        const float p3 = ex2(fmaf(s[mt][n][3], scale_log2, -off1));
+        const float p0 = ex2((s[mt][n][0] - mx0) * scale_log2);
+        const float p1 = ex2((s[mt][n][1] - mx0) * scale_log2);
+        const float p2 = ex2((s[mt][n][2] - mx1) * scale_log2);
+        const float p3 = ex2((s[mt][n][3] - mx1) * scale_log2);
         ls0 += p0 + p1;
         ls1 += p2 + p3;
         pf[mt][n >> 1][(n & 1) * 2] = pack_bf16(p0, p1);

@@ -24,13 +24,28 @@ pinned host memory on a side CUDA stream (an ``offload:`` line sums the
 commits), and ``--rollback-interval auto`` lets the offload planner pick
 the refresh interval.
 
+``--priority`` / ``--deadline`` / ``--step-budget`` / ``--energy-budget``
+/ ``--quality-floor`` route submissions through
+``serving.scheduler.DeadlineScheduler``, which prints one ``[admission]``
+line per request: its completion is projected on the engine's virtual
+clock, and it is kept as asked, overclocked, step-trimmed, resolved on
+the Pareto frontier (``serving.frontier``) or rejected.
+
+Telemetry and the flight recorder are on unless ``--no-telemetry`` is
+given (which turns telemetry off; the recorder stays on, as in the
+reference). ``--metrics-port PORT`` serves ``/metrics``, ``/healthz``,
+``/slo``, SSE ``/events`` and ``/trace/<id>`` for the run (0 binds an
+ephemeral port, printed at startup), and ``--trace-dir DIR`` writes the
+flight recorder's spans as Chrome trace JSON to ``DIR/flight.json``.
+
 Each result's ``perfmodel/request:`` line is the perfmodel's attribution
 (``perfmodel.energy.per_request_cost``): baseline and billed joules and
 seconds, with the energy saving and speedup. Like the engine line's
 virtual ``clock``, these are the modeled paper accelerator's numbers,
 not measurements of the GPU the port runs on.
 
-Its flags are a subset of ``repro.launch.serve``'s plus ``--device``
+Its flags are ``repro.launch.serve``'s but for ``--sharded`` and
+``--model-parallel`` (ROADMAP Queue A 13), plus ``--device``
 (default "cuda"; without a GPU the engine raises). ``--smoke/--no-smoke``
 is a real switch (default on, like the reference CLI); ``--no-smoke``
 serves the full-width model. ``main(argv, engine=...)`` serves
@@ -39,15 +54,21 @@ through an injected engine, whose bucket, device and params then win.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
 from typing import Optional, Sequence
 
 from repro_torch.core import dvfs as dvfs_lib
 from repro_torch.core.quant import PRECISION_PLANS
 from repro_torch.core.rollback import DEFAULT_INTERVAL
-from repro_torch.serving import DriftServeEngine, OffloadConfig
-from repro_torch.serving.request import REQUEST_OPS, PreviewEvent
+from repro_torch.serving import (DeadlineScheduler, DriftServeEngine,
+                                 EngineTelemetry, OffloadConfig,
+                                 serve_telemetry)
+from repro_torch.serving.request import (REQUEST_OPS, REQUEST_PRIORITIES,
+                                         PreviewEvent)
 from repro_torch.serving.servable import paradigm_for
+from repro_torch.serving.trace import write_chrome_trace
 
 OP_LADDER_HELP = " -> ".join(p.name for p in dvfs_lib.OP_LADDER)
 
@@ -129,6 +150,42 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=sorted(PRECISION_PLANS),
                     help="precision plan for the resilient denoiser body "
                          "(diffusion only); 'int8' is the baseline path")
+    ap.add_argument("--priority", default="standard",
+                    choices=list(REQUEST_PRIORITIES),
+                    help="scheduling class for all submitted requests; "
+                         "interactive buckets form before standard before "
+                         "background")
+    ap.add_argument("--deadline", type=float, default=None, metavar="SEC",
+                    help="per-request relative deadline in engine virtual "
+                         "(perfmodel) seconds; enables deadline-aware "
+                         "admission control -- requests get overclocked or "
+                         "step-trimmed to fit, or rejected when hopeless")
+    ap.add_argument("--step-budget", type=int, default=None, metavar="N",
+                    help="cap denoising steps per request (the scheduler "
+                         "may trim further for a deadline)")
+    ap.add_argument("--energy-budget", type=float, default=None,
+                    metavar="J",
+                    help="per-request energy budget in modeled joules; "
+                         "routes admission through the compute-optimal "
+                         "(steps x precision x TaylorSeer x DVFS) frontier")
+    ap.add_argument("--quality-floor", type=float, default=None,
+                    metavar="Q",
+                    help="minimum quality proxy in (0, 1]; frontier "
+                         "admission picks the fastest point at or above it")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="serve the telemetry HTTP front end (/metrics, "
+                         "/healthz, /slo, SSE /events, /trace/<id>) on "
+                         "127.0.0.1:PORT for the run (0 = ephemeral, "
+                         "printed at startup; omit = no server)")
+    ap.add_argument("--trace-dir", default=None, metavar="DIR",
+                    help="write the flight recorder's spans as Chrome "
+                         "trace-event JSON to DIR/flight.json after the "
+                         "drain")
+    ap.add_argument("--no-telemetry", action="store_true",
+                    help="disable telemetry (metrics, learned latency "
+                         "estimates, the BER guardband); explicit-op "
+                         "serving is bit-identical, op=auto loses the "
+                         "guardband floor")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda; there is no CPU "
                          "fallback)")
@@ -139,33 +196,76 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[Sequence[str]] = None,
          engine: Optional[DriftServeEngine] = None) -> list:
     args = build_parser().parse_args(argv)
-    mode = args.mode or default_mode_for(args.arch)
     eng = engine if engine is not None else DriftServeEngine(
         arch=args.arch, smoke=args.smoke, bucket=args.batch,
         base_seed=args.seed, device=args.device,
-        offload=OffloadConfig() if args.offload else None)
+        offload=OffloadConfig() if args.offload else None,
+        telemetry=EngineTelemetry(enabled=not args.no_telemetry))
+    server = None
+    if args.metrics_port is not None:
+        server = serve_telemetry(eng, port=args.metrics_port)
+        print(f"[serve] telemetry at {server.url} "
+              f"(/metrics /healthz /slo /events /trace/<id>)")
+    try:
+        return _drive(args, eng, server)
+    finally:
+        # main() is also called in-process: never leak the bound port or
+        # the server thread when the drain raises
+        if server is not None:
+            server.close()
+
+
+def _drive(args, eng, server) -> list:
+    mode = args.mode or default_mode_for(args.arch)
     bucket = eng.batcher.bucket
     n_requests = args.requests or bucket
-    for i in range(n_requests):
-        eng.submit(arch=args.arch, smoke=args.smoke, steps=args.steps,
-                   mode=mode, op=args.op, seed=args.seed + i,
-                   taylorseer=args.taylorseer, precision=args.precision,
-                   rollback_interval=args.rollback_interval)
-    t0 = time.perf_counter()
-    previews = 0
-    if args.stream:
-        results = []
-        for ev in eng.run_stream(args.stream):
-            if isinstance(ev, PreviewEvent):
-                previews += 1
-                print(f"  [preview] req {ev.request_id} step "
-                      f"{ev.step}/{ev.total_steps}")
-            else:
-                results.append(ev)
-        results.sort(key=lambda r: r.request_id)
-    else:
-        results = eng.run()
-    wall = time.perf_counter() - t0
+    use_scheduler = (args.deadline is not None
+                     or args.priority != "standard"
+                     or args.step_budget is not None
+                     or args.energy_budget is not None
+                     or args.quality_floor is not None)
+    sched = DeadlineScheduler(eng) if use_scheduler else None
+    fields = dict(arch=args.arch, smoke=args.smoke, steps=args.steps,
+                  mode=mode, op=args.op, taylorseer=args.taylorseer,
+                  precision=args.precision,
+                  rollback_interval=args.rollback_interval)
+    # hold the server's engine lock from the first submission through the
+    # drain: a concurrent /events client gets a 503
+    drain_lock = (server.engine_lock if server is not None
+                  else contextlib.nullcontext())
+    with drain_lock:
+        for i in range(n_requests):
+            if sched is None:
+                eng.submit(seed=args.seed + i, **fields)
+                continue
+            adm = sched.submit(seed=args.seed + i, priority=args.priority,
+                               deadline_s=args.deadline,
+                               step_budget=args.step_budget,
+                               energy_budget_j=args.energy_budget,
+                               quality_floor=args.quality_floor, **fields)
+            knobs = f"op {adm.op}, {adm.steps} steps"
+            if adm.action == "frontier":
+                knobs += (f", {adm.precision}, taylorseer "
+                          f"{'on' if adm.taylorseer else 'off'}, quality "
+                          f"{adm.quality:.3f}, {adm.projected_energy_j:.4f}J "
+                          "projected (modeled)")
+            print(f"[admission] req {adm.request_id}: {adm.action} ({knobs})"
+                  + (f" -- {adm.reason}" if adm.reason else ""))
+        t0 = time.perf_counter()
+        previews = 0
+        if args.stream:
+            results = []
+            for ev in eng.run_stream(args.stream):
+                if isinstance(ev, PreviewEvent):
+                    previews += 1
+                    print(f"  [preview] req {ev.request_id} step "
+                          f"{ev.step}/{ev.total_steps}")
+                else:
+                    results.append(ev)
+            results.sort(key=lambda r: r.request_id)
+        else:
+            results = eng.run()
+        wall = time.perf_counter() - t0
 
     print(f"[serve] {args.arch} smoke={args.smoke} mode={mode} "
           f"op={args.op} steps={args.steps} taylorseer={args.taylorseer} "
@@ -173,17 +273,19 @@ def main(argv: Optional[Sequence[str]] = None,
           f"bucket={bucket} device={eng.device} wall={wall:.2f}s"
           + (f" previews={previews}" if args.stream else ""))
     for r in results:
-        head = f"  req {r.request_id} (batch {r.batch_index}, op {r.op}): "
+        head = (f"  req {r.request_id} (batch {r.batch_index}, op {r.op}, "
+                f"{r.priority}): ")
+        miss = "  DEADLINE MISSED" if r.deadline_missed else ""
         if r.tokens is not None:
             print(head + f"tokens {list(r.tokens)}  match-vs-clean "
                   f"{r.token_match_vs_clean:.3f}  abft-detections "
                   f"{r.ar_detections}  kv-rollbacks {r.ar_rollbacks}  "
-                  f"evals {r.n_model_evals}")
+                  f"evals {r.n_model_evals}{miss}")
         else:
             print(head + f"lpips-proxy {r.lpips_vs_clean:.4f}  "
                   f"psnr {r.psnr_vs_clean_db:.2f} dB  "
                   f"corrected(batch) {r.batch_corrected_elems}  "
-                  f"evals {r.n_model_evals}")
+                  f"evals {r.n_model_evals}{miss}")
         print(f"    perfmodel/request (modeled accelerator): baseline "
               f"{r.baseline_energy_j:.4f}J/{r.baseline_latency_s:.4f}s -> "
               f"{r.energy_j:.4f}J/{r.latency_s:.4f}s "
@@ -194,13 +296,40 @@ def main(argv: Optional[Sequence[str]] = None,
           f"{eng.stats.padded_slots} padded slots; monitor "
           f"ber={float(eng.monitor.ema_ber):.2e} "
           f"ladder={int(eng.monitor.op_index)}; modeled clock "
-          f"{eng.clock_s:.4f}s")
+          f"{eng.clock_s:.4f}s, {eng.stats.deadline_misses} deadline misses")
     if eng.offload_store is not None:
         ost = eng.offload_store.stats
         print(f"  offload: {ost.commits} commits "
               f"({ost.bytes_offloaded / 1e6:.2f} MB tile-contiguous), "
               f"{ost.skipped} spike-skipped, {ost.restores} restores; "
               f"last committed step {eng.offload_store.committed_step}")
+    if sched is not None:
+        s = sched.stats
+        print(f"  scheduler: {s.admitted}/{s.submitted} admitted "
+              f"({s.rejected} rejected, {s.escalated_op} op-escalated, "
+              f"{s.trimmed_steps} step-trimmed, {s.frontier_selected} "
+              f"frontier-selected, {s.projected_misses} projected misses)")
+    tele = eng.telemetry
+    if tele.enabled:
+        ctrl = tele.controller
+        print(f"  telemetry: {tele.estimator.total_observations} latency "
+              f"observations over {len(tele.estimator)} configs; guardband "
+              f"floor {ctrl.guard_index if ctrl else 0} "
+              f"({ctrl.guard_op_name() if ctrl else 'n/a'})")
+        if tele.ledger.batches:
+            top = sorted(tele.ledger.shares().items(),
+                         key=lambda kv: -kv[1])[:3]
+            burning = tele.slo.breached_objectives()
+            print(f"  energy (modeled): "
+                  f"{tele.ledger.energy_per_request_j():.4f} J/request ("
+                  + ", ".join(f"{c} {s:.0%}" for c, s in top)
+                  + "); slo breached: "
+                  + (", ".join(burning) if burning else "none"))
+    if args.trace_dir is not None:
+        os.makedirs(args.trace_dir, exist_ok=True)
+        path = os.path.join(args.trace_dir, "flight.json")
+        write_chrome_trace(path, eng.tracer.spans())
+        print(f"  trace: {len(eng.tracer)} spans -> {path}")
     return results
 
 

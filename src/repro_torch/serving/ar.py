@@ -189,9 +189,16 @@ def make_decoder(cfg: ModelConfig, dcfg: DecodeConfig, *,
 
 def decode_batch(fns: DecoderFns, params, tokens: torch.Tensor,
                  monitor0: dvfs.BerMonitorState,
-                 flip_source: Optional[fault.FlipSource]) -> DecodeOut:
+                 flip_source: Optional[fault.FlipSource],
+                 on_window: Optional[Callable[[int], None]] = None,
+                 on_replay: Optional[Callable[[int, int], None]] = None
+                 ) -> DecodeOut:
     """Host decode loop: prefill, then windows of decode steps with
-    detect / rollback-replay. See the module docstring."""
+    detect / rollback-replay. See the module docstring.
+
+    ``on_window(done_steps)`` and ``on_replay(window_start, window_len)``
+    are host taps (the flight recorder's) after each decoded window and
+    each rollback replay; they add no device op."""
     dcfg = fns.dcfg
     if tokens.shape[1] != PROMPT_LEN:
         raise ValueError(f"prompts must be (B, {PROMPT_LEN}), got "
@@ -235,8 +242,12 @@ def decode_batch(fns: DecoderFns, params, tokens: torch.Tensor,
                 window_toks.append(last_tok)
             rollbacks += 1
             n_model_evals += n
+            if on_replay is not None:
+                on_replay(i, n)
         generated.extend(window_toks)
         i += n
+        if on_window is not None:
+            on_window(i)
 
     toks = torch.stack(generated, dim=1)                # (B, steps)
     heatmap = torch.stack(det_steps).to(torch.int32)[:, None]

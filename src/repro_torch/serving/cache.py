@@ -4,11 +4,14 @@ Counterpart of ``repro.serving.cache``. PyTorch runs eagerly, so there is
 nothing to trace or compile; the cache keeps the built sampler callable per
 ``SamplerKey`` and counts *builds* (factory calls), which stand in for the
 reference's JAX traces: each key builds exactly once per engine.
+``on_compile(key, seconds)`` fires on every miss with the host time of
+the build (the flight recorder's ``compile`` span).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+import time
+from typing import Callable, Dict, Optional
 
 from repro_torch.core.rollback import DEFAULT_INTERVAL
 
@@ -39,6 +42,8 @@ class CompiledSamplerCache:
         self._fns: Dict[SamplerKey, Callable] = {}
         self.builds = 0     # cache misses (factory invocations)
         self.hits = 0       # cache hits
+        # miss tap: (key, host seconds the factory took)
+        self.on_compile: Optional[Callable[[SamplerKey, float], None]] = None
 
     def get(self, key: SamplerKey,
             factory: Callable[[SamplerKey], Callable]) -> Callable:
@@ -46,8 +51,11 @@ class CompiledSamplerCache:
         if fn is not None:
             self.hits += 1
             return fn
+        t0 = time.perf_counter()
         fn = self._fns[key] = factory(key)
         self.builds += 1
+        if self.on_compile is not None:
+            self.on_compile(key, time.perf_counter() - t0)
         return fn
 
     def __contains__(self, key: SamplerKey) -> bool:

@@ -46,9 +46,19 @@ virtual clock, and ``rollback_interval="auto"`` requests resolve their
 refresh interval through the offload planner
 (``auto_rollback_interval``, the ``auto_op_index`` analogue).
 
-The scheduler, telemetry and tracing are later slices (ROADMAP Queue A
-item 10); ``_detect_rate`` takes the reference's telemetry-disabled
-branch.
+**Telemetry** (``telemetry=EngineTelemetry()``, on by default; the
+CLI's ``--no-telemetry`` builds ``EngineTelemetry(enabled=False)``) and
+the **flight recorder** (``tracer=FlightRecorder()``, on by default)
+are fed on the host once per batch, from numbers the engine already
+holds after the batch (the monitor's EMA, the corrected count, the
+heatmap moved to the host once): metrics, the latency history the
+scheduler reads, the guardband controller that floors ``op="auto"``
+(``auto_op_index``), the energy ledger (``verify_cost`` on every
+batch's shared ledger), the SLO tracker, and spans with both clocks.
+They add no device op and no synchronize, so finals are bit-identical
+with them on, disabled or absent. Deadline-aware admission and priority
+formation live one layer up, in ``serving.scheduler.DeadlineScheduler``;
+the engine stamps each result's queue wait and deadline miss.
 """
 from __future__ import annotations
 
@@ -62,6 +72,7 @@ import torch
 from repro_torch import configs
 from repro_torch.core import dvfs as dvfs_lib
 from repro_torch.core import fault
+from repro_torch.core import quant as quant_lib
 from repro_torch.diffusion import sampler as sampler_lib
 from repro_torch.perfmodel import energy
 from repro_torch.serving import servable as servable_lib
@@ -71,6 +82,8 @@ from repro_torch.serving.offload import (OffloadConfig, OffloadPlanner,
                                          OffloadStore)
 from repro_torch.serving.request import (GenerationRequest, RequestQueue,
                                          RequestResult)
+from repro_torch.serving.telemetry import EngineTelemetry, verify_cost
+from repro_torch.serving.trace import FlightRecorder
 
 
 def resolve_device(device) -> torch.device:
@@ -92,6 +105,7 @@ class EngineStats:
     clean_samples_computed: int = 0
     clean_sample_hits: int = 0
     preview_events: int = 0        # streamed previews yielded (live slots)
+    deadline_misses: int = 0       # requests completed past their deadline
 
 
 @dataclasses.dataclass
@@ -102,6 +116,9 @@ class _BatchCtx:
     padded_seeds: Tuple[int, ...]
     inputs: Tuple                 # (latents, cond) or (prompt tokens,)
     flip_source: fault.FlipSource
+    # this batch's OffloadStats delta, set by the drain after it joins
+    # the store; None when no offload ran
+    offload_delta: Optional[object] = None
 
 
 class DriftServeEngine:
@@ -117,7 +134,9 @@ class DriftServeEngine:
                  flip_source_factory: Optional[
                      Callable[[int], fault.FlipSource]] = None,
                  sampler_factory: Optional[Callable] = None,
-                 offload: Optional[OffloadConfig] = None):
+                 offload: Optional[OffloadConfig] = None,
+                 telemetry: Optional[EngineTelemetry] = None,
+                 tracer: Optional[FlightRecorder] = None):
         self.device = resolve_device(device)
         self.default_arch = arch
         self.default_smoke = smoke
@@ -128,6 +147,13 @@ class DriftServeEngine:
         self.batcher = MicroBatcher(bucket)
         self.cache = CompiledSamplerCache()
         self.stats = EngineStats()
+        # telemetry and the flight recorder, both on by default; pass
+        # EngineTelemetry(enabled=False) / FlightRecorder(enabled=False)
+        # to turn either off
+        self.telemetry = (telemetry if telemetry is not None
+                          else EngineTelemetry()).bind(monitor_target_ber)
+        self.tracer = tracer if tracer is not None else FlightRecorder()
+        self.cache.on_compile = self._on_compile
         self.monitor = dvfs_lib.ber_monitor_init(self.device)
         self.flip_source_factory = (
             flip_source_factory if flip_source_factory is not None
@@ -150,10 +176,21 @@ class DriftServeEngine:
         self.offload_cfg = offload
         self._offload_store = (OffloadStore(self.offload_cfg)
                                if self.offload_cfg is not None else None)
+        if self._offload_store is not None:
+            self._offload_store.on_event = self.tracer.on_offload
         self._active_offload: Optional[OffloadStore] = None
+        # True while a batch drains in windows the reference streams
+        # (run_stream, or offload): only then do the window taps fire,
+        # as the reference's one-shot scan fires none
+        self._stream_taps = False
         self._planner: Optional[OffloadPlanner] = None
         self._interval_memo: Dict[Tuple, int] = {}
         self._stall_memo: Dict[Tuple, float] = {}
+        # per-window energy attribution for window/replay spans: a
+        # per-computed-step estimate memoized per configuration
+        self._window_j_memo: Dict[Tuple, float] = {}
+        self._window_step_j = 0.0
+        self._window_prev_steps = 0
 
     def _default_sampler_factory(self, key: SamplerKey, model_cfg, scfg):
         """The windowed ``sample_stream`` with the offload tap on its
@@ -163,6 +200,7 @@ class DriftServeEngine:
             return sampler_lib.sample_stream(
                 model_cfg, params, flip_source, latents, cond, scfg,
                 monitor0=monitor0, window=window,
+                on_window=self._on_stream_window,
                 on_carry=self._offload_on_carry)
         return run
 
@@ -196,7 +234,15 @@ class DriftServeEngine:
         configs.get_config(fields["arch"], smoke=fields["smoke"])
         fields.setdefault("submitted_at_s", self.clock_s)
         fields = self.servable_for(fields["arch"]).validate_request(fields)
-        return self.queue.submit(**fields)
+        rid = self.queue.submit(**fields)
+        self.telemetry.on_submit()
+        self.tracer.on_submit(rid, self.clock_s,
+                              arch=fields["arch"],
+                              mode=fields.get("mode", "drift"),
+                              op=fields.get("op", "undervolt"),
+                              steps=fields.get("steps", 10),
+                              priority=fields.get("priority", "standard"))
+        return rid
 
     # ------------------------------------------------------------ serving
     def run(self) -> List[RequestResult]:
@@ -230,8 +276,11 @@ class DriftServeEngine:
         return req.op
 
     def auto_op_index(self) -> int:
-        """Ladder index an ``op="auto"`` request resolves to now."""
-        return int(self.monitor.op_index)
+        """Ladder index an ``op="auto"`` request resolves to now: the BER
+        monitor's index, floored by the telemetry guardband controller
+        (the identity with telemetry off). Batch formation and the
+        scheduler's pricing both resolve "auto" here."""
+        return self.telemetry.clamp_ladder_index(int(self.monitor.op_index))
 
     def auto_op_name(self) -> str:
         return dvfs_lib.ladder_op(self.auto_op_index()).name
@@ -246,6 +295,9 @@ class DriftServeEngine:
                                                self._resolve_op(req),
                                                req.steps)
         return int(req.rollback_interval)
+
+    # public alias: the scheduler prices learned-estimator keys with it
+    resolve_interval = _resolve_interval
 
     def auto_rollback_interval(self, arch: str, op_name: str,
                                steps: int) -> int:
@@ -267,10 +319,16 @@ class DriftServeEngine:
 
     def _detect_rate(self, op_name: str, arch: str) -> float:
         """Expected rollback-triggering detections per denoising step, in
-        [0, 1]: the monitor's target BER times the per-step GEMM word
-        count, saturated. This is the reference's telemetry-disabled
-        branch; its telemetry history waits for ROADMAP Queue A 10.2."""
-        ber = self.monitor_target_ber
+        [0, 1]: the realized BER (the guardband controller's EWMA for
+        this op once it has history, the monitor's target before that or
+        with telemetry off) times the per-step GEMM word count,
+        saturated."""
+        ber = None
+        ctrl = self.telemetry.controller if self.telemetry.enabled else None
+        if ctrl is not None:
+            ber = ctrl.realized_ber.get(op_name)
+        if ber is None:
+            ber = self.monitor_target_ber
         words = energy.activation_bytes(self._full_cfg(arch), 1) / 4.0
         return min(1.0, float(ber) * words)
 
@@ -313,9 +371,65 @@ class DriftServeEngine:
     def _offload_for(self, key: SamplerKey) -> Optional[OffloadStore]:
         """This batch's offload store, or None: only monitored modes write
         rollback checkpoints worth offloading."""
-        if key.mode not in servable_lib.MONITORED_MODES:
+        if (self._offload_store is None
+                or key.mode not in servable_lib.MONITORED_MODES):
             return None
+        # host refresh traffic is DRAM traffic in the paper's accounting:
+        # commit/restore spans carry the joules they moved
+        self._offload_store.energy_per_byte_j = \
+            self._energy_model_for().e_dram_pj_per_byte * 1e-12
         return self._offload_store
+
+    def window_energy_per_step_j(self, key: SamplerKey) -> float:
+        """Prospective per-computed-step energy of one batch of this
+        configuration (recovery traffic, unknown mid-flight, charged
+        zero), for window and replay spans; the billed ledger lands at
+        finalize."""
+        memo = (key.arch, key.op, key.steps, key.mode, key.precision,
+                key.taylorseer, key.rollback_interval, key.bucket)
+        cached = self._window_j_memo.get(memo)
+        if cached is None:
+            op = dvfs_lib.OP_BY_NAME.get(key.op, dvfs_lib.NOMINAL)
+            protected = key.mode in servable_lib.MONITORED_MODES
+            rc = energy.RunConfig(
+                num_steps=key.steps, nominal_steps=self.nominal_steps,
+                aggressive=op,
+                ckpt_interval=(key.rollback_interval if protected
+                               else 10 ** 9),
+                abft_enabled=protected,
+                taylorseer_interval=3 if key.taylorseer else 0,
+                body_bits=quant_lib.get_plan(key.precision).body_bits)
+            cost = energy.run_cost(self._full_cfg(key.arch), rc,
+                                   batch=key.bucket,
+                                   em=self._energy_model_for())
+            n = max(int(cost.get("n_computed_steps", key.steps)), 1)
+            cached = self._window_j_memo[memo] = cost["energy_j"] / n
+        return cached
+
+    def _window_energy_delta_j(self, done_steps: int) -> float:
+        """Joules of the window that just completed: the steps finished
+        since the last window tap times the batch's per-step estimate."""
+        delta = max(int(done_steps) - self._window_prev_steps, 0)
+        self._window_prev_steps = int(done_steps)
+        return delta * self._window_step_j
+
+    def _on_stream_window(self, done_steps: int) -> None:
+        """Sampler window tap: the telemetry window counter and a window
+        span, for batches the reference streams; host-side only."""
+        if not self._stream_taps:
+            return
+        self.telemetry.on_stream_window(done_steps)
+        self.tracer.on_window(done_steps,
+                              energy_j=self._window_energy_delta_j(
+                                  done_steps))
+
+    def _on_compile(self, key: SamplerKey, elapsed_s: float) -> None:
+        """Sampler-cache miss tap: a compile span with the build's host
+        time. ``stream`` is the reference's key field, 0 here: the port
+        builds one sampler per configuration, streamed or not."""
+        self.tracer.on_compile(elapsed_s, arch=key.arch, mode=key.mode,
+                               op=key.op, steps=key.steps, stream=0,
+                               bucket=key.bucket)
 
     def _offload_on_carry(self, done_steps: int, carry) -> None:
         """Sampler window tap: forwards the carry to the batch's bound
@@ -360,6 +474,16 @@ class DriftServeEngine:
         model_cfg = configs.get_config(key.arch, smoke=key.smoke)
         live_seeds = [r.seed for r in mb.requests]
         padded_seeds = tuple(live_seeds + [live_seeds[-1]] * mb.n_pad)
+        # queue_wait spans per member and the batch_assembly span; the
+        # window/offload/detect spans until the next batch attach to it
+        self.tracer.begin_batch(batch_index,
+                                [r.request_id for r in mb.requests],
+                                self.clock_s, arch=key.arch, mode=key.mode,
+                                op=key.op, steps=key.steps,
+                                bucket=key.bucket, n_live=len(mb.requests),
+                                n_pad=mb.n_pad)
+        self._window_prev_steps = 0
+        self._window_step_j = self.window_energy_per_step_j(key)
         return _BatchCtx(
             batch_index=batch_index,
             params=self.params_for(key.arch, key.smoke),
@@ -391,7 +515,8 @@ class DriftServeEngine:
                       out) -> List[RequestResult]:
         key = mb.key
         sv = self.servable_for(key.arch)
-        if key.mode in servable_lib.MONITORED_MODES:
+        protected = key.mode in servable_lib.MONITORED_MODES
+        if protected:
             self.monitor = out.monitor   # Sec 5.1 carry-over across batches
         outcome = sv.finalize(mb, ctx, out)
         mon_ber = float(self.monitor.ema_ber)
@@ -408,6 +533,7 @@ class DriftServeEngine:
         base = energy.per_request_cost(full, energy.baseline_rc(key.steps),
                                        batch=key.bucket, n_live=n_live,
                                        em=em)
+        verify_cost(cost)          # the ledger every result shares
         # every request completes when the batch's modeled latency has
         # passed, plus, with offload on, the planner's residual refresh
         # stall (the part of the host offload the next window's compute
@@ -417,15 +543,56 @@ class DriftServeEngine:
                                        key.mode)
         batch_latency_s = cost["latency_s"] + stall_s
         self.clock_s += batch_latency_s
-        return [RequestResult(
-            request_id=req.request_id, batch_index=ctx.batch_index,
-            bucket_size=key.bucket, op=key.op or "nominal", mode=key.mode,
-            steps=key.steps, taylorseer=key.taylorseer,
-            precision=key.precision, batch_corrected_elems=outcome.corrected,
-            n_model_evals=outcome.n_model_evals, energy_j=cost["energy_j"],
-            energy_breakdown=cost["breakdown"], latency_s=batch_latency_s,
-            baseline_energy_j=base["energy_j"],
-            baseline_latency_s=base["latency_s"], monitor_ber=mon_ber,
-            monitor_op_index=mon_idx, completed_at_s=self.clock_s,
-            **outcome.per_slot[slot])
-            for slot, req in enumerate(mb.requests)]
+        completed_at = self.clock_s
+        results = []
+        for slot, req in enumerate(mb.requests):
+            missed = (req.absolute_deadline_s is not None
+                      and completed_at > req.absolute_deadline_s + 1e-9)
+            self.stats.deadline_misses += int(missed)
+            results.append(RequestResult(
+                request_id=req.request_id, batch_index=ctx.batch_index,
+                bucket_size=key.bucket, op=key.op or "nominal",
+                mode=key.mode, steps=key.steps, taylorseer=key.taylorseer,
+                precision=key.precision,
+                batch_corrected_elems=outcome.corrected,
+                n_model_evals=outcome.n_model_evals,
+                energy_j=cost["energy_j"],
+                energy_breakdown=cost["breakdown"],
+                latency_s=batch_latency_s,
+                baseline_energy_j=base["energy_j"],
+                baseline_latency_s=base["latency_s"], monitor_ber=mon_ber,
+                monitor_op_index=mon_idx, priority=req.priority,
+                deadline_s=req.deadline_s, completed_at_s=completed_at,
+                queue_wait_s=max(completed_at - req.submitted_at_s
+                                 - batch_latency_s, 0.0),
+                deadline_missed=missed, detect_heatmap=outcome.heatmap,
+                detect_heatmap_blocks=outcome.heatmap_blocks,
+                **outcome.per_slot[slot]))
+        # telemetry: metrics, latency history, energy ledger, SLO, and for
+        # monitored modes one guardband observation of the batch
+        self.telemetry.on_batch(
+            key=key, n_live=n_live, n_pad=mb.n_pad,
+            latency_s=batch_latency_s, ema_ber=mon_ber, op_index=mon_idx,
+            corrected=outcome.corrected, n_words=outcome.n_words,
+            monitored=protected, clock_s=self.clock_s,
+            queue_depth=len(self.queue), results=results,
+            energy_breakdown=bcost["breakdown"])
+        if ctx.offload_delta is not None:
+            self.telemetry.on_offload(ctx.offload_delta,
+                                      interval=key.rollback_interval,
+                                      stall_s=stall_s)
+        detect_attrs = None
+        if outcome.heatmap is not None:
+            self.telemetry.on_heatmap(outcome.heatmap,
+                                      outcome.heatmap_blocks)
+            detect_attrs = dict(heatmap=outcome.heatmap,
+                                blocks=outcome.heatmap_blocks,
+                                corrected=outcome.corrected)
+        self.tracer.finish_batch(self.clock_s, detect_attrs=detect_attrs,
+                                 latency_s=batch_latency_s,
+                                 energy_j=cost["energy_j"],
+                                 energy_breakdown=dict(bcost["breakdown"]),
+                                 stall_s=stall_s, mode=key.mode,
+                                 op=key.op or "nominal",
+                                 n_model_evals=outcome.n_model_evals)
+        return results

@@ -43,6 +43,15 @@ unpinned copies on its own: a pinned allocation or a stream that fails
 raises. On the CPU (the tests) nothing is pinned and every copy is
 synchronous.
 
+Trace tap: ``on_event(event, step, wall_elapsed_s, **attrs)`` fires when
+a commit settles (at the join that finds its copy complete) and after
+each restore, with ``nbytes`` and ``energy_j = nbytes *
+energy_per_byte_j`` (the engine arms the per-byte cost from the
+perfmodel's DRAM energy). A commit's ``wall_elapsed_s`` is the repack
+plus the device-to-host copy as their CUDA events timed them, from the
+repack's start to the copy's end; on the CPU it is the host time of the
+synchronous copy.
+
 The live store the sampler corrects from is never written by the store,
 so offload-enabled and offload-disabled runs give bit-identical latents.
 The commit and skip decisions (``_last_refresh_step``, ``_spiking``) are
@@ -52,7 +61,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -111,6 +120,7 @@ class _Flight:
     packed: object                   # tree of PackedLeaf over a host set
     host_set: int                    # which of the two host sets it fills
     nbytes: int
+    host_s: float = 0.0              # host time of _start (CPU: the copy)
     staged: Optional[list] = None    # held until the copy has completed
     # CUDA events: repack start/end (current stream), copy start/end
     # (side stream); None on the CPU, where the copy is already done.
@@ -147,12 +157,17 @@ class OffloadStore:
         # (repack ms, device-to-host copy ms) per settled CUDA commit of
         # the current batch, from CUDA events on the stream each ran on
         self.commit_ms: List[Tuple[float, float]] = []
+        # trace tap, fired as on_event(event, step, wall_elapsed_s,
+        # **attrs) when a commit settles and after a restore
+        self.on_event: Optional[Callable] = None
+        # modeled joules per offloaded byte; armed by the engine
+        self.energy_per_byte_j = 0.0
 
     # ------------------------------------------------------------ binding
     def begin_batch(self, interval: int, batch_index: int) -> None:
         """Rebind to one micro-batch run (the engine calls this per
-        batch). ``batch_index`` is the reference's signature; only its
-        trace taps (ROADMAP Queue A 10.3) read it."""
+        batch); ``batch_index`` is the reference's signature (the trace
+        spans take their batch from the recorder)."""
         if interval < 1:
             raise ValueError(f"interval must be >= 1, got {interval}")
         self.wait()                     # settle the previous batch's copy
@@ -199,7 +214,9 @@ class OffloadStore:
         caller's next work unless ``async_commit`` is off."""
         self.wait()                     # double buffer: at most 1 in flight
         try:
+            t0 = time.perf_counter()
             self._flight = self._start(step, stores)
+            self._flight.host_s = time.perf_counter() - t0
         # A failed commit must not leave the engine serving as if the
         # offload were healthy: keep the error for the next join point.
         except Exception as exc:        # noqa: BLE001 -- re-raised by wait
@@ -294,10 +311,16 @@ class OffloadStore:
         self._front_set = fl.host_set
         self.stats.commits += 1
         self.stats.bytes_offloaded += fl.nbytes
+        wall_s = fl.host_s
         if fl.events is not None:
             e = fl.events
             self.commit_ms.append((e[0].elapsed_time(e[1]),
                                    e[2].elapsed_time(e[3])))
+            wall_s = e[0].elapsed_time(e[3]) * 1e-3
+        if self.on_event is not None:
+            self.on_event("commit", fl.step, wall_s, nbytes=fl.nbytes,
+                          energy_j=fl.nbytes * self.energy_per_byte_j,
+                          asynchronous=self.cfg.async_commit)
 
     # ------------------------------------------------------------ queries
     @property
@@ -318,4 +341,11 @@ class OffloadStore:
         if self._front is None:
             raise RuntimeError("restore() before any committed snapshot")
         self.stats.restores += 1
-        return layout_lib.unpack_store(self._front)
+        t0 = time.perf_counter()
+        nbytes = layout_lib.store_nbytes(self._front)
+        out = layout_lib.unpack_store(self._front)
+        if self.on_event is not None:
+            self.on_event("restore", self._front_step,
+                          time.perf_counter() - t0, nbytes=nbytes,
+                          energy_j=nbytes * self.energy_per_byte_j)
+        return out

@@ -7,11 +7,11 @@ BER-monitor ladder), TaylorSeer and the precision plan. Which modes and
 knobs an arch takes depends on its paradigm and is checked at submit by
 its servable (``servable.validate_request``). ``rollback_interval`` is an
 int >= 1 or ``"auto"`` (the engine's offload planner picks it). The
-request schema keeps the reference's fields, but those whose machinery is
-not yet ported -- priority and deadlines, energy budgets and quality
-floors -- raise a ``ValueError`` naming the ROADMAP item when a request
-sets them. ``PreviewEvent`` is one streamed preview
-(``DriftServeEngine.run_stream``).
+scheduling contract -- ``priority``, ``deadline_s``, ``step_budget``,
+``energy_budget_j``, ``quality_floor`` -- is validated as the reference
+validates it; ``serving.scheduler.DeadlineScheduler`` turns it into a
+concrete assignment at admission. ``PreviewEvent`` is one streamed
+preview (``DriftServeEngine.run_stream``).
 
 Time base: ``submitted_at_s`` and ``RequestResult.completed_at_s`` are
 stamps of the engine's virtual clock (``DriftServeEngine.clock_s``),
@@ -33,10 +33,11 @@ REQUEST_OPS = ("nominal", "undervolt", "overclock", "auto") + tuple(
     p.name for p in OP_LADDER
     if p.name not in ("nominal", "undervolt", "overclock"))
 
-
-def _not_ported(what: str, item: str) -> ValueError:
-    return ValueError(f"{what} is not yet ported to repro_torch (ROADMAP "
-                      f"Queue A item {item})")
+# Scheduling classes, most to least urgent: the priority batcher serves
+# "interactive" buckets before "standard" before "background"; within a
+# class, earlier deadlines first, then FIFO.
+REQUEST_PRIORITIES = ("interactive", "standard", "background")
+PRIORITY_RANK = {name: i for i, name in enumerate(REQUEST_PRIORITIES)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,9 +53,14 @@ class GenerationRequest:
     taylorseer: bool = False
     precision: str = "int8"
     rollback_interval: Union[int, str] = DEFAULT_INTERVAL
-    priority: str = "standard"
+    # --- scheduling contract (serving/scheduler.py)
+    priority: str = "standard"     # REQUEST_PRIORITIES member
+    # relative deadline in engine virtual seconds from submission
     deadline_s: Optional[float] = None
+    # cap on steps; the engine clamps ``steps`` to it at submit()
     step_budget: Optional[int] = None
+    # frontier objectives (serving/frontier.py): joules for this
+    # request's share, and the quality proxy's floor in (0, 1]
     energy_budget_j: Optional[float] = None
     quality_floor: Optional[float] = None
     # engine virtual-clock stamp at submission; set by the engine
@@ -67,6 +73,22 @@ class GenerationRequest:
         if self.mode not in MODES:
             raise ValueError(
                 f"unknown DRIFT mode {self.mode!r}; one of {MODES}")
+        if self.priority not in REQUEST_PRIORITIES:
+            raise ValueError(
+                f"unknown priority {self.priority!r}; one of "
+                f"{REQUEST_PRIORITIES}")
+        if self.deadline_s is not None and self.deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0, got {self.deadline_s}")
+        if self.step_budget is not None and self.step_budget < 1:
+            raise ValueError(
+                f"step_budget must be >= 1, got {self.step_budget}")
+        if self.energy_budget_j is not None and self.energy_budget_j <= 0:
+            raise ValueError(
+                f"energy_budget_j must be > 0, got {self.energy_budget_j}")
+        if self.quality_floor is not None and not (
+                0.0 < self.quality_floor <= 1.0):
+            raise ValueError(
+                f"quality_floor must be in (0, 1], got {self.quality_floor}")
         if self.steps < 1:
             raise ValueError(f"steps must be >= 1, got {self.steps}")
         get_plan(self.precision)          # unknown plan names raise
@@ -79,14 +101,13 @@ class GenerationRequest:
             raise ValueError(
                 f"rollback_interval must be >= 1, got "
                 f"{self.rollback_interval}")
-        if self.priority != "standard" or self.deadline_s is not None:
-            raise _not_ported("priority/deadline_s", "10 (scheduler)")
-        if self.energy_budget_j is not None or self.quality_floor is not None:
-            raise _not_ported("energy_budget_j/quality_floor",
-                              "10 (frontier)")
-        if self.step_budget is not None and self.step_budget < 1:
-            raise ValueError(
-                f"step_budget must be >= 1, got {self.step_budget}")
+
+    @property
+    def absolute_deadline_s(self) -> Optional[float]:
+        """Deadline on the engine's virtual clock, or None."""
+        if self.deadline_s is None:
+            return None
+        return self.submitted_at_s + self.deadline_s
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,15 +164,26 @@ class RequestResult:
     token_match_vs_clean: Optional[float] = None
     ar_detections: int = 0
     ar_rollbacks: int = 0
-    # engine virtual clock after this request's batch
-    completed_at_s: float = 0.0
+    # deadline bookkeeping, on the engine's virtual clock
+    priority: str = "standard"
+    deadline_s: Optional[float] = None     # the request's relative deadline
+    completed_at_s: float = 0.0            # engine clock after this batch
+    queue_wait_s: float = 0.0              # completed_at - submitted - batch
+    deadline_missed: bool = False
+    # resilience heatmap of the batch: detections per (site, timestep
+    # bin) as nested int tuples, with the site labels (trace/heatmap.py);
+    # None when the batch produced none
+    detect_heatmap: Optional[tuple] = None
+    detect_heatmap_blocks: Optional[tuple] = None
     # this request's share of the batch cost per perfmodel.energy.
     # ENERGY_COMPONENTS; its ledger_total equals energy_j bitwise
     energy_breakdown: Optional[dict] = None
 
 
 class RequestQueue:
-    """FIFO queue assigning monotonically increasing request ids."""
+    """FIFO queue assigning monotonically increasing request ids; the
+    priority batcher imposes its order through ``pending()`` and
+    ``take_matching(rank=...)``."""
 
     def __init__(self) -> None:
         self._pending: Deque[GenerationRequest] = collections.deque()
@@ -169,10 +201,24 @@ class RequestQueue:
     def peek(self) -> Optional[GenerationRequest]:
         return self._pending[0] if self._pending else None
 
-    def take_matching(self, head_key, key_of, limit: int
+    def pending(self) -> tuple:
+        """Snapshot of the pending requests in FIFO order."""
+        return tuple(self._pending)
+
+    def take_matching(self, head_key, key_of, limit: int, rank=None
                       ) -> List[GenerationRequest]:
         """Pop up to ``limit`` pending requests whose ``key_of(req)`` equals
-        ``head_key``, in FIFO order; the others keep their positions."""
+        ``head_key``; the others keep their positions. Without ``rank``
+        they are chosen and returned in FIFO order; with it the ``limit``
+        lowest-ranked matches are chosen (ties FIFO) and returned in FIFO
+        order."""
+        if rank is not None:
+            matches = [r for r in self._pending if key_of(r) == head_key]
+            chosen = sorted(matches, key=rank)[:limit]
+            chosen_ids = {r.request_id for r in chosen}
+            self._pending = collections.deque(
+                r for r in self._pending if r.request_id not in chosen_ids)
+            return sorted(chosen, key=lambda r: r.request_id)
         taken: List[GenerationRequest] = []
         kept: Deque[GenerationRequest] = collections.deque()
         while self._pending and len(taken) < limit:

@@ -16,8 +16,12 @@ provides its family's params init (``init_params``):
   TaylorSeer, the precision plans, streaming previews and, with the
   engine's offload store, checkpoint commits between windows.
 * ``AutoregressiveServable`` -- token-by-token decode with statistical
-  ABFT and KV-window rollback (``serving.ar``), without the reference's
-  tracer taps (ROADMAP Queue A item 10).
+  ABFT and KV-window rollback (``serving.ar``), with the flight
+  recorder's window and replay taps.
+
+``finalize`` also hands back the batch's resilience heatmap (the
+sampler's per-step detections binned on the host, ``trace/heatmap.py``)
+and the telemetry controller's word count.
 
 Initial latents and prompts come from the port's own generator, one
 ``torch.Generator`` per request seed; tests that compare with the
@@ -26,7 +30,7 @@ reference hand the reference's inputs in by replacing ``batch_inputs``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +48,7 @@ from repro_torch.perfmodel import energy
 from repro_torch.serving import ar
 from repro_torch.serving.cache import SamplerKey
 from repro_torch.serving.request import PreviewEvent
+from repro_torch.serving.trace import heatmap as heatmap_lib
 
 # Stream tag mixed into a request seed for its initial latents (the
 # reference folds 7 into the seed's key).
@@ -66,7 +71,12 @@ class BatchOutcome:
     corrected: int
     n_model_evals: int
     rc: energy.RunConfig        # the batch's perfmodel run shape
+    n_words: int                # telemetry BER denominator
     per_slot: List[dict]
+    # binned detections (sites, timestep bins) and the site labels; None
+    # when the sampler produced no heatmap
+    heatmap: Optional[tuple] = None
+    heatmap_blocks: Optional[tuple] = None
 
 
 class DiffusionServable:
@@ -162,7 +172,8 @@ class DiffusionServable:
         store = self.eng._offload_for(key)
         window = (max(key.steps, 1) if store is None
                   else min(key.rollback_interval, key.steps))
-        *_, out = self._windows(mb, ctx, window, store)
+        *_, out = self._windows(mb, ctx, window, store,
+                                streamed=store is not None)
         return out
 
     def execute_stream(self, mb, ctx, preview_interval: int) -> Iterator:
@@ -172,13 +183,14 @@ class DiffusionServable:
         eng = self.eng
         out = None
         for ev in self._windows(mb, ctx, preview_interval,
-                                eng._offload_for(mb.key)):
+                                eng._offload_for(mb.key), streamed=True):
             if isinstance(ev, sampler_lib.SampleOutput):
                 out = ev
                 continue
             preview = torch.clamp(ev.latents, -1, 1)
             for slot, req in enumerate(mb.requests):   # live slots only
                 eng.stats.preview_events += 1
+                eng.telemetry.on_preview()
                 yield PreviewEvent(request_id=req.request_id,
                                    batch_index=ctx.batch_index,
                                    step=int(ev.step),
@@ -186,23 +198,28 @@ class DiffusionServable:
                                    latents=preview[slot])
         yield ("final", out)
 
-    def _windows(self, mb, ctx, window: int, store) -> Iterator:
+    def _windows(self, mb, ctx, window: int, store,
+                 streamed: bool) -> Iterator:
         """The windowed sampler's events for one batch, with ``store``
-        (or None) bound to the batch and joined when it ends."""
+        (or None) bound to the batch and joined when it ends (its stat
+        delta lands in ``ctx.offload_delta``). ``streamed``: the window
+        taps fire, as for the reference's streamed samplers."""
         eng = self.eng
         fn = eng.cache.get(mb.key, self.build_fn)
         if store is not None:
             store.begin_batch(interval=mb.key.rollback_interval,
                               batch_index=ctx.batch_index)
             eng._active_offload = store
+        eng._stream_taps = streamed
         try:
             latents, cond = ctx.inputs
             yield from fn(ctx.params, ctx.flip_source, latents, cond,
                           eng.monitor, window=window)
         finally:
+            eng._stream_taps = False
             if store is not None:
                 eng._active_offload = None
-                store.finish_batch()
+                ctx.offload_delta = store.finish_batch()
 
     def finalize(self, mb, ctx, out) -> BatchOutcome:
         key = mb.key
@@ -234,9 +251,12 @@ class DiffusionServable:
                 lpips_vs_clean=float(metrics.lpips_proxy(a, b)),
                 psnr_vs_clean_db=float(metrics.psnr(a, b)),
                 latents=a[0]))
+        heat, blocks = heatmap_lib.summarize(out.heatmap)
         return BatchOutcome(corrected=corrected,
                             n_model_evals=int(out.n_model_evals), rc=rc,
-                            per_slot=per_slot)
+                            n_words=latents.numel() * max(key.steps, 1),
+                            per_slot=per_slot, heatmap=heat,
+                            heatmap_blocks=blocks)
 
 
 # ----------------------------------------------------- autoregressive path
@@ -271,6 +291,14 @@ class AutoregressiveServable:
                 "diffusion denoiser body per timestep and do not apply to "
                 "token decoding. Use the default 'int8' (or serve a dit "
                 "arch).")
+        if fields.get("energy_budget_j") is not None \
+                or fields.get("quality_floor") is not None:
+            raise ValueError(
+                f"request for AR arch {arch!r} sets a frontier objective "
+                "(energy_budget_j/quality_floor): the compute-optimal "
+                "frontier enumerates diffusion knobs (steps x precision x "
+                "TaylorSeer x DVFS) and is not built for autoregressive "
+                "serving. Use deadline_s/step_budget instead.")
         mode = fields.get("mode", "drift")
         if mode not in self.ALLOWED_MODES:
             raise ValueError(
@@ -313,10 +341,24 @@ class AutoregressiveServable:
         return hit[1]
 
     def execute(self, mb, ctx):
-        fns = self.eng.cache.get(mb.key, self.build_fn)
+        eng = self.eng
+        fns = eng.cache.get(mb.key, self.build_fn)
         (tokens,) = ctx.inputs
+        tracer = eng.tracer
+
+        # window and replay spans carry joules: decoded tokens at the
+        # batch's per-step estimate, replays their window length at it
+        def on_window(done_steps: int) -> None:
+            tracer.on_window(done_steps,
+                             energy_j=eng._window_energy_delta_j(done_steps))
+
+        def on_replay(window_start: int, window_len: int) -> None:
+            tracer.on_replay(window_start, window_len,
+                             energy_j=window_len * eng._window_step_j)
+
         return ar.decode_batch(fns, self._weights_for(mb.key, ctx.params),
-                               tokens, self.eng.monitor, ctx.flip_source)
+                               tokens, eng.monitor, ctx.flip_source,
+                               on_window=on_window, on_replay=on_replay)
 
     def execute_stream(self, mb, ctx, preview_interval: int) -> Iterator:
         raise ValueError(
@@ -379,8 +421,12 @@ class AutoregressiveServable:
             abft_enabled=protected, taylorseer_interval=0,
             recovery_tiles_per_step=0.0,
             replay_evals=max(nevals - 1 - mb.key.steps, 0))
+        heat, blocks = heatmap_lib.summarize(out.heatmap)
         return BatchOutcome(corrected=int(out.rollbacks),
-                            n_model_evals=nevals, rc=rc, per_slot=per_slot)
+                            n_model_evals=nevals, rc=rc,
+                            n_words=max(int(out.n_words), 1),
+                            per_slot=per_slot, heatmap=heat,
+                            heatmap_blocks=blocks)
 
 
 # family -> its servable class, for the families the port has.

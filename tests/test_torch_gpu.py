@@ -1,6 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions, and the
-checkpoint-offload store's side-stream copies into pinned memory, on the
-card.
+"""The port's CUDA kernels against their plain PyTorch versions, the
+checkpoint-offload store's side-stream copies into pinned memory, and a
+drain through the telemetry front end's ``/events`` with offload on, on
+the card.
 
 Marked ``gpu``: each test skips without a CUDA device. This module imports
 no JAX, so it runs on a machine that has only PyTorch:
@@ -224,6 +225,25 @@ def test_flash_tensor_core_kernel_matches_plain_on_card(cuda, d, s, causal,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d,causal", [(72, False), (128, True)])
+def test_flash_kernel_finite_at_large_scores_on_card(cuda, d, causal):
+    """Activations of ~3e5, as undervolted full-width DiT layers reach
+    them, give raw scores of ~1e12: the softmax's exponent is the scaled
+    difference to the row max, never above 0, so every row is finite and
+    matches the plain version (ROADMAP Queue C 10: a folded FFMA let the
+    rounding residual of the scaled max reach exp2 and NaN whole rows)."""
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 1024, 2, d))
+                                .astype(np.float32) * 3e5)
+               .to(cuda, torch.bfloat16) for _ in range(3))
+    got = tfk.mha_flash(q, k, v, causal=causal)
+    want = full_attention(q, k, v, causal=causal)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2 * 3e5,
+                               rtol=3e-2)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_mha_flash_is_one_launch_with_contiguous_output(cuda, dtype):
     """One mha_flash call on a fused projection's views launches exactly
@@ -348,3 +368,46 @@ def test_offload_restore_is_bit_equal_on_card(cuda, repacked, async_commit):
     restored = s.restore()
     for got, ref in zip(tree_leaves(restored), tree_leaves(stores)):
         assert got.shape == ref.shape and torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+def test_events_drain_with_offload_on_card_matches_run(cuda):
+    """The SMOKE DiT with offload on, drained through the HTTP front
+    end's /events on the handler's thread: the offload store records its
+    events on the stream current in that thread, and every final equals
+    ``run()``'s on a twin engine bit for bit; each settled commit is an
+    offload_commit span carrying the CUDA events' time."""
+    import json
+    import urllib.request
+
+    from repro_torch.serving import DriftServeEngine, serve_telemetry
+    from repro_torch.serving.telemetry.http import latents_sha256
+
+    def engine():
+        return DriftServeEngine(arch="dit-xl-512", smoke=True, bucket=2,
+                                base_seed=4, device="cuda",
+                                offload=OffloadConfig())
+    want, got = engine(), engine()
+    for eng in (want, got):
+        for s in (0, 1, 2):
+            eng.submit(steps=4, mode="drift", op="undervolt", seed=s,
+                       rollback_interval=2)
+    ref = {r.request_id: latents_sha256(r.latents) for r in want.run()}
+    server = serve_telemetry(got, port=0)
+    try:
+        with urllib.request.urlopen(server.url + "/events?interval=2",
+                                    timeout=300) as resp:
+            body = resp.read().decode()
+    finally:
+        server.close()
+    results = {}
+    for line in body.splitlines():
+        if line.startswith("data: ") and '"latents_sha256"' in line:
+            d = json.loads(line[len("data: "):])
+            if "mode" in d:
+                results[d["request_id"]] = d["latents_sha256"]
+    assert results == ref and len(ref) == 3
+    commits = [s for s in got.tracer.spans() if s.kind == "offload_commit"]
+    assert len(commits) == got.offload_store.stats.commits == 4
+    assert all(s.t1_wall_s > s.t0_wall_s and s.attrs["nbytes"] > 0
+               for s in commits)

@@ -29,7 +29,7 @@ from repro.serving import OffloadConfig as JOffloadConfig
 from repro.serving.offload import OffloadPlanner as JPlanner
 from repro.serving.offload import layout as jlayout
 from repro.serving.offload import pareto_frontier as jpareto
-from repro.serving.telemetry import EngineTelemetry
+from repro.serving.telemetry import EngineTelemetry as JEngineTelemetry
 from repro_torch import configs
 from repro_torch.core import dvfs, repack
 from repro_torch.core.exec_ctx import DriftSystemConfig
@@ -38,8 +38,9 @@ from repro_torch.diffusion import sampler
 from repro_torch.diffusion.sampler import SampleOutput
 from repro_torch.launch import serve
 from repro_torch.models import dit
-from repro_torch.serving import (DriftServeEngine, OffloadConfig,
-                                 OffloadPlanner, OffloadStore, PreviewEvent)
+from repro_torch.serving import (DriftServeEngine, EngineTelemetry,
+                                 OffloadConfig, OffloadPlanner, OffloadStore,
+                                 PreviewEvent)
 from repro_torch.serving.offload import layout, pareto_frontier
 
 from test_torch_core import JaxReplayFlipSource, jax_replay_factory
@@ -310,10 +311,11 @@ def test_auto_interval_stall_and_clock_match_jax_engine(async_commit):
     the virtual clock as the reference's does, with ==."""
     got = DriftServeEngine(arch=ARCH, smoke=True, bucket=BUCKET,
                            device="cpu", sampler_factory=_stub_factory,
-                           offload=OffloadConfig(async_commit=async_commit))
+                           offload=OffloadConfig(async_commit=async_commit),
+                           telemetry=EngineTelemetry(enabled=False))
     want = JaxEngine(arch=ARCH, smoke=True, bucket=BUCKET,
                      sampler_factory=_jax_stub_factory,
-                     telemetry=EngineTelemetry(enabled=False),
+                     telemetry=JEngineTelemetry(enabled=False),
                      offload=JOffloadConfig(async_commit=async_commit))
     for op in ("undervolt", "overclock"):
         for steps in (3, 10):
@@ -353,7 +355,7 @@ def jax_offloaded():
     numpy, latents, class ids, results)."""
     eng = JaxEngine(arch=ARCH, smoke=True, bucket=BUCKET, base_seed=0,
                     offload=JOffloadConfig(),
-                    telemetry=EngineTelemetry(enabled=False))
+                    telemetry=JEngineTelemetry(enabled=False))
     jcfg = jconfigs.get_config(ARCH, smoke=True)
     np_params = perturbed_jax_params(jcfg, seed=5)
     eng._params[(ARCH, True)] = jax.tree.map(jnp.asarray, np_params)
@@ -368,7 +370,8 @@ def _port_engine(np_params, lat, cond, offload=True):
     eng = DriftServeEngine(arch=ARCH, smoke=True, bucket=BUCKET,
                            base_seed=0, device="cpu",
                            flip_source_factory=jax_replay_factory(0),
-                           offload=OffloadConfig() if offload else None)
+                           offload=OffloadConfig() if offload else None,
+                           telemetry=EngineTelemetry(enabled=False))
     eng.set_params(ARCH, True, dit.params_from_jax(np_params))
     eng.servable.batch_inputs = lambda cfg, seeds: (
         torch.from_numpy(lat.copy()), torch.from_numpy(cond.copy()).long())

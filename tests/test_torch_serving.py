@@ -211,11 +211,13 @@ def test_monitor_carries_over_only_for_drift():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("rollback_interval", "sometimes"), ("priority", "interactive"),
-    ("deadline_s", 1.0), ("energy_budget_j", 5.0), ("quality_floor", 0.5),
+    ("rollback_interval", "sometimes"), ("priority", "urgent"),
+    ("deadline_s", 0), ("energy_budget_j", -1), ("quality_floor", 1.5),
     ("rollback_interval", 0), ("mode", "dmr"), ("op", "warp-speed"),
 ])
 def test_unported_request_fields_raise_at_submit(field, value):
+    """Invalid values the reference also rejects, unported modes and
+    unknown operating points raise at submit and queue nothing."""
     eng = stub_engine()
     with pytest.raises(ValueError):
         eng.submit(steps=2, **{field: value})
