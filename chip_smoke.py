@@ -6,6 +6,8 @@
     python3 chip_smoke.py --phases device,build,kernels,ar
     python3 chip_smoke.py --phases device,build,offload
     python3 chip_smoke.py --phases device,build,sched
+    python3 chip_smoke.py --phases device,build,baselines
+    python3 chip_smoke.py --phases device,build,families
 
 Phases, each printing one JSON line with its wall time:
 
@@ -49,6 +51,10 @@ Phases, each printing one JSON line with its wall time:
                must agree. The DiT runs twice: plain drift, and with
                TaylorSeer and ``int8-body4`` for 7 steps, whose corrected
                counts, evaluations (3) and modeled joules must be equal.
+               Then the SMOKE DiT in the four Fig 12 baselines and SMOKE
+               PixArt and the SMOKE UNet in drift, the same way (latents
+               within 1e-3, counts within 1%, joules within 1e-6; dmr's
+               finals equal to the clean reference's).
 5. serve    -- ``repro_torch.launch.serve.main`` drives a full-width
                DiT-XL/2-512 engine (28 layers, random seeded weights): 2
                requests in drift/undervolt, then the same seeds in faulty
@@ -108,6 +114,25 @@ Phases, each printing one JSON line with its wall time:
                back and match the clean decode token for token. Then the
                time per decode step and a profiled request.
 
+9. baselines -- the full-width DiT-XL/2-512 serves the same 2 seeds at
+               undervolt for 10 steps in thundervolt, approx_abft, dmr
+               and stat_abft through the CLI: 1720 ``abft_matmul`` and
+               280 attention launches per run (the first run also
+               computes the clean reference: twice that, and 1720
+               rollbacks; no baseline launches the rollback kernel),
+               dmr's finals ``torch.equal`` to the clean reference's;
+               per mode PSNR against clean, corrected elements and the
+               run wall, and one evaluation's ``extra_compute_flops`` /
+               ``extra_dram_bytes`` (drift's beside them).
+10. families -- full-width PixArt-alpha (285 protected GEMMs and 28
+               attention launches per evaluation) and the SD1.5 UNet (40
+               and 5) each serve 2 requests in drift (with its clean
+               reference) and then faulty at undervolt for 10 steps:
+               exact launch counts, finite drift latents, one profiled
+               drift request each; then ``abft_matmul`` at the GEMM
+               shapes they add and ``mha_flash`` at the UNet's two
+               self-attention shapes, beside their bounds.
+
 Every DiT and olmo-1b result carries the perfmodel's attribution; each
 must bill a ledger whose ``ledger_total`` equals its ``energy_j`` bit for
 bit, drift at undervolt must bill less than its baseline, the TaylorSeer
@@ -133,7 +158,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "reference", "serve", "offload",
-          "sched", "ar")
+          "sched", "ar", "baselines", "families")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, int8 and bf16
 # tensor-core rates, float32 rate outside the tensor cores.
@@ -153,6 +178,8 @@ AR_WINDOW = 4
 TS_ARGS = ["--taylorseer", "--precision", "int8-body4"]
 TS_KNOBS = dict(taylorseer=True, precision="int8-body4")
 TS_STEPS_SMOKE, TS_EVALS_SMOKE = 7, 3       # computes steps 0, 3, 6
+BASELINE_MODES = ("thundervolt", "approx_abft", "dmr", "stat_abft")
+FAMILY_ARCHS = ("pixart-alpha", "sd15-unet")
 OFFLOAD_INTERVAL = 2        # refresh interval and stream window
 STEADY_BATCHES = 3          # batches after an offload engine's first
 TIMERS = set()          # which timer produced the kernel times
@@ -695,12 +722,24 @@ def _perturb(torch, params, cfg, seed: int, device):
     return params
 
 
+def _perturb_any(torch, params, cfg, seed: int, device):
+    """``_perturb`` for the DiT family; for the UNet a small seeded
+    ``conv_out`` (zero at init, so eps = 0)."""
+    if cfg.family != "unet":
+        return _perturb(torch, params, cfg, seed, device)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    params["conv_out"] = 0.05 * torch.randn(params["conv_out"].shape,
+                                            generator=g, device=device)
+    return params
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
-    return tree.to(device)
+    return None if tree is None else tree.to(device)
 
 
 def check_energy(path, mode, results):
@@ -824,7 +863,96 @@ def phase_reference(torch):
                 lm_detections_card=da,
                 lm_detections_cpu=db,
                 lm_rollbacks=lm_out["cpu"][0].ar_rollbacks,
-                lm_tokens=[list(r.tokens) for r in lm_out["cpu"]])
+                lm_tokens=[list(r.tokens) for r in lm_out["cpu"]],
+                slice8=_reference_slice8(torch, engine, cpu_params, lat))
+
+
+def _reference_slice8(torch, engine, dit_params, lat):
+    """The SMOKE DiT in the four Fig 12 baselines, and SMOKE PixArt and
+    the SMOKE UNet in drift, on the card and on the CPU with the same
+    params, inputs and masks, 3 steps at undervolt. Per request: latents
+    within 1e-3 (f32 on both sides, sums in other orders; an int8 rounding
+    may tip at a boundary) and corrected counts within 1% of each other,
+    as for drift above; modeled joules within 1e-6 relative (they read
+    the count). The UNet's rollback sets differ by a few tile rows
+    (ROADMAP Queue C 13), which moves a few latents by up to ~1e-2 and
+    their mean by ~2e-4: its latents are held within 2e-2 everywhere and
+    1e-3 on average. dmr corrects nothing and its finals equal the clean
+    reference's. cuDNN's TF32 is off for the UNet's f32 convolutions."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import dit, unet
+    fam_lat = {"pixart-alpha": lat,
+               "sd15-unet": torch.randn((2, 16, 16, 4), generator=torch.
+                                        Generator().manual_seed(7))}
+    runs = [(ARCH, mode) for mode in BASELINE_MODES] + [
+        (a, "drift") for a in FAMILY_ARCHS]
+    params = {ARCH: dit_params}
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        model = unet if cfg.family == "unet" else dit
+        params[arch] = _perturb_any(torch, model.init_params(cfg, 3), cfg,
+                                    4, "cpu")
+    text = torch.randn((2, 8, 32), generator=torch.Generator().manual_seed(
+        8)) * 0.1
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for device in ("cuda", "cpu"):
+            for arch, mode in runs:
+                eng = engine(arch, device, params[arch])
+                if arch == ARCH:
+                    eng.servable.batch_inputs = lambda c, seeds, d=device: (
+                        lat.to(d), torch.tensor([1, 2], device=d))
+                else:
+                    eng.servable.batch_inputs = \
+                        lambda c, seeds, d=device, a=arch: (
+                            fam_lat[a].to(d), None, text.to(d))
+                for s in (0, 1):
+                    eng.submit(arch=arch, steps=3, mode=mode, op="undervolt",
+                               seed=s)
+                res = eng.run()
+                (clean,) = eng._clean_samples.values()
+                out[(device, arch, mode)] = (res, clean.cpu())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    rows = []
+    for arch, mode in runs:
+        (a, ca), (b, cb) = out[("cuda", arch, mode)], out[("cpu", arch,
+                                                           mode)]
+        tol, mean_tol = (2e-2, 1e-3) if arch == "sd15-unet" else (1e-3,
+                                                                   1e-3)
+        for x, y in zip(a, b):
+            diff = (x.latents.cpu() - y.latents).abs()
+            err, mean_err = float(diff.max()), float(diff.mean())
+            n_a, n_b = x.batch_corrected_elems, y.batch_corrected_elems
+            if not (err < tol and mean_err <= mean_tol
+                    and abs(n_a - n_b) <= 0.01 * max(n_b, 1)
+                    and abs(x.energy_j - y.energy_j) <= 1e-6 * y.energy_j
+                    and x.n_model_evals == y.n_model_evals == 3):
+                raise AssertionError(
+                    f"SMOKE {arch} {mode} card vs CPU: latents max err "
+                    f"{err} (mean {mean_err}), corrected {n_a} vs {n_b}, "
+                    f"energy {x.energy_j} vs {y.energy_j}")
+            if (mode == "dmr") != (n_b == 0):
+                raise AssertionError(f"SMOKE {arch} {mode}: corrected {n_b}")
+            if mode == "dmr":
+                slot = x.request_id % 2
+                if not (torch.equal(x.latents.cpu(), ca[slot])
+                        and torch.equal(y.latents, cb[slot])):
+                    raise AssertionError("SMOKE dmr finals differ from the "
+                                         "clean reference's")
+            for r, dev in ((x, "cuda"), (y, "cpu")):
+                check_energy("reference", f"{arch} {mode} ({dev})", [r])
+            rows.append(dict(arch=arch, mode=mode, request_id=x.request_id,
+                             latents_max_abs_err=err,
+                             latents_mean_abs_err=mean_err,
+                             corrected_card=n_a,
+                             corrected_cpu=n_b, energy_j_card=x.energy_j,
+                             energy_j_cpu=y.energy_j,
+                             counts_equal=n_a == n_b,
+                             joules_equal=x.energy_j == y.energy_j))
+    return rows
 
 
 def phase_serve(torch):
@@ -1709,6 +1837,311 @@ def _profile_ar(torch, eng, argv):
                      for us, k, c in rows[:12]])
 
 
+def _serve_counted(torch, serve, eng, argv, counters):
+    """One ``serve.main`` run with every launch counter zeroed just before
+    and read just after: (results, launches, wall seconds)."""
+    for mod in counters.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    res = serve.main(argv, engine=eng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, {k: mod.launches for k, mod in counters.items()}, wall
+
+
+def _counters():
+    from repro_torch.kernels import abft_matmul as ak
+    from repro_torch.kernels import fault_inject as fik
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import rollback_correct as rk
+    return {"abft_matmul": ak, "rollback_correct": rk,
+            "flash_attention": fk, "fault_inject": fik}
+
+
+def _add_launches(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_baselines(torch):
+    """The full-width DiT-XL/2-512 serves the same 2 seeds at undervolt for
+    10 steps in each Fig 12 baseline through the CLI, counters zeroed
+    around each run. The first run also computes the clean reference
+    (drift at BER 0); no baseline launches the rollback kernel. dmr's
+    finals must equal the clean reference's bit for bit (the same
+    arithmetic on the same kernels: c ^ flips is the clean accumulator).
+    Then one evaluation per mode, drift included, at the first undervolted
+    step with the engine's masks, for its recovery costs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import dvfs
+    from repro_torch.core.exec_ctx import DriftSystemConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import dit
+    from repro_torch.serving import DriftServeEngine
+
+    dev = torch.device("cuda")
+    cfg = get_config(ARCH)
+    eng = DriftServeEngine(arch=ARCH, smoke=False, bucket=BUCKET,
+                           device="cuda")
+    params = _perturb(torch, dit.init_params(cfg, 11, dev), cfg, 12, dev)
+    eng.set_params(ARCH, False, params)
+    argv = ["--arch", ARCH, "--no-smoke", "--batch", str(BUCKET),
+            "--steps", str(SERVE_STEPS), "--requests", "2", "--op",
+            "undervolt", "--device", "cuda"]
+    counters = _counters()
+    gemms = sum(p[4] for p in path_gemms(cfg, BUCKET))          # 172
+    total, modes, energy = {}, {}, []
+    for i, mode in enumerate(BASELINE_MODES):
+        res, launches, wall = _serve_counted(
+            torch, serve, eng, argv + ["--mode", mode], counters)
+        runs = 1 if i else 2                  # + the clean reference
+        want = {"abft_matmul": gemms * SERVE_STEPS * runs,
+                "rollback_correct": gemms * SERVE_STEPS * (runs - 1),
+                "flash_attention": cfg.n_layers * SERVE_STEPS * runs,
+                "fault_inject": 0}
+        if launches != want:
+            raise AssertionError(f"{mode} launch counts {launches} != "
+                                 f"{want}")
+        _add_launches(total, launches)
+        (clean,) = eng._clean_samples.values()
+        reqs = []
+        for slot, r in enumerate(res):
+            if r.n_model_evals != SERVE_STEPS or r.mode != mode:
+                raise AssertionError(f"{mode} request {r.request_id}: "
+                                     f"{r.n_model_evals} evaluations")
+            if mode == "dmr" and not (torch.equal(r.latents, clean[slot])
+                                      and r.batch_corrected_elems == 0):
+                raise AssertionError("dmr finals differ from the clean "
+                                     "reference's")
+            if mode != "dmr" and r.batch_corrected_elems <= 0:
+                raise AssertionError(f"{mode} corrected nothing")
+            reqs.append(dict(request_id=r.request_id,
+                             psnr_vs_clean_db=r.psnr_vs_clean_db,
+                             lpips_vs_clean=r.lpips_vs_clean,
+                             batch_corrected_elems=r.batch_corrected_elems,
+                             finite=bool(torch.isfinite(r.latents).all()),
+                             equal_to_clean=bool(torch.equal(
+                                 r.latents, clean[slot]))))
+        energy += check_energy("baselines", mode, res)
+        modes[mode] = dict(run_s=wall, launches=launches, requests=reqs)
+
+    # One evaluation per mode at the first undervolted step.
+    step = eng.nominal_steps
+    ber = dvfs.fine_grained_schedule(
+        SERVE_STEPS, dvfs.UNDERVOLT,
+        nominal_steps=eng.nominal_steps).ber_table[step]
+    latents, cond = eng.servable.batch_inputs(cfg, [0, 1])
+    t = torch.full((BUCKET,), 500.0, device=dev)
+    for mode in ("drift",) + BASELINE_MODES:
+        embed, block = dit.drift_store_spec(cfg, BUCKET, dev)
+        ds = dit.DriftState(cfg=DriftSystemConfig(mode=mode),
+                            flip_source=eng.flip_source_factory(0),
+                            step=step, ber_by_class=ber, embed_store=embed,
+                            block_store=block, have_ckpt=True)
+        with torch.no_grad():
+            _, st = dit.forward(cfg, params, latents, t, cond, drift=ds)
+        modes.setdefault(mode, {})["per_eval"] = dict(
+            step=step, corrected_elems=int(st["corrected_elems"]),
+            detected_row_errors=int(st["detected_row_errors"]),
+            extra_compute_flops=float(st["extra_compute_flops"]),
+            extra_dram_bytes=float(st["extra_dram_bytes"]))
+        del embed, block
+    return dict(arch=ARCH, bucket=BUCKET, steps=SERVE_STEPS, modes=modes,
+                launches=total, energy=energy,
+                note="per_eval: one evaluation at the first undervolted "
+                     "step, the engine's batch-0 masks, stores at zero; "
+                     "extra_compute_flops / extra_dram_bytes are the "
+                     "reference's modeled recovery costs (core.baselines)")
+
+
+def _family_counts(cfg):
+    """(protected GEMMs, attention-kernel launches) per evaluation."""
+    from repro_torch.models import unet
+    if cfg.family == "unet":
+        return unet.protected_gemms(cfg), len(unet.attention_sites(cfg))
+    per_block = 6 + (4 if cfg.cond_tokens else 0)
+    embed = 4 + (1 if cfg.cond_tokens else 0)
+    return cfg.n_layers * per_block + embed, cfg.n_layers
+
+
+# (label, M, K, N) of the protected GEMMs the DiT path does not have, at
+# bucket 2, M and N padded to the 32x32 checksum tile as the kernel sees
+# them; and the UNet's self-attention calls (B, S, H, D).
+FAMILY_GEMMS = (("pixart text", 256, 4096, 1152),
+                ("pixart xattn.k/v", 256, 1152, 1152),
+                ("unet 32x32 q/k/v/o", 2048, 640, 640),
+                ("unet 16x16 q/k/v/o", 512, 1280, 1280),
+                ("unet cross.k/v 640", 160, 768, 640),
+                ("unet cross.k/v 1280", 160, 768, 1280))
+FAMILY_ATTN = ((2, 1024, 10, 64), (2, 256, 20, 64))
+
+
+def _family_kernel_rows(torch, reps: int):
+    """``abft_matmul`` at ``FAMILY_GEMMS`` (flips at BER 3e-3 plus a bit-31
+    flip; all five outputs bit-equal to the plain version) and
+    ``mha_flash`` at ``FAMILY_ATTN`` in bf16 (within 1e-2 of the plain
+    version): device ms per launch beside the bound, the plain version's
+    ms and the library call's (``torch._int_mm``, the bare product, and
+    SDPA)."""
+    import torch.nn.functional as F
+    from repro_torch.core import fault
+    from repro_torch.kernels import abft_matmul as ak
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.models.attention import full_attention
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(20261017)
+    src = fault.PhiloxFlipSource(base_seed=9, batch_index=0, device=dev)
+    gemm_rows, attn_rows = [], []
+    for i, (name, m, k, n) in enumerate(FAMILY_GEMMS):
+        aq = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                           dtype=torch.int8)
+        bq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                           dtype=torch.int8)
+        flips = src(fault.FaultSite(0, i, name), (m, n), 3e-3)
+        flips[m // 2, n // 3] = -2 ** 31
+        got = ak.abft_matmul(aq, bq, flips)
+        want = ak.abft_matmul_plain(aq, bq, flips)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"abft_matmul {name} differs from its "
+                                 "plain version")
+        mt, nt = m // 32, n // 32
+        bytes_ = (m * k + k * n + 4 * m * n + 4 * m * n + 8 * m * nt
+                  + 8 * mt * n)
+        ops = 2 * m * n * k + 2 * m * k * nt + 2 * mt * k * n
+        t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+        ring = ring_of((aq, bq, flips), bytes_)
+        try:
+            int_mm = device_ms(torch._int_mm, [r[:2] for r in ring], reps)
+        except RuntimeError:                       # shape it does not take
+            int_mm = None
+        gemm_rows.append(dict(
+            name=name, m=m, k=k, n=n, max_abs_err=max_abs_err(got, want),
+            ms=device_ms(ak.abft_matmul, ring, reps, "abft_matmul"),
+            plain_ms=device_ms(ak.abft_matmul_plain, ring,
+                               max(1, reps // 4)),
+            bound_ms=1e3 * max(t_b, t_o),
+            bound_by="bytes" if t_b >= t_o else "operations",
+            int_mm_ms=int_mm))
+        del ring
+
+    def plain(q_, k_, v_):
+        return full_attention(q_, k_, v_, causal=False)
+    for shape in FAMILY_ATTN:
+        b, s_, h, d = shape
+        q, k, v = (torch.randn(shape, generator=g, device=dev
+                               ).to(torch.bfloat16) for _ in range(3))
+        got = fk.mha_flash(q, k, v)
+        want = plain(q, k, v)
+        torch.cuda.synchronize()
+        if not torch.allclose(got.float(), want.float(), atol=1e-2,
+                              rtol=1e-2):
+            raise AssertionError(f"mha_flash at {shape}: max abs err "
+                                 f"{max_abs_err([got], [want])}")
+        flops = 4 * b * h * s_ * s_ * d
+        bytes_ = 4 * q.numel() * q.element_size()
+        t_o, t_b = flops / BF16_FLOPS_PER_S, bytes_ / HBM_BYTES_PER_S
+        ring = ring_of((q, k, v), bytes_)
+        lib_ring = [tuple(x.transpose(1, 2) for x in r) for r in ring]
+        attn_rows.append(dict(
+            shape=list(shape), dtype="bfloat16",
+            max_abs_err=max_abs_err([got], [want]),
+            ms=device_ms(fk.mha_flash, ring, reps, "flash_attention"),
+            plain_ms=device_ms(plain, ring, reps),
+            library_ms=device_ms(F.scaled_dot_product_attention, lib_ring,
+                                 reps),
+            bound_ms=1e3 * max(t_o, t_b),
+            bound_by="operations" if t_o >= t_b else "bytes"))
+        del ring, lib_ring
+    return gemm_rows, attn_rows
+
+
+def phase_families(torch, reps: int):
+    """Full-width PixArt-alpha (28 layers, d 1152, 120 x 4096 stub text)
+    and the SD1.5 UNet (channels 320/640/1280, 64 x 64 latents, 77 x 768
+    stub text) each serve 2 requests through the CLI in drift and then in
+    faulty at undervolt for 10 steps, counters zeroed around each run:
+    exact launch counts per evaluation, finite drift latents, each
+    result's ledger. Then a profiled drift request per arch, and the
+    kernels at the GEMM and attention shapes these archs add."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import dit, unet
+    from repro_torch.serving import DriftServeEngine
+
+    dev = torch.device("cuda")
+    counters = _counters()
+    total, archs, energy = {}, {}, []
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        model = unet if cfg.family == "unet" else dit
+        t0 = time.perf_counter()
+        eng = DriftServeEngine(arch=arch, smoke=False, bucket=BUCKET,
+                               device="cuda")
+        eng.set_params(arch, False, _perturb_any(
+            torch, model.init_params(cfg, 11, dev), cfg, 12, dev))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        argv = ["--arch", arch, "--no-smoke", "--batch", str(BUCKET),
+                "--steps", str(SERVE_STEPS), "--requests", "2", "--op",
+                "undervolt", "--device", "cuda"]
+        gemms, attn = _family_counts(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        runs, reqs = {}, []
+        for mode in ("drift", "faulty"):
+            res, launches, wall = _serve_counted(
+                torch, serve, eng, argv + ["--mode", mode], counters)
+            passes = 2 if mode == "drift" else 1    # + clean reference
+            want = {"abft_matmul": gemms * SERVE_STEPS * passes,
+                    "rollback_correct": (gemms * SERVE_STEPS * 2
+                                         if mode == "drift" else 0),
+                    "flash_attention": attn * SERVE_STEPS * passes,
+                    "fault_inject": 0}
+            if launches != want:
+                raise AssertionError(f"{arch} {mode} launch counts "
+                                     f"{launches} != {want}")
+            _add_launches(total, launches)
+            runs[mode] = dict(run_s=wall, launches=launches)
+            for r in res:
+                finite = bool(torch.isfinite(r.latents).all())
+                if mode == "drift" and not (
+                        finite and r.batch_corrected_elems > 0
+                        and r.n_model_evals == SERVE_STEPS):
+                    raise AssertionError(
+                        f"{arch} drift request {r.request_id}: finite "
+                        f"{finite}, corrected {r.batch_corrected_elems}")
+                if mode == "faulty" and r.batch_corrected_elems != 0:
+                    raise AssertionError(f"{arch} faulty corrected")
+                reqs.append(dict(mode=mode, request_id=r.request_id,
+                                 psnr_vs_clean_db=r.psnr_vs_clean_db,
+                                 lpips_vs_clean=r.lpips_vs_clean,
+                                 batch_corrected_elems=r.
+                                 batch_corrected_elems,
+                                 monitor_ber=r.monitor_ber, finite=finite,
+                                 detect_rows=len(r.detect_heatmap)))
+            energy += check_energy("families", f"{arch} {mode}", res)
+        for clean in eng._clean_samples.values():
+            if not bool(torch.isfinite(clean).all()):
+                raise AssertionError(f"{arch}: non-finite clean reference")
+        archs[arch] = dict(
+            layers=cfg.n_layers, d_model=cfg.d_model,
+            unet_channels=list(cfg.unet_channels),
+            cond=[cfg.cond_tokens, cfg.cond_dim], setup_s=setup_s,
+            gemms_per_eval=gemms, attention_per_eval=attn, runs=runs,
+            requests=reqs, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+            breakdown=_profile_request(torch, eng, argv))
+        del eng
+    gemm_rows, attn_rows = _family_kernel_rows(torch, reps)
+    return dict(bucket=BUCKET, steps=SERVE_STEPS, archs=archs,
+                launches=total, energy=energy,
+                abft_matmul_shapes=gemm_rows, mha_flash_shapes=attn_rows,
+                note="abft_matmul_shapes: the GEMM shapes PixArt and the "
+                     "UNet add (M, N padded to the tile); int_mm_ms is the "
+                     "bare int8 product, a yardstick; mha_flash_shapes: "
+                     "the UNet's self-attention, library_ms bf16 SDPA")
+
+
 def kernel_summary(kernels_out, path_launches):
     """One row per TPU kernel of the repo. ``launches`` sums the counts
     of the paths that ran (``launches_by_path``). ``mha_flash`` launches
@@ -1840,11 +2273,14 @@ def main(argv=None) -> int:
                            + phase_kernels_ar(torch, args.reps))
         elif phase == "reference":
             rec.update(phase_reference(torch))
-        elif phase in ("serve", "offload", "sched", "ar"):
+        elif phase in ("serve", "offload", "sched", "ar", "baselines",
+                       "families"):
             out = (phase_serve(torch) if phase == "serve"
                    else phase_offload(torch, smi) if phase == "offload"
                    else phase_sched(torch, smi) if phase == "sched"
-                   else phase_ar(torch))
+                   else phase_ar(torch) if phase == "ar"
+                   else phase_baselines(torch) if phase == "baselines"
+                   else phase_families(torch, args.reps))
             path_launches[phase] = out["launches"]
             if phase == "serve":
                 path_launches["serve+taylorseer"] = \

@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``get_config(arch, smoke=False)``.
 
-``dit-xl-512`` (diffusion) and ``olmo-1b`` (autoregressive, dense) are
-ported; any other arch the JAX registry knows raises, naming the ROADMAP
-queue item that ports it.
+``dit-xl-512``, ``pixart-alpha`` and ``sd15-unet`` (diffusion) and
+``olmo-1b`` (autoregressive, dense) are ported; any other arch the JAX
+registry knows raises, naming the ROADMAP queue item that ports it.
 """
 from __future__ import annotations
 
@@ -13,13 +13,13 @@ from repro_torch.models.common import ModelConfig
 
 _MODULES: Dict[str, str] = {
     "dit-xl-512": "dit_xl_512",
+    "pixart-alpha": "pixart_alpha",
+    "sd15-unet": "sd15_unet",
     "olmo-1b": "olmo_1b",
 }
 
 # Archs of the JAX registry that a later slice ports (ROADMAP Queue A).
 _NOT_YET_PORTED: Dict[str, str] = {
-    "pixart-alpha": "Queue A item 12 (other families; PixArt cross-attention)",
-    "sd15-unet": "Queue A item 12 (other families)",
     "gemma3-27b": "Queue A item 12 (other families; GQA, sliding windows)",
     "gemma2-9b": "Queue A item 12 (other families; GQA, softcaps)",
     "glm4-9b": "Queue A item 12 (other families; GQA)",

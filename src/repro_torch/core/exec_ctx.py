@@ -4,22 +4,33 @@ Counterpart of ``repro.core.exec_ctx``. Models call
 ``ctx.matmul(x, w, name=..., rclass=...)``; the context picks, per call,
 the float or the quantized INT8->INT32 path, the BER of the GEMM's
 resilience class at this step, the flip mask, and the detection and
-correction strategy. Modes ``float_clean``, ``clean``, ``faulty`` and
-``drift`` are ported; the Fig 12 baselines are not yet.
+correction strategy: ``float_clean``, ``clean``, ``faulty``, ``drift``
+and the Fig 12 baselines ``thundervolt``, ``approx_abft``, ``dmr`` and
+``stat_abft`` (``core.baselines``).
 
 Every quantized GEMM runs through the hand-written ABFT kernel
 (``kernels.abft_matmul``), and ``drift`` also through the rollback kernel
 (``kernels.rollback_correct``); both take their plain versions on the CPU.
-Flip masks come from the context's *flip source* (``core.fault``), keyed by
-``FaultSite(step, scope, name)``; a GEMM whose class runs at BER 0 gets an
-all-zero mask without drawing.
+The baselines need no second pass: the full-row and full-column checksum
+differences of ``detect_int`` are sums of the kernel's per-tile ones
+(mod 2^32), the per-tile flag of ``tile_error_mask`` is the
+any of its rows and columns (``abft.tile_flags``), and the clean
+accumulator is ``c ^ flips``, bit for bit, so ``dmr`` and ``stat_abft``
+dequantize the reference's clean product without a second GEMM (DMR's
+doubled compute is a modeled cost, not a launch). Their masks are
+full-matrix or whole-tile, in plain PyTorch as in the reference.
+Flip masks come from the context's *flip source* (``core.fault``), keyed
+by ``FaultSite(step, scope, name)``; a GEMM whose class runs at BER 0 gets
+an all-zero mask without drawing.
 
 Unlike the reference, the context is not rebuilt inside a trace: PyTorch
 runs eagerly. ``state_in`` maps GEMM names to (rows, N) f32 checkpoints,
 and ``drift`` refreshes them *in place* on refresh steps (the reference
 returns a new store; writing into the existing buffer saves one
-activation-sized copy per GEMM). Statistics stay on the device, so the step
-loop never waits for the card.
+activation-sized copy per GEMM); the other modes write none. Statistics
+stay on the device, so the step loop never waits for the card; the
+recovery costs ``extra_compute_flops`` and ``extra_dram_bytes`` are
+float32 sums in the reference's order.
 """
 from __future__ import annotations
 
@@ -31,14 +42,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import abft as abft_lib
-from repro_torch.core import fault, quant, rollback
+from repro_torch.core import baselines, fault, quant, rollback
 from repro_torch.core.dvfs import CLASS_BODY, N_CLASSES
 from repro_torch.kernels.abft_matmul import TILE, abft_matmul
 from repro_torch.kernels.rollback_correct import rollback_correct
 
 MODES = ("float_clean", "clean", "faulty", "drift",
          "thundervolt", "approx_abft", "dmr", "stat_abft")
-PORTED_MODES = ("float_clean", "clean", "faulty", "drift")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,23 +58,21 @@ class DriftSystemConfig:
         default_factory=abft_lib.AbftConfig)
     rollback: rollback.RollbackConfig = dataclasses.field(
         default_factory=rollback.RollbackConfig)
+    protect_attention_gemms: bool = False   # also wrap bmm's slices
     double_flip: bool = False
-    force_bit: int = -1
+    force_bit: int = -1                     # pin flipped bit (Sec 4.1)
 
     def __post_init__(self):
         if self.mode not in MODES:
             raise ValueError(f"unknown DRIFT mode {self.mode!r}; one of "
                              f"{MODES}")
-        if self.mode not in PORTED_MODES:
-            raise NotImplementedError(
-                f"mode {self.mode!r} is not yet ported to repro_torch "
-                "(ROADMAP Queue A item 4, baselines); ported: "
-                f"{PORTED_MODES}")
         if (self.abft.tile_m, self.abft.tile_n) != (TILE, TILE):
             raise ValueError(
                 f"the ABFT kernel's checksum tile is {TILE}x{TILE}, got "
                 f"({self.abft.tile_m}, {self.abft.tile_n})")
-        fault.check_flip_options(self.double_flip, self.force_bit)
+        if not -1 <= self.force_bit <= 31:
+            raise ValueError(f"force_bit must be -1 (off) or a bit 0..31, "
+                             f"got {self.force_bit}")
 
 
 def _pad2(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -100,7 +108,9 @@ class ExecContext:
                                              else {})
         self.have_ckpt = bool(have_ckpt)
         self.stats: Dict[str, object] = {
-            "detected_row_errors": 0, "corrected_elems": 0, "gemm_words": 0}
+            "detected_row_errors": 0, "corrected_elems": 0,
+            "extra_compute_flops": 0.0, "extra_dram_bytes": 0.0,
+            "gemm_words": 0}
 
     # ------------------------------------------------------------------
     def _flips(self, name: str, shape, ber: float, device) -> torch.Tensor:
@@ -110,7 +120,12 @@ class ExecContext:
             raise ValueError(f"GEMM {name!r} runs at BER {ber} but the "
                              "context has no flip source")
         site = fault.FaultSite(self.step, self.scope, name)
-        flips = self.flip_source(site, tuple(shape), ber)
+        opts = {}
+        if self.cfg.double_flip:
+            opts["double_flip"] = True
+        if self.cfg.force_bit >= 0:
+            opts["force_bit"] = self.cfg.force_bit
+        flips = self.flip_source(site, tuple(shape), ber, **opts)
         if flips.dtype != torch.int32 or tuple(flips.shape) != tuple(shape):
             raise ValueError(f"flip source gave {flips.dtype} "
                              f"{tuple(flips.shape)} for {tuple(shape)}")
@@ -141,28 +156,79 @@ class ExecContext:
         if self.cfg.mode in ("clean", "faulty"):
             return y.reshape(*lead, n).to(x.dtype)
 
-        # drift: ABFT detection on the kernel's per-tile checksums.
+        # ABFT detection on the kernel's per-tile checksums: summed over
+        # the N tiles, the per-tile row differences are the full-row
+        # differences of detect_int, exactly (mod 2^32).
+        abft_cfg = self.cfg.abft
         row_diff = abft_lib.wrap_i32(act_row.long() - exp_row.long())
         col_diff = abft_lib.wrap_i32(act_col.long() - exp_col.long())
-        thr = self.cfg.abft.threshold
-        # Summed over the N tiles, the per-tile row differences are the
-        # full-row differences of detect_int, exactly (mod 2^32).
-        full_row = abft_lib.wrap_i32(row_diff.long().sum(1))
+        full_row = abft_lib.wrap_i32(row_diff.long().sum(1))[:m]
         self._bump("detected_row_errors",
-                   abft_lib._exceeds(full_row[:m], thr).sum())
+                   abft_lib._exceeds(full_row, abft_cfg.threshold).sum())
         self._bump("gemm_words", m * n)
 
-        union = self.cfg.abft.mask_policy != "cross"
-        ckpt = rollback.effective_checkpoint(y, self.state_in.get(name),
-                                             self.have_ckpt)
-        # The kernel counts the masked elements of the unpadded region.
-        y_corr, tile_count = rollback_correct(
-            _pad2(y, mp, np_), _pad2(ckpt, mp, np_), row_diff, col_diff, thr,
-            union=union, valid=(m, n))
-        self._bump("corrected_elems", tile_count.sum())
-        y = y_corr[:m, :n]
-        self._write_ckpt(name, y)
+        mode = self.cfg.mode
+        if mode == "drift":
+            ckpt = rollback.effective_checkpoint(y, self.state_in.get(name),
+                                                 self.have_ckpt)
+            # The kernel counts the masked elements of the unpadded region;
+            # a tile is flagged exactly where its count is positive.
+            y_corr, tile_count = rollback_correct(
+                _pad2(y, mp, np_), _pad2(ckpt, mp, np_), row_diff, col_diff,
+                abft_cfg.threshold, union=abft_cfg.mask_policy != "cross",
+                valid=(m, n))
+            y = y_corr[:m, :n]
+            # DRAM cost: one repacked-tile read per flagged tile.
+            tile_bytes = abft_cfg.tile_m * abft_cfg.tile_n * 4
+            cost = baselines.RecoveryCost(
+                0.0, (tile_count > 0).float().sum() * tile_bytes,
+                tile_count.sum())
+            self._write_ckpt(name, y)
+        elif mode in ("thundervolt", "approx_abft"):
+            # detect_int's report: the column differences summed over the
+            # M tiles as the rows' over the N tiles.
+            report = abft_lib.report_from_diffs(
+                full_row, abft_lib.wrap_i32(col_diff.long().sum(0))[:n],
+                abft_cfg)
+            strategy = (baselines.thundervolt if mode == "thundervolt"
+                        else baselines.approx_abft)
+            y, cost = strategy(y, report)
+        else:
+            # c ^ flips is the clean accumulator, bit for bit.
+            y_clean = quant.dequantize_matmul((c ^ flips)[:m, :n],
+                                              xq.scale, w_scale)
+            if mode == "dmr":
+                y, cost = baselines.dmr(
+                    y_clean, abft_lib._exceeds(full_row,
+                                               abft_cfg.threshold).sum(),
+                    gemm_flops=2.0 * m * k * n)
+            else:  # stat_abft
+                y, cost = baselines.stat_abft(
+                    y_clean, y, abft_lib.tile_flags(row_diff, col_diff,
+                                                    abft_cfg),
+                    tile_elems=abft_cfg.tile_m * abft_cfg.tile_n, k_dim=k)
+        self._bump("corrected_elems", cost.corrected_elems)
+        self._bump("extra_compute_flops", cost.extra_compute_flops)
+        self._bump("extra_dram_bytes", cost.extra_dram_bytes)
         return y.reshape(*lead, n).to(x.dtype)
+
+    def bmm(self, a: torch.Tensor, b: torch.Tensor, *, name: str,
+            rclass: int = CLASS_BODY) -> torch.Tensor:
+        """Batched GEMM (attention scores / mixing), ``a (..., M, K) @
+        b (..., K, N)``. Protected only with ``protect_attention_gemms``:
+        then one protected ``matmul`` per leading slice ``i``, named
+        ``f"{name}.{i}"``. No model calls it by default, as in the
+        reference."""
+        if (self.cfg.mode == "float_clean"
+                or not self.cfg.protect_attention_gemms):
+            return a @ b
+        lead = a.shape[:-2]
+        a2 = a.reshape((-1,) + tuple(a.shape[-2:]))
+        b2 = b.reshape((-1,) + tuple(b.shape[-2:]))
+        y = torch.stack([self.matmul(a2[i], b2[i], name=f"{name}.{i}",
+                                     rclass=rclass)
+                         for i in range(a2.shape[0])])
+        return y.reshape(*lead, *y.shape[-2:])
 
     # ------------------------------------------------------------------
     def _write_ckpt(self, name: str, y: torch.Tensor) -> None:

@@ -14,14 +14,21 @@ replays the reference's masks bit for bit.
 
 ``inject_f32`` applies a mask to the raw bits of f32 words (the
 autoregressive path's un-quantized GEMM outputs) through the hand-written
-injection kernel (``kernels.fault_inject``). ``double_flip`` and
-``force_bit`` (Sec 4 sweeps) are not yet ported.
+injection kernel (``kernels.fault_inject``).
+
+The Sec 4 sweep options ride each draw as keywords, as in the reference's
+``_flip_words``: ``force_bit >= 0`` pins the flipped position and reads
+``ber`` as the per-word rate; ``double_flip`` makes a second draw, at
+``clip(15.5 * ber, 0, 1)``, on the words already flipped. ``ExecContext``
+passes them to its flip source only when they are set, so a source that
+takes ``(site, shape, ber)`` alone still serves the default options.
 """
 from __future__ import annotations
 
 import zlib
 from typing import Callable, NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.fault_inject import fault_inject
@@ -34,7 +41,8 @@ class FaultSite(NamedTuple):
     name: str      # GEMM name ("attn.q", "mlp.w1", "patch", ...)
 
 
-FlipSource = Callable[[FaultSite, Sequence[int], float], torch.Tensor]
+# (site, shape, ber[, double_flip=..., force_bit=...]) -> int32 mask
+FlipSource = Callable[..., torch.Tensor]
 
 
 def site_id(name: str) -> int:
@@ -48,24 +56,34 @@ def word_flip_prob(ber: float, bits: int = 32) -> float:
     return float(-torch.expm1(bits * torch.log1p(-b)))
 
 
-def check_flip_options(double_flip: bool = False, force_bit: int = -1):
-    if double_flip or force_bit >= 0:
-        raise NotImplementedError(
-            "double_flip/force_bit are not yet ported to repro_torch "
-            "(ROADMAP Queue A item 4, baselines slice)")
-
-
 def draw_flips(shape: Sequence[int], ber: float, generator: torch.Generator,
-               device) -> torch.Tensor:
+               device, double_flip: bool = False,
+               force_bit: int = -1) -> torch.Tensor:
     """One int32 flip mask of ``shape`` at ``ber``: a word flips when its
-    uniform draw is below ``word_flip_prob(ber)``, at a uniform bit."""
-    p = word_flip_prob(ber)
-    u = torch.rand(tuple(shape), generator=generator, device=device)
-    pos = torch.randint(0, 32, tuple(shape), generator=generator,
-                        device=device, dtype=torch.int32)
+    uniform draw is below ``word_flip_prob(ber)``, at a uniform bit; with
+    ``force_bit >= 0`` when it is below ``ber`` itself, at that bit; with
+    ``double_flip`` a flipped word flips a second uniform bit with
+    probability ``clip(15.5 * ber, 0, 1)`` (the same bit twice cancels,
+    as in the reference)."""
+    shape = tuple(shape)
     # 1 << 31 wraps to INT32_MIN, the bit-31 pattern.
     one = torch.ones((), dtype=torch.int32, device=device)
-    return torch.where(u < p, torch.bitwise_left_shift(one, pos), 0)
+    u = torch.rand(shape, generator=generator, device=device)
+    if force_bit >= 0:
+        bit = torch.bitwise_left_shift(one, int(force_bit))
+        return torch.where(u < float(np.float32(ber)), bit, 0)
+    flip = u < word_flip_prob(ber)
+    pos = torch.randint(0, 32, shape, generator=generator, device=device,
+                        dtype=torch.int32)
+    mask = torch.where(flip, torch.bitwise_left_shift(one, pos), 0)
+    if double_flip:
+        p2 = float(np.clip(np.float32(15.5) * np.float32(ber), 0.0, 1.0))
+        u2 = torch.rand(shape, generator=generator, device=device)
+        pos2 = torch.randint(0, 32, shape, generator=generator,
+                             device=device, dtype=torch.int32)
+        mask ^= torch.where(flip & (u2 < p2),
+                            torch.bitwise_left_shift(one, pos2), 0)
+    return mask
 
 
 def inject_f32(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -108,14 +126,16 @@ class PhiloxFlipSource:
         return mix64(self.base_seed, self.batch_index, site.step, site.scope,
                       site_id(site.name))
 
-    def __call__(self, site: FaultSite, shape: Sequence[int],
-                 ber: float) -> torch.Tensor:
+    def __call__(self, site: FaultSite, shape: Sequence[int], ber: float,
+                 double_flip: bool = False,
+                 force_bit: int = -1) -> torch.Tensor:
         if not ber > 0.0:
             return torch.zeros(tuple(shape), dtype=torch.int32,
                                device=self.device)
         g = torch.Generator(device=self.device)
         g.manual_seed(self.seed_for(site))
-        return draw_flips(shape, ber, g, self.device)
+        return draw_flips(shape, ber, g, self.device, double_flip,
+                          force_bit)
 
 
 def philox_source_factory(base_seed: int, device):

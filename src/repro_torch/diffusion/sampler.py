@@ -11,10 +11,10 @@ reference's ``lax.scan`` becomes a Python loop over steps; per step:
      checkpoint stores left alone,
   2. otherwise the DVFS schedule's host BER table gives the BER per
      resilience class (nominal for the first ``nominal_steps`` and the
-     embedding GEMMs) and the DiT runs with fault injection, ABFT and tile
-     rollback (``ExecContext`` inside the model), checkpoints refreshing
-     in place every ``interval`` steps of the step index (``have_ckpt`` is
-     false on step 0),
+     embedding GEMMs) and the model runs with fault injection, ABFT and
+     tile rollback (``ExecContext`` inside the model), checkpoints
+     refreshing in place every ``interval`` steps of the step index
+     (``have_ckpt`` is false on step 0),
   3. a narrowed precision plan fake-quantizes ``eps`` on steps
      ``>= protect_steps`` (gated on the host step index: the default
      ``"int8"`` plan adds no op),
@@ -22,7 +22,15 @@ reference's ``lax.scan`` becomes a Python loop over steps; per step:
      estimate (Sec 5.1 feedback loop), forecast steps included,
   5. DDIM updates the latents.
 
-Clean mode runs as drift at BER 0, as in the reference.
+Clean mode runs as drift at BER 0, as in the reference. Modes that write
+no checkpoints (``faulty`` and the baselines) leave the zero stores as
+they are, as the reference keeps the carry's.
+
+The DiT and PixArt (``models.dit``, whose stores are ``(embed_store,
+block_store)``; PixArt reads ``text``) and the SD1.5 UNet
+(``models.unet``: one ``ExecContext`` per evaluation at fault scope 0, a
+flat name-keyed store, one heatmap row) share the loop, as in the
+reference's ``_model_eval``.
 
 One step loop serves both execution shapes. ``sample_stream`` runs it in
 windows of ``window`` steps: after each window it hands the carry
@@ -46,10 +54,11 @@ import torch
 from repro_torch.core import dvfs as dvfs_lib
 from repro_torch.core import fault
 from repro_torch.core import quant as quant_lib
-from repro_torch.core.exec_ctx import DriftSystemConfig
+from repro_torch.core.exec_ctx import DriftSystemConfig, ExecContext
 from repro_torch.diffusion import schedule as sched_lib
 from repro_torch.diffusion import taylorseer as ts_lib
 from repro_torch.models import dit as dit_lib
+from repro_torch.models import unet as unet_lib
 from repro_torch.models.common import ModelConfig
 
 
@@ -75,7 +84,8 @@ class SampleOutput(NamedTuple):
     total_corrected: torch.Tensor     # 0-d int64 on the device
     n_model_evals: int                # computed (not forecast) steps
     # Detected row errors per (step, site): row 0 the embedding GEMMs,
-    # rows 1..L the blocks; (steps, L + 1) int64 on the device.
+    # rows 1..L the blocks (the UNet: one row); (steps, rows) int64 on
+    # the device.
     heatmap: Optional[torch.Tensor] = None
 
 
@@ -88,32 +98,47 @@ class StreamEvent(NamedTuple):
 
 
 def detection_rows(model_cfg: ModelConfig) -> int:
+    """Heatmap rows: one per block plus the embedding GEMMs' (DiT family);
+    the UNet's one context gives one row."""
+    if model_cfg.family == "unet":
+        return 1
     return model_cfg.n_layers + 1
 
 
+def init_stores(model_cfg: ModelConfig, batch: int, device):
+    """Zero checkpoint stores: the DiT's ``(embed_store, block_store)``,
+    the UNet's flat dict."""
+    if model_cfg.family == "unet":
+        return unet_lib.drift_store_spec(model_cfg, batch, device)
+    return dit_lib.drift_store_spec(model_cfg, batch, device)
+
+
 def sample(model_cfg: ModelConfig, params, flip_source: fault.FlipSource,
-           latents0: torch.Tensor, cond: torch.Tensor, cfg: SamplerConfig,
-           monitor0: Optional[dvfs_lib.BerMonitorState] = None
-           ) -> SampleOutput:
+           latents0: torch.Tensor, cond: Optional[torch.Tensor],
+           cfg: SamplerConfig,
+           monitor0: Optional[dvfs_lib.BerMonitorState] = None,
+           text: Optional[torch.Tensor] = None) -> SampleOutput:
     """Run the full denoising chain from Gaussian latents: the one-window
     drain of :func:`sample_stream`.
 
     ``flip_source`` draws each GEMM's flip mask; ``monitor0`` seeds the BER
-    monitor (the serving engine passes the previous batch's)."""
+    monitor (the serving engine passes the previous batch's); ``text``
+    (B, Tt, cond_dim) conditions PixArt and the UNet, ``cond`` (class
+    ids) the class-conditional DiT."""
     *_, out = sample_stream(model_cfg, params, flip_source, latents0, cond,
                             cfg, monitor0,
-                            window=max(cfg.num_sample_steps, 1))
+                            window=max(cfg.num_sample_steps, 1), text=text)
     return out
 
 
 def sample_stream(model_cfg: ModelConfig, params,
                   flip_source: fault.FlipSource, latents0: torch.Tensor,
-                  cond: torch.Tensor, cfg: SamplerConfig,
+                  cond: Optional[torch.Tensor], cfg: SamplerConfig,
                   monitor0: Optional[dvfs_lib.BerMonitorState] = None,
                   window: int = 1,
                   on_window: Optional[Callable[[int], None]] = None,
-                  on_carry: Optional[Callable[[int, Tuple], None]] = None
-                  ) -> Iterator:
+                  on_carry: Optional[Callable[[int, Tuple], None]] = None,
+                  text: Optional[torch.Tensor] = None) -> Iterator:
     """The denoising chain in windows of ``window`` steps: a
     :class:`StreamEvent` after every window but the last, then the
     :class:`SampleOutput`. ``on_carry(done, carry)`` and
@@ -137,8 +162,9 @@ def sample_stream(model_cfg: ModelConfig, params,
         ber_table = np.zeros_like(ber_table)
     b = latents0.shape[0]
     protected = scfg.mode != "float_clean"
-    embed_store, block_store = (dit_lib.drift_store_spec(model_cfg, b, device)
-                                if protected else ({}, {}))
+    unet = model_cfg.family == "unet"
+    stores = (init_stores(model_cfg, b, device) if protected
+              else {} if unet else ({}, {}))
     mon = monitor0 if monitor0 is not None else \
         dvfs_lib.ber_monitor_init(device)
     n_words = max(int(np.prod(latents0.shape)), 1)
@@ -149,16 +175,32 @@ def sample_stream(model_cfg: ModelConfig, params,
     def step_fn(i: int, latents: torch.Tensor):
         tvec = torch.full((b,), float(ts[i]), dtype=torch.float32,
                           device=device)
+        ber_row = ber_table[min(i, ber_table.shape[0] - 1)]
+        if unet:
+            ctx = None
+            if protected:
+                ctx = ExecContext(scfg, flip_source=flip_source, step=i,
+                                  scope=unet_lib.SCOPE, ber_by_class=ber_row,
+                                  state_in=stores, have_ckpt=i > 0)
+            eps = unet_lib.forward(model_cfg, params, latents, tvec, text,
+                                   ctx=ctx)
+            if ctx is None:
+                return eps, zero, zero, zero_rows
+            detected = dit_lib._as_count(ctx.stats["detected_row_errors"],
+                                         device)
+            return (eps, dit_lib._as_count(ctx.stats["corrected_elems"],
+                                           device),
+                    detected, detected[None])
         drift = None
         if protected:
+            embed_store, block_store = stores
             drift = dit_lib.DriftState(
                 cfg=scfg, flip_source=flip_source, step=i,
-                ber_by_class=ber_table[min(i, ber_table.shape[0] - 1)],
-                embed_store=embed_store, block_store=block_store,
-                have_ckpt=i > 0, layer_gate=cfg.layer_gate,
-                embed_gate=cfg.embed_gate)
+                ber_by_class=ber_row, embed_store=embed_store,
+                block_store=block_store, have_ckpt=i > 0,
+                layer_gate=cfg.layer_gate, embed_gate=cfg.embed_gate)
         eps, stats = dit_lib.forward(model_cfg, params, latents, tvec, cond,
-                                     drift=drift)
+                                     drift=drift, text=text)
         return (eps, stats.get("corrected_elems", zero),
                 stats.get("detected_row_errors", zero),
                 stats.get("detected_per_block", zero_rows))
@@ -194,8 +236,8 @@ def sample_stream(model_cfg: ModelConfig, params,
                 corrected = corrected + corr
                 heat.append(det_blocks)
         if on_carry is not None:
-            on_carry(done, (latents, (embed_store, block_store), taylor,
-                            mon, corrected, nevals))
+            on_carry(done, (latents, stores, taylor, mon, corrected,
+                            nevals))
         if on_window is not None:
             on_window(done)
         if done < n:

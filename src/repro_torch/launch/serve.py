@@ -105,8 +105,8 @@ def build_parser() -> argparse.ArgumentParser:
         epilog=f"DVFS ladder (op 'auto', walked by the BER monitor): "
                f"{OP_LADDER_HELP}.")
     ap.add_argument("--arch", default="dit-xl-512",
-                    help="model to serve (ported: dit-xl-512, diffusion; "
-                         "olmo-1b, autoregressive)")
+                    help="model to serve (ported: dit-xl-512, pixart-alpha, "
+                         "sd15-unet, diffusion; olmo-1b, autoregressive)")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="serve the 3-layer smoke config (--no-smoke: the "
@@ -119,10 +119,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="denoising steps (diffusion) or tokens to decode "
                          "(autoregressive)")
     ap.add_argument("--mode", default=None,
-                    choices=["clean", "faulty", "drift", "stat_abft"],
-                    help="protection mode (default: 'drift' for diffusion "
-                         "archs, 'stat_abft' for autoregressive ones, which "
-                         "take clean/faulty/stat_abft only)")
+                    choices=["clean", "faulty", "drift", "thundervolt",
+                             "approx_abft", "dmr", "stat_abft"],
+                    help="protection mode: DRIFT, or a Fig 12 baseline "
+                         "(default: 'drift' for diffusion archs, "
+                         "'stat_abft' for autoregressive ones, which take "
+                         "clean/faulty/stat_abft only)")
     ap.add_argument("--op", default="undervolt", choices=list(REQUEST_OPS),
                     help="DVFS operating point; 'auto' walks the BER-monitor "
                          f"ladder ({OP_LADDER_HELP})")

@@ -1,7 +1,7 @@
 """Shared model machinery: the model config, norms, RoPE, activations, inits.
 
-Counterpart of ``repro.models.common``, reduced to what the DiT and the
-dense LM paths use. Parameters are plain nested dicts of tensors, as in the
+Counterpart of ``repro.models.common``, reduced to what the DiT, PixArt,
+UNet and dense LM paths use. Parameters are plain nested dicts of tensors, as in the
 reference.
 """
 from __future__ import annotations
@@ -19,7 +19,7 @@ Params = Dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dit | dense (the families ported)
+    family: str                      # dit | unet | dense (those ported)
     n_layers: int
     d_model: int
     n_heads: int = 0
@@ -36,10 +36,13 @@ class ModelConfig:
     act: str = "silu"                # silu | gelu
     tie_embeddings: bool = True
     rope_theta: float = 10000.0
-    # --- DiT (diffusion) ---
+    # --- DiT / UNet (diffusion) ---
     latent_size: int = 0             # spatial latent (e.g. 64 for 512px f8)
     latent_channels: int = 4
     patch_size: int = 2
+    cond_dim: int = 0                # text-conditioning width (0 = class-cond)
+    cond_tokens: int = 0             # text tokens for cross-attn (PixArt/SD)
+    unet_channels: Tuple[int, ...] = ()
     num_classes: int = 0
     # --- execution ---
     dtype: torch.dtype = torch.bfloat16      # activation/compute dtype

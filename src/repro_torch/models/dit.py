@@ -1,18 +1,27 @@
-"""Diffusion Transformer (DiT), class-conditional, with adaLN-Zero.
+"""Diffusion Transformer (DiT) with adaLN-Zero: class-conditional, and the
+PixArt-alpha variant with cross-attention to text tokens.
 
 Counterpart of ``repro.models.dit``. Every projection GEMM goes through an
 optional ``ExecContext`` with the reference's resilience classes: patch,
-timestep and final GEMMs are ``CLASS_EMBED`` (one context, scope 1000),
-block 0 is ``CLASS_FIRST_BLOCK``, the other blocks ``CLASS_BODY`` (one
-context per block, scope = layer index). The adaLN modulations are plain,
-unprotected matmuls, as in the reference. Self-attention runs through the
-attention kernel's (B, S, H, D) wrapper ``kernels.flash_attention.
-mha_flash``, which takes the plain ``full_attention`` for CPU tensors.
+timestep, text and final GEMMs are ``CLASS_EMBED`` (one context, scope
+1000), block 0 is ``CLASS_FIRST_BLOCK``, the other blocks ``CLASS_BODY``
+(one context per block, scope = layer index). The adaLN modulations are
+plain, unprotected matmuls, as in the reference. Self-attention runs
+through the attention kernel's (B, S, H, D) wrapper ``kernels.
+flash_attention.mha_flash``, which takes the plain ``full_attention`` for
+CPU tensors.
+
+PixArt (``cfg.cond_tokens > 0``) conditions on ``text`` (B, Tt, cond_dim):
+``text_proj`` projects it (GEMM ``"text"``), its token mean takes the class
+embedding's place in ``c``, and each block adds a cross-attention branch
+between self-attention and the MLP (``xattn.{q,k,v,o}``; k and v from the
+projected text). Cross-attention has Tt keys against T queries, which
+neither the Pallas kernel nor its port takes, so it runs the plain
+``full_attention``, as in the reference.
 
 Parameters are a nested dict like the reference's, except that ``blocks``
 is a list with one dict per layer (the reference stacks them on a leading
-L axis for ``lax.scan``); ``params_from_jax`` converts. The PixArt
-cross-attention branch is not yet ported (ROADMAP Queue A item 12).
+L axis for ``lax.scan``); ``params_from_jax`` converts.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import torch.nn.functional as F
 from repro_torch.core import dvfs
 from repro_torch.core.exec_ctx import DriftSystemConfig, ExecContext
 from repro_torch.kernels.flash_attention import mha_flash
+from repro_torch.models.attention import full_attention
 from repro_torch.models.common import (ModelConfig, Params, dense_init,
                                        layernorm, trunc_normal)
 
@@ -35,9 +45,8 @@ EMBED_SCOPE = 1000
 
 def _check_cfg(cfg: ModelConfig) -> None:
     if cfg.family != "dit":
-        raise NotImplementedError(
-            f"{cfg.name}: only the class-conditional DiT is ported; the "
-            "PixArt cross-attention branch waits for ROADMAP Queue A item 12")
+        raise ValueError(f"{cfg.name}: models.dit takes the dit family, got "
+                         f"{cfg.family!r}")
 
 
 # ---------------------------------------------------------------- params
@@ -58,13 +67,18 @@ def init_params(cfg: ModelConfig, seed: int, device="cpu") -> Params:
     def zeros(*shape):
         return torch.zeros(shape, dtype=pdt, device=device)
 
-    blocks = [{
-        "adaln_w": zeros(d, 6 * d), "adaln_b": zeros(6 * d),
-        "attn": {"wq": dense(d, hd), "wk": dense(d, hd), "wv": dense(d, hd),
-                 "wo": dense(hd, d)},
-        "mlp_w1": dense(d, f), "mlp_w2": dense(f, d),
-    } for _ in range(cfg.n_layers)]
-    return {
+    def attn():
+        return {"wq": dense(d, hd), "wk": dense(d, hd), "wv": dense(d, hd),
+                "wo": dense(hd, d)}
+
+    blocks = []
+    for _ in range(cfg.n_layers):
+        blk = {"adaln_w": zeros(d, 6 * d), "adaln_b": zeros(6 * d),
+               "attn": attn(), "mlp_w1": dense(d, f), "mlp_w2": dense(f, d)}
+        if cfg.cond_tokens:   # PixArt: cross-attention to text tokens
+            blk["xattn"] = attn()
+        blocks.append(blk)
+    p = {
         "patch_w": dense(pdim, d), "patch_b": zeros(d),
         "pos_embed": trunc_normal((cfg.tokens, d), 0.02, pdt, device, g),
         "t_w1": dense(256, d), "t_b1": zeros(d),
@@ -72,9 +86,13 @@ def init_params(cfg: ModelConfig, seed: int, device="cpu") -> Params:
         "blocks": blocks,
         "final_adaln_w": zeros(d, 2 * d), "final_adaln_b": zeros(2 * d),
         "final_w": zeros(d, pdim), "final_b": zeros(pdim),
-        "class_embed": trunc_normal((cfg.num_classes + 1, d), 0.02, pdt,
-                                    device, g),
     }
+    if cfg.cond_tokens:
+        p["text_proj"] = dense(cfg.cond_dim, d)
+    else:
+        p["class_embed"] = trunc_normal((cfg.num_classes + 1, d), 0.02, pdt,
+                                        device, g)
+    return p
 
 
 def params_from_jax(tree: Dict[str, Any], device="cpu") -> Params:
@@ -150,6 +168,7 @@ def _adaln(c: torch.Tensor, w, b, dtype) -> torch.Tensor:
 
 # ---------------------------------------------------------------- blocks
 def dit_block(cfg: ModelConfig, p: Params, x: torch.Tensor, c: torch.Tensor,
+              text: Optional[torch.Tensor] = None,
               ctx: Optional[ExecContext] = None,
               rclass: int = dvfs.CLASS_BODY) -> torch.Tensor:
     b, t, _ = x.shape
@@ -165,6 +184,18 @@ def dit_block(cfg: ModelConfig, p: Params, x: torch.Tensor, c: torch.Tensor,
     o = _proj(ctx, o.reshape(b, t, h * hd), p["attn"]["wo"], "attn.o",
               rclass)
     x = x + g1[:, None, :] * o
+
+    if text is not None and "xattn" in p:
+        xn = layernorm(x)
+        q = _proj(ctx, xn, p["xattn"]["wq"], "xattn.q", rclass
+                  ).reshape(b, t, h, hd)
+        k = _proj(ctx, text, p["xattn"]["wk"], "xattn.k", rclass
+                  ).reshape(b, -1, h, hd)
+        v = _proj(ctx, text, p["xattn"]["wv"], "xattn.v", rclass
+                  ).reshape(b, -1, h, hd)
+        o = full_attention(q, k, v, causal=False)
+        x = x + _proj(ctx, o.reshape(b, t, h * hd), p["xattn"]["wo"],
+                      "xattn.o", rclass)
 
     xn = _modulate(layernorm(x), s2, sc2)
     hdn = _proj(ctx, xn, p["mlp_w1"], "mlp.w1", rclass)
@@ -200,15 +231,19 @@ def _gated(ber_by_class, gate) -> np.ndarray:
 
 
 def forward(cfg: ModelConfig, params: Params, latents: torch.Tensor,
-            t: torch.Tensor, cond: torch.Tensor,
-            drift: Optional[DriftState] = None
+            t: torch.Tensor, cond: Optional[torch.Tensor],
+            drift: Optional[DriftState] = None,
+            text: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Predict noise. latents: (B, H, W, C); t: (B,); cond: class ids (B,).
+    """Predict noise. latents: (B, H, W, C); t: (B,); cond: class ids (B,),
+    or, for PixArt (``cfg.cond_tokens``), ignored in favour of ``text``
+    (B, Tt, cond_dim).
 
     Returns (eps_pred f32, stats). With ``drift``, stats holds the device
-    counts ``corrected_elems``, ``detected_row_errors`` and the per-site
+    counts ``corrected_elems``, ``detected_row_errors``, the per-site
     ``detected_per_block`` (row 0 the embedding GEMMs, rows 1..L the
-    blocks); the checkpoint stores are refreshed in place."""
+    blocks) and the summed recovery costs ``extra_compute_flops`` and
+    ``extra_dram_bytes``; the checkpoint stores are refreshed in place."""
     _check_cfg(cfg)
     b, hh, ww, _ = latents.shape
     stats: Dict[str, torch.Tensor] = {}
@@ -234,10 +269,17 @@ def forward(cfg: ModelConfig, params: Params, latents: torch.Tensor,
     temb = F.silu(temb + params["t_b1"].to(dt))
     temb = _proj(ectx, temb, params["t_w2"], "t.w2", dvfs.CLASS_EMBED)
     temb = temb + params["t_b2"].to(dt)
-    c = temb + params["class_embed"].to(dt)[cond]
+    text_proj = None
+    if cfg.cond_tokens:
+        text_proj = _proj(ectx, text.to(dt), params["text_proj"], "text",
+                          dvfs.CLASS_EMBED)
+        c = temb + text_proj.mean(dim=1)
+    else:
+        c = temb + params["class_embed"].to(dt)[cond]
 
     corrected: List[torch.Tensor] = []
     detected: List[torch.Tensor] = []
+    ctxs: List[ExecContext] = []
     for i, p_i in enumerate(params["blocks"]):
         bctx = None
         if drift is not None:
@@ -250,13 +292,14 @@ def forward(cfg: ModelConfig, params: Params, latents: torch.Tensor,
                                step=drift.step, scope=i,
                                ber_by_class=b_ber,
                                state_in=store_i, have_ckpt=drift.have_ckpt)
-            x = dit_block(cfg, p_i, x, c, ctx=bctx, rclass=rcl)
+            x = dit_block(cfg, p_i, x, c, text_proj, ctx=bctx, rclass=rcl)
+            ctxs.append(bctx)
             corrected.append(_as_count(bctx.stats["corrected_elems"],
                                        x.device))
             detected.append(_as_count(bctx.stats["detected_row_errors"],
                                       x.device))
         else:
-            x = dit_block(cfg, p_i, x, c)
+            x = dit_block(cfg, p_i, x, c, text_proj)
 
     mod = _adaln(c, params["final_adaln_w"], params["final_adaln_b"], x.dtype)
     shift, scale = torch.chunk(mod, 2, dim=-1)
@@ -272,6 +315,9 @@ def forward(cfg: ModelConfig, params: Params, latents: torch.Tensor,
         stats["detected_per_block"] = per_block
         stats["detected_row_errors"] = per_block.sum()
         stats["corrected_elems"] = torch.stack(corrected).sum() + e_corr
+        for cost in ("extra_compute_flops", "extra_dram_bytes"):
+            stats[cost] = sum((c_.stats[cost] for c_ in ctxs),
+                              ectx.stats[cost])
     return eps, stats
 
 
@@ -289,28 +335,31 @@ def drift_store_spec(cfg: ModelConfig, batch: int, device="cpu"
     buffers are (L, rows, N)."""
     _check_cfg(cfg)
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.hd
+    L = cfg.n_layers
     bt = batch * cfg.tokens
+    btext = batch * cfg.cond_tokens
 
     def z(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
     embed = {"patch": z(bt, d), "t.w1": z(batch, d), "t.w2": z(batch, d),
              "final": z(bt, cfg.patch_dim)}
-    block = {"attn.q": z(cfg.n_layers, bt, hd),
-             "attn.k": z(cfg.n_layers, bt, hd),
-             "attn.v": z(cfg.n_layers, bt, hd),
-             "attn.o": z(cfg.n_layers, bt, d),
-             "mlp.w1": z(cfg.n_layers, bt, f),
-             "mlp.w2": z(cfg.n_layers, bt, d)}
+    block = {"attn.q": z(L, bt, hd), "attn.k": z(L, bt, hd),
+             "attn.v": z(L, bt, hd), "attn.o": z(L, bt, d),
+             "mlp.w1": z(L, bt, f), "mlp.w2": z(L, bt, d)}
+    if cfg.cond_tokens:
+        embed["text"] = z(btext, d)
+        block.update({"xattn.q": z(L, bt, hd), "xattn.k": z(L, btext, hd),
+                      "xattn.v": z(L, btext, hd), "xattn.o": z(L, bt, d)})
     return embed, block
 
 
 def param_count(cfg: ModelConfig) -> int:
-    """Analytical parameter count, the reference's formula. The port's
-    DiT is class-conditional only, so the reference's cross-attention term
-    (``cond_tokens``) is zero here."""
-    _check_cfg(cfg)
+    """Analytical parameter count, the reference's formula (which the
+    perfmodel also applies to the UNet's config, as the reference does)."""
     d, f = cfg.d_model, cfg.d_ff
     per_block = 6 * d * d + 4 * d * d + 2 * d * f
+    if cfg.cond_tokens:
+        per_block += 4 * d * d
     t = (cfg.latent_size // cfg.patch_size) ** 2
     pdim = cfg.patch_size ** 2 * cfg.latent_channels
     base = (pdim * d + t * d + 256 * d + d * d + 2 * d * d + d * pdim)

@@ -136,7 +136,9 @@ def activation_bytes(cfg: ModelConfig, batch: int = 1) -> float:
         per_block = t * (4 * d + 2 * cfg.d_ff + d)
         return 4.0 * batch * cfg.n_layers * per_block
     if cfg.family == "unet":
-        raise flops_lib.not_ported(cfg, "activation_bytes")
+        s, c = cfg.latent_size, cfg.unet_channels
+        return 4.0 * batch * sum((s // 2 ** i) ** 2 * ch * 8
+                                 for i, ch in enumerate(c))
     # LM decode step: the projection-GEMM outputs the statistical-ABFT
     # context checks (serving/ar.py) -- attn q/k/v/o plus the dense MLP.
     # SSM layers route no GEMMs through the protected path (0 bytes) and

@@ -8,10 +8,11 @@ association unchanged. MODEL_FLOPS definitions:
 plus explicit attention FLOPs (2 * 2 * S^2 * d per layer at train/prefill,
 window-clipped for local layers), which the 6ND rule ignores.
 
-The port has the DiT and the dense LM families. The reference's terms
-that only other families reach -- MoE experts, the SSM scan, the UNet's
-conv sweep, PixArt's cross-attention -- raise ``NotImplementedError``
-naming ROADMAP Queue A item 12, which ports those families.
+The port has the DiT (PixArt's cross-attention term included), the UNet
+and the dense LM families. The reference's terms that only other
+families reach -- MoE experts, the SSM scan -- raise
+``NotImplementedError`` naming ROADMAP Queue A item 12, which ports those
+families.
 """
 from __future__ import annotations
 
@@ -83,12 +84,12 @@ def cell_flops(cfg: ModelConfig, shape: shapes_lib.ShapeSpec
             attn += cfg.n_layers * _ssd_flops(cfg, b, 1)
         return {"model_flops": 2.0 * n_act * b + attn, "tokens": float(b)}
     if shape.kind in ("denoise_train", "sample"):
-        if cfg.family != "dit":
-            raise not_ported(cfg, "cell_flops")
-        t = (cfg.latent_size // cfg.patch_size) ** 2
+        t = (cfg.latent_size // cfg.patch_size) ** 2 if cfg.family == "dit" \
+            else (cfg.latent_size ** 2)   # unet ~ per-pixel proxy
         d_tokens = shape.global_batch * t
         mult = 6.0 if shape.kind == "denoise_train" else 2.0
-        extra = _attn_flops_full(cfg, shape.global_batch, t)
+        extra = (_attn_flops_full(cfg, shape.global_batch, t)
+                 if cfg.family == "dit" else 0.0)
         return {"model_flops": mult * active_params(cfg) * d_tokens
                 + (mult / 2) * extra,
                 "tokens": float(d_tokens)}
@@ -139,9 +140,23 @@ def gemm_macs_per_model_eval(cfg: ModelConfig, batch: int = 1) -> float:
     if cfg.family == "dit":
         t = (cfg.latent_size // cfg.patch_size) ** 2
         d = cfg.d_model
-        per_block = t * (4 * d * d + 2 * d * cfg.d_ff + 6 * d * d / t)
+        per_block = t * (4 * d * d + 2 * d * cfg.d_ff + 6 * d * d / t
+                         + (4 * d * d if cfg.cond_tokens else 0))
         attn = 2 * t * t * d
         pdim = cfg.patch_size ** 2 * cfg.latent_channels
         embed = t * pdim * d * 2 + 256 * d + d * d
         return batch * (cfg.n_layers * (per_block + attn) + embed)
-    raise not_ported(cfg, "gemm_macs_per_model_eval")
+    if cfg.family == "unet":
+        # conv-dominated; approximate via param sweep at latent res
+        c = cfg.unet_channels
+        s = cfg.latent_size
+        total = 0.0
+        res = s
+        for i, ch in enumerate(c):
+            cin = c[max(i - 1, 0)]
+            total += res * res * (9 * cin * ch + 9 * ch * ch) * 2
+            if i >= 1:
+                total += res * res * ch * ch * 4 + res ** 4 * ch
+            res //= 2
+        return batch * 2.3 * total    # down+mid+up
+    raise ValueError(cfg.family)

@@ -1,8 +1,9 @@
 """The DRIFT batched serving engine.
 
 Counterpart of ``repro.serving.engine.DriftServeEngine``, reduced to the
-ported paths: DiT diffusion and dense autoregressive decoding, each behind
-its servable (``servable_for(arch)``). A FIFO ``RequestQueue`` and
+ported paths: diffusion (the DiT, PixArt and the SD1.5 UNet, in every
+mode: clean, faulty, drift and the Fig 12 baselines) and dense
+autoregressive decoding, each behind its servable (``servable_for(arch)``). A FIFO ``RequestQueue`` and
 ``MicroBatcher`` group requests
 into fixed-size same-configuration buckets (short tails padded); a sampler
 cache keyed by (arch, steps, mode, operating point, bucket, rollback
@@ -114,7 +115,8 @@ class _BatchCtx:
     batch_index: int
     params: object
     padded_seeds: Tuple[int, ...]
-    inputs: Tuple                 # (latents, cond) or (prompt tokens,)
+    # (latents, cond), (latents, None, text) or (prompt tokens,)
+    inputs: Tuple
     flip_source: fault.FlipSource
     # this batch's OffloadStats delta, set by the drain after it joins
     # the store; None when no offload ran
@@ -196,12 +198,13 @@ class DriftServeEngine:
         """The windowed ``sample_stream`` with the offload tap on its
         carry; the caller picks the window per call (the whole chain, the
         refresh interval, or the preview interval)."""
-        def run(params, flip_source, latents, cond, monitor0, window):
+        def run(params, flip_source, latents, cond, monitor0, window,
+                text=None):
             return sampler_lib.sample_stream(
                 model_cfg, params, flip_source, latents, cond, scfg,
                 monitor0=monitor0, window=window,
                 on_window=self._on_stream_window,
-                on_carry=self._offload_on_carry)
+                on_carry=self._offload_on_carry, text=text)
         return run
 
     # ---------------------------------------------------------- servables

@@ -12,9 +12,10 @@ reference of the same inputs and states its perfmodel ``RunConfig``
 reference; ``SERVABLE_BY_FAMILY`` maps each ported family to one, and each
 provides its family's params init (``init_params``):
 
-* ``DiffusionServable`` -- the DRIFT denoising path (DiT), with
-  TaylorSeer, the precision plans, streaming previews and, with the
-  engine's offload store, checkpoint commits between windows.
+* ``DiffusionServable`` -- the DRIFT denoising path (the DiT, PixArt
+  and the SD1.5 UNet), with TaylorSeer, the precision plans, streaming
+  previews and, with the engine's offload store, checkpoint commits
+  between windows.
 * ``AutoregressiveServable`` -- token-by-token decode with statistical
   ABFT and KV-window rollback (``serving.ar``), with the flight
   recorder's window and replay taps.
@@ -23,9 +24,10 @@ provides its family's params init (``init_params``):
 sampler's per-step detections binned on the host, ``trace/heatmap.py``)
 and the telemetry controller's word count.
 
-Initial latents and prompts come from the port's own generator, one
-``torch.Generator`` per request seed; tests that compare with the
-reference hand the reference's inputs in by replacing ``batch_inputs``.
+Initial latents, stub text embeddings and prompts come from the port's
+own generator, one ``torch.Generator`` per request seed; tests that
+compare with the reference hand the reference's inputs in by replacing
+``batch_inputs``.
 """
 from __future__ import annotations
 
@@ -39,24 +41,26 @@ from repro_torch import configs
 from repro_torch.core import dvfs as dvfs_lib
 from repro_torch.core import fault, metrics
 from repro_torch.core import quant as quant_lib
-from repro_torch.core.exec_ctx import PORTED_MODES, DriftSystemConfig
+from repro_torch.core.exec_ctx import DriftSystemConfig
 from repro_torch.core.rollback import RollbackConfig
 from repro_torch.diffusion import sampler as sampler_lib
 from repro_torch.diffusion.taylorseer import TaylorSeerConfig
-from repro_torch.models import dit, transformer
+from repro_torch.models import dit, transformer, unet
 from repro_torch.perfmodel import energy
 from repro_torch.serving import ar
 from repro_torch.serving.cache import SamplerKey
 from repro_torch.serving.request import PreviewEvent
 from repro_torch.serving.trace import heatmap as heatmap_lib
 
-# Stream tag mixed into a request seed for its initial latents (the
-# reference folds 7 into the seed's key).
+# Stream tags mixed into a request seed for its initial latents and its
+# stub text (the reference folds 7 and 8 into the seed's key).
 LATENT_TAG = 7
+TEXT_TAG = 8
 
 # Modes whose ABFT detections feed the BER monitor; only they pay ABFT
-# compute and checkpoint traffic in the perfmodel.
-MONITORED_MODES = ("drift", "stat_abft")
+# compute and checkpoint traffic in the perfmodel (the reference's five).
+MONITORED_MODES = ("drift", "thundervolt", "approx_abft", "dmr",
+                   "stat_abft")
 
 
 def _taylorseer_cfg(key: SamplerKey) -> TaylorSeerConfig:
@@ -79,38 +83,59 @@ class BatchOutcome:
     heatmap_blocks: Optional[tuple] = None
 
 
+def _diffusion_init(cfg, seed: int, device="cpu"):
+    """Random params of a diffusion arch, by family."""
+    model = unet if cfg.family == "unet" else dit
+    return model.init_params(cfg, seed, device)
+
+
+def _split_inputs(inputs: Tuple) -> Tuple:
+    """(latents, cond, text) of a diffusion batch: ``batch_inputs`` gives
+    ``(latents, class ids)`` for a class-conditional DiT and ``(latents,
+    None, text)`` for a text-conditioned arch."""
+    latents, cond, *rest = inputs
+    return latents, cond, (rest[0] if rest else None)
+
+
 class DiffusionServable:
     """The DRIFT denoising path for one engine."""
 
     paradigm = "diffusion"
-    init_params = staticmethod(dit.init_params)
+    init_params = staticmethod(_diffusion_init)
 
     def __init__(self, engine):
         self.eng = engine
 
     def validate_request(self, fields: dict) -> dict:
-        mode = fields.get("mode", "drift")
-        if mode not in PORTED_MODES:
-            raise ValueError(
-                f"mode {mode!r} is not yet ported to repro_torch for "
-                "diffusion archs (ROADMAP Queue A item 4, baselines); "
-                f"ported: {PORTED_MODES}")
+        """Every mode is a diffusion mode (``GenerationRequest`` rejects
+        unknown ones)."""
         return fields
 
-    def batch_inputs(self, model_cfg, seeds: List[int]
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(latents (B, H, W, C) f32, class ids (B,)) on the engine device."""
+    def _randn(self, seeds: List[int], tag: int, shape) -> torch.Tensor:
         dev = self.eng.device
-        shape = (model_cfg.latent_size, model_cfg.latent_size,
-                 model_cfg.latent_channels)
-        lats = []
+        out = []
         for s in seeds:
             g = torch.Generator(device=dev)
-            g.manual_seed(fault.mix64(int(s), LATENT_TAG))
-            lats.append(torch.randn(shape, generator=g, device=dev))
+            g.manual_seed(fault.mix64(int(s), tag))
+            out.append(torch.randn(shape, generator=g, device=dev))
+        return torch.stack(out)
+
+    def batch_inputs(self, model_cfg, seeds: List[int]) -> Tuple:
+        """On the engine device: ``(latents (B, H, W, C) f32, class ids
+        (B,))``, or for a text-conditioned arch ``(latents, None, text)``
+        with the stub text ``0.1 * N(0, 1)`` of shape (cond_tokens,
+        cond_dim) per seed."""
+        lat = self._randn(seeds, LATENT_TAG, (model_cfg.latent_size,
+                                              model_cfg.latent_size,
+                                              model_cfg.latent_channels))
+        if model_cfg.cond_tokens:
+            text = 0.1 * self._randn(seeds, TEXT_TAG, (model_cfg.cond_tokens,
+                                                       model_cfg.cond_dim))
+            return lat, None, text
         cond = torch.tensor([s % max(model_cfg.num_classes, 1)
-                             for s in seeds], dtype=torch.int64, device=dev)
-        return torch.stack(lats), cond
+                             for s in seeds], dtype=torch.int64,
+                            device=self.eng.device)
+        return lat, cond
 
     def build_fn(self, key: SamplerKey) -> Callable:
         eng = self.eng
@@ -136,7 +161,7 @@ class DiffusionServable:
         return eng._sampler_factory(key, model_cfg, scfg)
 
     def _clean_reference(self, key: SamplerKey, seeds: Tuple[int, ...],
-                         params, latents, cond) -> torch.Tensor:
+                         params, latents, cond, text) -> torch.Tensor:
         """Error-free reference latents for this batch, cached by
         (configuration, latent seeds) in the engine's bounded LRU."""
         eng = self.eng
@@ -154,7 +179,7 @@ class DiffusionServable:
         # BER 0 everywhere: the flip source is never asked for a mask.
         *_, out = fn(params, None, latents, cond,
                      dvfs_lib.ber_monitor_init(eng.device),
-                     window=max(key.steps, 1))
+                     window=max(key.steps, 1), **_text_kw(text))
         clean = torch.clamp(out.latents, -1, 1)
         eng._clean_samples[sample_id] = clean
         while len(eng._clean_samples) > eng._clean_cache_size:
@@ -212,9 +237,9 @@ class DiffusionServable:
             eng._active_offload = store
         eng._stream_taps = streamed
         try:
-            latents, cond = ctx.inputs
+            latents, cond, text = _split_inputs(ctx.inputs)
             yield from fn(ctx.params, ctx.flip_source, latents, cond,
-                          eng.monitor, window=window)
+                          eng.monitor, window=window, **_text_kw(text))
         finally:
             eng._stream_taps = False
             if store is not None:
@@ -223,13 +248,13 @@ class DiffusionServable:
 
     def finalize(self, mb, ctx, out) -> BatchOutcome:
         key = mb.key
-        latents, cond = ctx.inputs
+        latents, cond, text = _split_inputs(ctx.inputs)
         img = torch.clamp(out.latents, -1, 1)
         if key.mode == "clean":
             clean = img       # the run IS the reference
         else:
             clean = self._clean_reference(key, ctx.padded_seeds, ctx.params,
-                                          latents, cond)
+                                          latents, cond, text)
         # the true int64 count: the reference's int32 carry wraps it at
         # full width (ROADMAP Queue C item 7)
         corrected = int(out.total_corrected)
@@ -257,6 +282,13 @@ class DiffusionServable:
                             n_words=latents.numel() * max(key.steps, 1),
                             per_slot=per_slot, heatmap=heat,
                             heatmap_blocks=blocks)
+
+
+def _text_kw(text) -> dict:
+    """The sampler's ``text`` keyword, passed only for text-conditioned
+    archs, so samplers built for the class-conditional DiT alone (the
+    tests' stubs) keep their signature."""
+    return {} if text is None else {"text": text}
 
 
 # ----------------------------------------------------- autoregressive path
@@ -432,6 +464,7 @@ class AutoregressiveServable:
 # family -> its servable class, for the families the port has.
 SERVABLE_BY_FAMILY = {
     "dit": DiffusionServable,
+    "unet": DiffusionServable,
     "dense": AutoregressiveServable,
 }
 

@@ -430,21 +430,23 @@ def test_engine_matches_jax_engine(lm_setup, jax_engine_run):
 
 def test_engine_serves_both_paradigms_and_rejects_unported():
     """One engine holds both servables; modes outside a paradigm, and
-    archs and families not yet ported, raise naming the ROADMAP item."""
+    archs and families not yet ported, raise naming the ROADMAP item. The
+    diffusion paradigm takes every mode, the Fig 12 baselines included
+    (stat_abft there is the tile-recompute baseline)."""
     eng = DriftServeEngine(device="cpu")
     assert eng.servable_for(ARCH).paradigm == "autoregressive"
     assert eng.servable.paradigm == "diffusion"
     with pytest.raises(ValueError, match="autoregressive serving"):
         eng.submit(arch=ARCH, mode="drift")
-    with pytest.raises(ValueError, match="Queue A item 4"):
-        eng.submit(mode="stat_abft")
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
         eng.submit(arch="gemma2-9b", mode="stat_abft")
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
         eng.submit(arch="mamba2-370m", mode="stat_abft")
     assert len(eng.queue) == 0
+    eng.submit(steps=2, mode="stat_abft", op="undervolt", seed=0)
     eng.submit(arch=ARCH, steps=3, mode="faulty", op="undervolt", seed=0)
-    (res,) = eng.run()
+    dif, res = eng.run()
+    assert dif.mode == "stat_abft" and dif.tokens is None
     assert res.tokens is not None and len(res.tokens) == 3
     assert res.ar_rollbacks == 0 and res.mode == "faulty"
 
@@ -467,5 +469,6 @@ def test_cli_default_mode_per_paradigm():
     assert serve.default_mode_for("dit-xl-512") == "drift"
     ap = serve.build_parser()
     assert ap.parse_args(["--arch", ARCH]).mode is None
+    assert ap.parse_args(["--mode", "dmr"]).mode == "dmr"
     with pytest.raises(SystemExit):
-        ap.parse_args(["--mode", "dmr"])
+        ap.parse_args(["--mode", "tmr"])

@@ -32,11 +32,15 @@ from repro_torch.kernels import abft_matmul as tak
 from repro_torch.kernels import rollback_correct as trk
 
 
-@functools.partial(jax.jit, static_argnums=(4,))
-def _replay_mask(run_key, step, scope, sid, shape, ber):
-    k = jax.random.fold_in(jax.random.fold_in(run_key, step), scope)
+@functools.partial(jax.jit, static_argnums=(4, 6, 7, 8))
+def _replay_mask(run_key, step, scope, sid, shape, ber, fold_scope=True,
+                 double_flip=False, force_bit=-1):
+    k = jax.random.fold_in(run_key, step)
+    if fold_scope:
+        k = jax.random.fold_in(k, scope)
     fkey = jfault.site_key(k, step, sid, 0)
-    return jfault.inject_int32(jnp.zeros(shape, jnp.int32), fkey, ber)
+    return jfault.inject_int32(jnp.zeros(shape, jnp.int32), fkey, ber,
+                               double_flip=double_flip, force_bit=force_bit)
 
 
 class JaxReplayFlipSource:
@@ -44,28 +48,33 @@ class JaxReplayFlipSource:
 
     ``run_key`` is the batch key (the engine's ``fold_in(PRNGKey(seed),
     batch_index)``); the chain is the reference's: ``fold_in(run_key,
-    step)`` in the sampler, ``fold_in(., scope)`` in the DiT, then
-    ``fault.site_key(., step, crc32(name), 0)`` and ``inject_int32`` on a
-    zero accumulator in ``ExecContext.matmul``."""
+    step)`` in the sampler, ``fold_in(., scope)`` in the DiT (not in the
+    UNet, whose one context takes the step key as it is: ``fold_scope``
+    False), then ``fault.site_key(., step, crc32(name), 0)`` and
+    ``inject_int32`` on a zero accumulator in ``ExecContext.matmul``,
+    with the context's ``double_flip`` and ``force_bit``."""
 
-    def __init__(self, run_key):
+    def __init__(self, run_key, fold_scope: bool = True):
         self.run_key = run_key
+        self.fold_scope = fold_scope
         self.calls = []
 
-    def __call__(self, site, shape, ber):
+    def __call__(self, site, shape, ber, double_flip=False, force_bit=-1):
         self.calls.append(site)
         sid = zlib.crc32(site.name.encode()) & 0x7FFFFFFF
         mask = _replay_mask(self.run_key, jnp.int32(site.step),
                             jnp.int32(site.scope), jnp.int32(sid),
-                            tuple(shape), jnp.float32(ber))
+                            tuple(shape), jnp.float32(ber), self.fold_scope,
+                            bool(double_flip), int(force_bit))
         return torch.from_numpy(np.array(mask))
 
 
-def jax_replay_factory(base_seed: int):
-    """``flip_source_factory`` replaying the reference engine's batches."""
+def jax_replay_factory(base_seed: int, fold_scope: bool = True):
+    """``flip_source_factory`` replaying the reference engine's batches
+    (``fold_scope`` False for the UNet)."""
     base = jax.random.PRNGKey(base_seed)
     return lambda batch_index: JaxReplayFlipSource(
-        jax.random.fold_in(base, batch_index))
+        jax.random.fold_in(base, batch_index), fold_scope)
 
 
 # ----------------------------------------------------------------- quant

@@ -216,11 +216,14 @@ def test_monitor_carries_over_only_for_drift():
     ("rollback_interval", 0), ("mode", "dmr"), ("op", "warp-speed"),
 ])
 def test_unported_request_fields_raise_at_submit(field, value):
-    """Invalid values the reference also rejects, unported modes and
-    unknown operating points raise at submit and queue nothing."""
+    """Invalid values the reference also rejects, modes a paradigm does
+    not take (the Fig 12 baseline dmr on the autoregressive path; the
+    diffusion path now takes it) and unknown operating points raise at
+    submit and queue nothing."""
     eng = stub_engine()
+    extra = {"arch": "olmo-1b"} if field == "mode" else {}
     with pytest.raises(ValueError):
-        eng.submit(steps=2, **{field: value})
+        eng.submit(steps=2, **{field: value}, **extra)
     assert len(eng.queue) == 0
 
 
@@ -320,8 +323,9 @@ def test_cli_smoke_flag_is_a_real_switch():
     assert ap.parse_args([]).smoke is True
     assert ap.parse_args(["--no-smoke"]).smoke is False
     assert ap.parse_args([]).device == "cuda"
+    assert ap.parse_args(["--mode", "thundervolt"]).mode == "thundervolt"
     with pytest.raises(SystemExit):
-        ap.parse_args(["--mode", "thundervolt"])
+        ap.parse_args(["--mode", "undervolt"])
     args = ap.parse_args([])
     assert (args.taylorseer, args.precision) == (False, "int8")
     args = ap.parse_args(TS_ARGS)
