@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, as the check runs it
     python3 chip_smoke.py --phases device,build,kernels --reps 3
     python3 chip_smoke.py --phases device,build,kernels,ar
+    python3 chip_smoke.py --phases device,build,kernels,lm
     python3 chip_smoke.py --phases device,build,offload
     python3 chip_smoke.py --phases device,build,sched
     python3 chip_smoke.py --phases device,build,baselines
@@ -44,7 +45,16 @@ Phases, each printing one JSON line with its wall time:
                causal (bf16 and f32, within tolerance; one kernel on the
                (B, S, H, D) inputs in place), and the composites
                ``stat_abft_matmul`` and ``drift_gemm`` at one DiT GEMM
-               shape (bit-equal).
+               shape (bit-equal). Then the GQA models' attention calls
+               (``LM_ATTN``: gemma2-9b's prefill at (2, 8, 16/8, 256)
+               with the softcap of 50 and window 4096 or none, a binding
+               window at (1, 8192, 16/8, 256), gemma3-27b's (1, 2048,
+               32/16, 168) window 1024, glm4-9b's (1, 4096, 32/2, 128)),
+               each one launch within tolerance of the plain version,
+               beside its causal- and window-clipped bound and SDPA with
+               ``enable_gqa`` (none where a softcap), and the UNet's two
+               self-attention shapes again over ``UNET_REPS`` times the
+               launches.
 4. reference -- the SMOKE DiT and the SMOKE olmo-1b served on the card
                (kernels) and on the CPU (plain versions) with the same
                params, inputs and flip masks: latents, tokens and counts
@@ -54,7 +64,10 @@ Phases, each printing one JSON line with its wall time:
                Then the SMOKE DiT in the four Fig 12 baselines and SMOKE
                PixArt and the SMOKE UNet in drift, the same way (latents
                within 1e-3, counts within 1%, joules within 1e-6; dmr's
-               finals equal to the clean reference's).
+               finals equal to the clean reference's). Then SMOKE
+               gemma2-9b, gemma3-27b and glm4-9b, 12 stat_abft tokens
+               (past the SMOKE window of 8): tokens, rollbacks,
+               evaluations and joules equal, detections within 2%.
 5. serve    -- ``repro_torch.launch.serve.main`` drives a full-width
                DiT-XL/2-512 engine (28 layers, random seeded weights): 2
                requests in drift/undervolt, then the same seeds in faulty
@@ -113,8 +126,16 @@ Phases, each printing one JSON line with its wall time:
                attention launches per prefill. stat_abft must detect, roll
                back and match the clean decode token for token. Then the
                time per decode step and a profiled request.
+9. lm       -- the same for full-width gemma2-9b (42 layers, d 3584, 16
+               heads of 256 over 8 KV heads, windows of 4096 on alternate
+               layers, softcaps; ~9.24 B parameters, f32 masters and the
+               bf16 copy, 55.5 GB), after the olmo-1b engine is freed:
+               287 fault_inject launches (41 faulted layers x 7 GEMMs) per
+               faulted decode step, 42 attention launches per prefill;
+               peak device memory, ms per decode step, the profiled
+               request's device busy share.
 
-9. baselines -- the full-width DiT-XL/2-512 serves the same 2 seeds at
+10. baselines -- the full-width DiT-XL/2-512 serves the same 2 seeds at
                undervolt for 10 steps in thundervolt, approx_abft, dmr
                and stat_abft through the CLI: 1720 ``abft_matmul`` and
                280 attention launches per run (the first run also
@@ -124,7 +145,7 @@ Phases, each printing one JSON line with its wall time:
                per mode PSNR against clean, corrected elements and the
                run wall, and one evaluation's ``extra_compute_flops`` /
                ``extra_dram_bytes`` (drift's beside them).
-10. families -- full-width PixArt-alpha (285 protected GEMMs and 28
+11. families -- full-width PixArt-alpha (285 protected GEMMs and 28
                attention launches per evaluation) and the SD1.5 UNet (40
                and 5) each serve 2 requests in drift (with its clean
                reference) and then faulty at undervolt for 10 steps:
@@ -149,6 +170,7 @@ raises and exits non-zero.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -158,7 +180,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "reference", "serve", "offload",
-          "sched", "ar", "baselines", "families")
+          "sched", "ar", "lm", "baselines", "families")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, int8 and bf16
 # tensor-core rates, float32 rate outside the tensor cores.
@@ -173,6 +195,8 @@ BUCKET = 2
 SERVE_STEPS = 10
 THRESHOLD = 1 << 10
 AR_ARCH = "olmo-1b"
+LM_ARCH = "gemma2-9b"       # the full-width GQA model of the lm phase
+GQA_ARCHS = ("gemma2-9b", "gemma3-27b", "glm4-9b")
 AR_STEPS = 16
 AR_WINDOW = 4
 TS_ARGS = ["--taylorseer", "--precision", "int8-body4"]
@@ -706,6 +730,130 @@ def phase_kernels_ar(torch, reps: int):
     return fi_rows, mha_rows, stat_row, drift_row
 
 
+# The GQA language models' attention calls: (label, (B, S, H, Hkv, D),
+# causal, window, softcap, tolerance), and the UNet's two self-attention
+# shapes timed again over more launches.
+LM_ATTN = (
+    ("gemma2-9b prefill, local layer", (2, 8, 16, 8, 256), True, 4096, 50.0,
+     3e-2),
+    ("gemma2-9b prefill, global layer", (2, 8, 16, 8, 256), True, 0, 50.0,
+     3e-2),
+    ("gemma2-9b, binding window", (1, 8192, 16, 8, 256), True, 4096, 50.0,
+     1e-2),
+    ("gemma3-27b, local layer", (1, 2048, 32, 16, 168), True, 1024, 0.0,
+     1e-2),
+    ("glm4-9b, global layer", (1, 4096, 32, 2, 128), True, 0, 0.0, 1e-2),
+    ("sd15-unet 32x32 self-attention", (2, 1024, 10, 10, 64), False, 0, 0.0,
+     1e-2),
+    ("sd15-unet 16x16 self-attention", (2, 256, 20, 20, 64), False, 0, 0.0,
+     1e-2),
+)
+UNET_REPS = 5           # the UNet rows: this many times --reps launches
+
+
+def attn_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs one head attends: causal and window clipped."""
+    total = 0
+    for r in range(s):
+        lo = max(0, r - window + 1) if window > 0 else 0
+        hi = r if causal else s - 1
+        total += hi - lo + 1
+    return total
+
+
+def phase_kernels_lm(torch, reps: int):
+    """The attention kernel at the GQA models' calls (``LM_ATTN``), bf16:
+    one launch on the (B, S, H, D) q and (B, S, Hkv, D) k, v, within the
+    row's tolerance of the plain ``full_attention``; device ms over cold
+    inputs beside the bound (4 D flops per attended pair and head at the
+    bf16 rate, or q, k, v and o moved once), the plain version's ms and
+    ``F.scaled_dot_product_attention(enable_gqa=True)`` with a boolean
+    mask for a window, where no softcap leaves it a different function.
+    Softcapped rows scale q by 8 so that scores of ~30 bend."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.models.attention import _mask, full_attention
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(20261018)
+    rows = []
+    for label, (b, s, h, hkv, d), causal, window, cap, tol in LM_ATTN:
+        q = torch.randn((b, s, h, d), generator=g, device=dev)
+        if cap:
+            q = q * 8
+        q = q.to(torch.bfloat16)
+        k, v = (torch.randn((b, s, hkv, d), generator=g, device=dev
+                            ).to(torch.bfloat16) for _ in range(2))
+
+        def mha(q_, k_, v_, causal=causal, window=window, cap=cap):
+            return fk.mha_flash(q_, k_, v_, causal=causal, window=window,
+                                softcap=cap)
+
+        def plain(q_, k_, v_, causal=causal, window=window, cap=cap):
+            return full_attention(q_, k_, v_, causal=causal, window=window,
+                                  attn_softcap=cap)
+        n0 = fk.launches
+        got = mha(q, k, v)
+        torch.cuda.synchronize()
+        launched = fk.launches - n0
+        want = plain(q, k, v)
+        err = max_abs_err([got], [want])
+        if not (launched == 1 and bool(torch.isfinite(got).all())
+                and torch.allclose(got.float(), want.float(), atol=tol,
+                                   rtol=tol)):
+            raise AssertionError(f"mha_flash {label} {(b, s, h, hkv, d)}: "
+                                 f"{launched} launches, max abs err {err} "
+                                 f"beyond {tol}")
+        del want
+        pairs = attn_pairs(s, causal, window)
+        flops = 4 * b * h * d * pairs
+        bytes_ = 2 * b * s * d * (2 * h + 2 * hkv)
+        t_o, t_b = flops / BF16_FLOPS_PER_S, bytes_ / HBM_BYTES_PER_S
+        ring = ring_of((q, k, v), bytes_)
+        r = reps * (UNET_REPS if label.startswith("sd15") else 1)
+        row = dict(name=label, shape=[b, s, h, hkv, d], causal=causal,
+                   window=window, softcap=cap, tol=tol, max_abs_err=err,
+                   launches_per_call=launched, ring=len(ring), reps=r,
+                   ms=device_ms(mha, ring, r, "flash_attention"),
+                   wall_ms=time_ms(mha, ring, r),
+                   plain_ms=device_ms(plain, ring, max(1, r // 4)),
+                   bound_ms=1e3 * max(t_o, t_b),
+                   bound_by="operations" if t_o >= t_b else "bytes",
+                   attended_pairs=pairs, library_ms=None,
+                   library_kernels=None)
+        if not cap:
+            mask = None
+            if window:
+                pos = torch.arange(s, device=dev)
+                mask = _mask(pos, pos, causal, window)
+            lib_ring = [tuple(x.transpose(1, 2) for x in t) for t in ring]
+
+            def sdpa(q_, k_, v_, mask=mask, causal=causal):
+                return F.scaled_dot_product_attention(
+                    q_, k_, v_, attn_mask=mask,
+                    is_causal=causal and mask is None, enable_gqa=True)
+            row.update(library_ms=device_ms(sdpa, lib_ring, r),
+                       library_kernels=kernel_names(sdpa, lib_ring[0]))
+            del lib_ring
+        row["tflops"] = tflops(flops, row["ms"])
+        rows.append(row)
+        del ring, q, k, v, got
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels", "kernel": "mha_flash (GQA models, UNet)",
+          "rows": rows,
+          "note": "bf16; ms is the attention kernel's device time per "
+                  "launch (torch.profiler, cold inputs), plain_ms the plain "
+                  "full_attention's (scores in f32), library_ms one "
+                  "F.scaled_dot_product_attention(enable_gqa=True) call on "
+                  "(B, H, S, D) views, with a boolean mask for a window, "
+                  "null where the softcap leaves no single library call "
+                  "computing the same function; bound_ms at 989 TFLOP/s "
+                  "(4 D flops per attended query-key pair and head, causal "
+                  "and window clipped) or 3.35 TB/s (q, k, v, o once); the "
+                  "UNet rows time UNET_REPS times as many launches"})
+    return rows
+
+
 def _perturb(torch, params, cfg, seed: int, device):
     """Small seeded random adaLN and final weights: with the adaLN-Zero
     init the model predicts eps = 0 and every quality number is vacuous."""
@@ -864,7 +1012,62 @@ def phase_reference(torch):
                 lm_detections_cpu=db,
                 lm_rollbacks=lm_out["cpu"][0].ar_rollbacks,
                 lm_tokens=[list(r.tokens) for r in lm_out["cpu"]],
-                slice8=_reference_slice8(torch, engine, cpu_params, lat))
+                slice8=_reference_slice8(torch, engine, cpu_params, lat),
+                gqa=_reference_gqa(torch, engine))
+
+
+def _reference_gqa(torch, engine):
+    """SMOKE gemma2-9b, gemma3-27b and glm4-9b on the card and the CPU with
+    the same params, prompts and masks: 12 stat_abft tokens at undervolt,
+    window 3, so that the decode passes the SMOKE window of 8 (the card
+    runs the f32 attention kernel in prefill, GQA, windows and gemma2's
+    softcap included). Tokens, token match, rollbacks and evaluations
+    exact; detections within 2%, as olmo-1b's; modeled joules equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serving.ar import prompt_tokens
+    rows = []
+    for arch in GQA_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        params = transformer.init_params(cfg, 8)
+        # As the CPU tests scale them, so that greedy decoding does not
+        # repeat one token: the embedding down, wo and w_down up.
+        params["embed"] = params["embed"] * 0.05
+        for lp in params["layers"]:
+            lp["attn"]["wo"] = lp["attn"]["wo"] * 4.0
+            lp["mlp"]["w_down"] = lp["mlp"]["w_down"] * 4.0
+        prompts = prompt_tokens(cfg, [0, 1])
+        out = {}
+        for device in ("cuda", "cpu"):
+            eng = engine(arch, device, params)
+            eng.servable_for(arch).batch_inputs = \
+                lambda c, seeds, d=device: (prompts.to(d),)
+            for s_ in (0, 1):
+                eng.submit(arch=arch, steps=12, mode="stat_abft",
+                           op="undervolt", seed=s_, rollback_interval=3)
+            out[device] = eng.run()
+        for a, b in zip(out["cuda"], out["cpu"]):
+            if ((a.tokens, a.token_match_vs_clean, a.ar_rollbacks,
+                 a.n_model_evals, a.energy_j)
+                    != (b.tokens, b.token_match_vs_clean, b.ar_rollbacks,
+                        b.n_model_evals, b.energy_j)):
+                raise AssertionError(f"{arch} SMOKE card vs CPU: {a} vs {b}")
+            if not (b.ar_detections > 0 and b.ar_rollbacks >= 1 and abs(
+                    a.ar_detections - b.ar_detections)
+                    <= 0.02 * b.ar_detections):
+                raise AssertionError(f"{arch} SMOKE detections "
+                                     f"{a.ar_detections} vs "
+                                     f"{b.ar_detections}")
+            for r, dev in ((a, "cuda"), (b, "cpu")):
+                check_energy("reference", f"{arch} stat_abft ({dev})", [r])
+            rows.append(dict(arch=arch, request_id=b.request_id,
+                             tokens=list(b.tokens),
+                             detections_card=a.ar_detections,
+                             detections_cpu=b.ar_detections,
+                             rollbacks=b.ar_rollbacks,
+                             evals=b.n_model_evals,
+                             token_match_vs_clean=b.token_match_vs_clean))
+    return rows
 
 
 def _reference_slice8(torch, engine, dit_params, lat):
@@ -1675,6 +1878,26 @@ def phase_sched(torch, smi):
 
 def phase_ar(torch):
     """Full-width olmo-1b through the CLI: stat_abft, then faulty."""
+    return _serve_ar(torch, AR_ARCH, 21)
+
+
+def phase_lm(torch):
+    """Full-width gemma2-9b (42 layers, d 3584, 16 heads of 256 over 8 KV
+    heads, windows of 4096 on alternate layers, softcaps 50 and 30, ~9.24 B
+    parameters: 37 GB of f32 masters and the 18.5 GB bf16 copy) through
+    the CLI as ``ar`` drives olmo-1b, after every earlier engine is
+    freed."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return _serve_ar(torch, LM_ARCH, 22)
+
+
+def _serve_ar(torch, arch, seed):
+    """One full-width autoregressive arch through the CLI: 2 requests at
+    bucket 2, 16 tokens, window 4, stat_abft then faulty at undervolt;
+    exact launch counts, detections, rollbacks, token match 1.0, ledgers;
+    then ms per decode step and a profiled request. The engine is freed
+    before it returns."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import abft_matmul as ak
     from repro_torch.kernels import fault_inject as fik
@@ -1685,16 +1908,16 @@ def phase_ar(torch):
     from repro_torch.serving import DriftServeEngine
 
     dev = torch.device("cuda")
-    cfg = get_config(AR_ARCH)
+    cfg = get_config(arch)
     t0 = time.perf_counter()
-    eng = DriftServeEngine(arch=AR_ARCH, smoke=False, bucket=BUCKET,
+    eng = DriftServeEngine(arch=arch, smoke=False, bucket=BUCKET,
                            device="cuda")
-    params = transformer.init_params(cfg, 21, dev)
-    eng.set_params(AR_ARCH, False, params)
+    params = transformer.init_params(cfg, seed, dev)
+    eng.set_params(arch, False, params)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    argv = ["--arch", AR_ARCH, "--no-smoke", "--batch", str(BUCKET),
+    argv = ["--arch", arch, "--no-smoke", "--batch", str(BUCKET),
             "--steps", str(AR_STEPS), "--requests", "2",
             "--rollback-interval", str(AR_WINDOW), "--op", "undervolt",
             "--device", "cuda"]
@@ -1723,13 +1946,14 @@ def phase_ar(torch):
             "flash_attention": prefills * cfg.n_layers,
             "abft_matmul": 0, "rollback_correct": 0}
     if launches != want:
-        raise AssertionError(f"AR launch counts {launches} != {want}")
+        raise AssertionError(f"{arch} launch counts {launches} != {want}")
     reqs = []
     for mode, results in (("stat_abft", stat), ("faulty", faulty)):
         for r in results:
             if len(r.tokens) != AR_STEPS or r.latents is not None:
-                raise AssertionError(f"{mode} request {r.request_id}: "
-                                     f"{len(r.tokens)} tokens")
+                raise AssertionError(f"{arch} {mode} request "
+                                     f"{r.request_id}: {len(r.tokens)} "
+                                     "tokens")
             if mode == "stat_abft" and not (
                     r.ar_detections > 0 and r.ar_rollbacks >= 1
                     and r.token_match_vs_clean == 1.0
@@ -1749,33 +1973,41 @@ def phase_ar(torch):
                              monitor_ber=r.monitor_ber,
                              monitor_op_index=r.monitor_op_index))
     (clean,) = eng._clean_samples.values()
-    energy = (check_energy("ar", "stat_abft", stat)
-              + check_energy("ar", "faulty", faulty))
+    path = "ar" if arch == AR_ARCH else "lm"
+    energy = (check_energy(path, f"{arch} stat_abft", stat)
+              + check_energy(path, f"{arch} faulty", faulty))
     for r in stat:
         if not r.energy_breakdown["compute_replay"] > 0:
             raise AssertionError(f"stat_abft request {r.request_id}: "
                                  "replays billed no compute_replay")
-    return dict(arch=AR_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
-                d_ff=cfg.d_ff, vocab=cfg.vocab, bucket=BUCKET,
-                steps=AR_STEPS, window=AR_WINDOW, setup_s=setup_s,
-                stat_abft_run_s=t_stat, faulty_run_s=t_faulty,
-                peak_mem_bytes=peak, launches=launches, requests=reqs,
-                energy=energy,
-                clean_tokens=clean.tolist(), builds=eng.cache.builds,
-                step_ms=_ar_step_ms(torch, eng, cfg, params),
-                breakdown=_profile_ar(torch, eng, argv))
+    out = dict(arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
+               heads=[cfg.n_heads, cfg.kv_heads, cfg.hd], d_ff=cfg.d_ff,
+               vocab=cfg.vocab, params=transformer.param_count(cfg),
+               bucket=BUCKET, steps=AR_STEPS, window=AR_WINDOW,
+               setup_s=setup_s, stat_abft_run_s=t_stat,
+               faulty_run_s=t_faulty, peak_mem_bytes=peak,
+               launches=launches, requests=reqs, energy=energy,
+               clean_tokens=clean.tolist(), builds=eng.cache.builds,
+               step_ms=_ar_step_ms(torch, eng, arch, cfg),
+               breakdown=_profile_ar(torch, eng, argv))
+    out["peak_mem_bytes_with_timing"] = torch.cuda.max_memory_allocated()
+    del eng, params, stat, faulty, clean
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
-def _ar_step_ms(torch, eng, cfg, params):
+def _ar_step_ms(torch, eng, arch, cfg):
     """Per mode: host wall ms per decode step, each ended by a
     synchronize, over the faulted steps of one pass (a decoder built the
-    way the engine builds it), and the device kernels one more faulted
-    step runs, counted by the profiler."""
+    way the engine builds it, on the engine's prepared weights: a second
+    bf16 copy of gemma2-9b would not fit beside the first and the f32
+    masters), and the device kernels one more faulted step runs, counted
+    by the profiler."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import dvfs, fault
-    from repro_torch.models import transformer
     from repro_torch.serving import ar
-    weights = transformer.prepare(cfg, params)
+    (_, weights), = eng.servable_for(arch)._weights.values()
     tokens = ar.prompt_tokens(cfg, [0, 1], eng.device)
     schedule = dvfs.fine_grained_schedule(AR_STEPS + 1, dvfs.UNDERVOLT,
                                           nominal_steps=eng.nominal_steps)
@@ -2149,8 +2381,8 @@ def kernel_summary(kernels_out, path_launches):
     of the ar path, all made through it. The composites keep no count
     (``launches`` null): each call's launches are counted under the
     kernels it calls."""
-    (abft_rows, rb_rows, fl_rows, fi_rows, mha_rows, stat_row,
-     drift_row) = kernels_out
+    (abft_rows, rb_rows, fl_rows, fi_rows, mha_rows, stat_row, drift_row,
+     lm_rows) = kernels_out
 
     def launches(name, paths=None):
         by = {p: c[name] for p, c in path_launches.items()
@@ -2202,14 +2434,20 @@ def kernel_summary(kernels_out, path_launches):
             "one launch through mha_flash on the DiT's (2, 1024, 16, 72) "
             "bf16 projections in place (token stride 1152)",
             fl["library_ms"]),
-        row("mha_flash", "src/repro_torch/kernels/flash_attention.py",
-            "src/repro/kernels/flash_attention.py:105", mha,
-            mha["bound_by"], "one call, (2, 8, 16, 128) bf16 causal (the "
-            "olmo-1b prefill's), one kernel on the tensors in place",
-            mha["library_ms"],
-            counted="flash_attention", paths=("ar",),
-            note="the flash_attention launches of the ar path, each made "
-                 "through mha_flash; not a kernel of its own"),
+        dict(row("mha_flash", "src/repro_torch/kernels/flash_attention.py",
+                 "src/repro/kernels/flash_attention.py:105", mha,
+                 mha["bound_by"], "one call, (2, 8, 16, 128) bf16 causal "
+                 "(the olmo-1b prefill's), one kernel on the tensors in "
+                 "place; lm_shapes: the GQA models' calls",
+                 mha["library_ms"],
+                 counted="flash_attention", paths=("ar", "lm"),
+                 note="the flash_attention launches of the ar and lm "
+                      "paths, each made through mha_flash; not a kernel "
+                      "of its own"),
+             lm_shapes=[{k: r[k] for k in (
+                 "name", "shape", "window", "softcap", "max_abs_err", "ms",
+                 "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                 for r in lm_rows]),
         row("fault_inject", csrc + "fault_inject.cu",
             "src/repro/kernels/fault_inject.py:24", fi, "bytes",
             "mean per launch over one decode step's 7 GEMM outputs, "
@@ -2270,15 +2508,17 @@ def main(argv=None) -> int:
             rec["ptxas"] = {n: ptxas_summary(log) for n, log in logs.items()}
         elif phase == "kernels":
             kernels_out = (phase_kernels(torch, args.reps)
-                           + phase_kernels_ar(torch, args.reps))
+                           + phase_kernels_ar(torch, args.reps)
+                           + (phase_kernels_lm(torch, args.reps),))
         elif phase == "reference":
             rec.update(phase_reference(torch))
-        elif phase in ("serve", "offload", "sched", "ar", "baselines",
+        elif phase in ("serve", "offload", "sched", "ar", "lm", "baselines",
                        "families"):
             out = (phase_serve(torch) if phase == "serve"
                    else phase_offload(torch, smi) if phase == "offload"
                    else phase_sched(torch, smi) if phase == "sched"
                    else phase_ar(torch) if phase == "ar"
+                   else phase_lm(torch) if phase == "lm"
                    else phase_baselines(torch) if phase == "baselines"
                    else phase_families(torch, args.reps))
             path_launches[phase] = out["launches"]

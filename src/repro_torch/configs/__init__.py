@@ -1,8 +1,9 @@
 """Architecture registry of the port: ``get_config(arch, smoke=False)``.
 
 ``dit-xl-512``, ``pixart-alpha`` and ``sd15-unet`` (diffusion) and
-``olmo-1b`` (autoregressive, dense) are ported; any other arch the JAX
-registry knows raises, naming the ROADMAP queue item that ports it.
+``olmo-1b``, ``gemma2-9b``, ``gemma3-27b`` and ``glm4-9b``
+(autoregressive, dense) are ported; any other arch the JAX registry
+knows raises, naming the ROADMAP queue item that ports it.
 """
 from __future__ import annotations
 
@@ -16,13 +17,13 @@ _MODULES: Dict[str, str] = {
     "pixart-alpha": "pixart_alpha",
     "sd15-unet": "sd15_unet",
     "olmo-1b": "olmo_1b",
+    "gemma2-9b": "gemma2_9b",
+    "gemma3-27b": "gemma3_27b",
+    "glm4-9b": "glm4_9b",
 }
 
 # Archs of the JAX registry that a later slice ports (ROADMAP Queue A).
 _NOT_YET_PORTED: Dict[str, str] = {
-    "gemma3-27b": "Queue A item 12 (other families; GQA, sliding windows)",
-    "gemma2-9b": "Queue A item 12 (other families; GQA, softcaps)",
-    "glm4-9b": "Queue A item 12 (other families; GQA)",
     "whisper-base": "Queue A item 12 (other families)",
     "kimi-k2-1t-a32b": "Queue A item 12 (other families)",
     "deepseek-moe-16b": "Queue A item 12 (other families)",

@@ -5,13 +5,26 @@
 // (B, S, H, D) wrapper mha_flash (:105). o = softmax(q k^T * D^-0.5) v per
 // (batch, head), non-causal or causal, with the TPU kernel's constants:
 // scale D^-0.5 rounded to f32, masked scores NEG_INF = -2e38, final
-// normaliser max(l, 1e-37), output in the input dtype. D <= 128.
+// normaliser max(l, 1e-37), output in the input dtype. D <= 256.
+//
+// It also computes what the reference's full_attention (repro/models/
+// attention.py:40) adds for the LM prefill, each off at 0:
+//   - GQA: k and v hold Hkv heads (H % Hkv == 0); query head h reads KV
+//     head h / (H / Hkv) in place, never a repeated copy.
+//   - a sliding window: keys with row - key >= window are masked, and the
+//     key tiles wholly below the block's first row's window are skipped
+//     (no row loses a valid key: each row's diagonal is in range).
+//   - a softcap: s = cap * tanhf((q.k * scale) / cap) before the mask, as
+//     the reference orders them (tanhf, not tanh.approx.f32). With a cap
+//     the softmax exponent is exp2((s - m) * log2(e)) of the capped score;
+//     without one it stays the raw-score form below.
 //
 // Addressing. q, k, v and o are read and written where they lie: the
 // launcher takes each tensor's batch, token and head strides in elements
-// (last-dim stride 1). The grid is (ceil(S / BQ), B * H). A (BH, S, D)
-// tensor is the case H = 1, and a fused projection's (B, S, 3, H, D)
-// output sliced into q, k, v needs no copy.
+// (last-dim stride 1; k's and v's over their own Hkv heads). The grid is
+// (ceil(S / BQ), B * H). A (BH, S, D) tensor is the case H = 1, and a
+// fused projection's (B, S, 3, H, D) output sliced into q, k, v needs no
+// copy.
 //
 // bf16 (the serving paths): FlashAttention-2 on the tensor cores through
 // mma.sync.m16n8k16 (bf16 in, f32 accumulate). Bound on an H100 SXM:
@@ -20,10 +33,14 @@
 // operations bind. What the design does about it:
 //   - 4 warps; each owns MT m16 tiles of query rows (MT = 2 at D <= 72:
 //     128 rows a block, so every K and V fragment read from shared memory
-//     feeds two products; MT = 1 at D = 128, where MT = 2 would spill).
-//     The warp's Q fragments are loaded once with ldmatrix and stay in
-//     registers.
-//   - K/V tiles of 64 keys are double-buffered in shared memory through
+//     feeds two products; MT = 1 at D >= 128, where MT = 2 would spill).
+//     Up to D = 128 the warp's Q fragments are loaded once with ldmatrix
+//     and stay in registers. Above it they would not fit beside the O
+//     accumulator (D / 2 f32 a lane: 128 at D = 256), so Q stays in shared
+//     memory and each k16 step ldmatrix-es its fragment again.
+//   - K/V tiles of 64 keys (32 above D = 128, to keep S and P in fewer
+//     registers and two blocks on an SM: 101 KB of shared memory a block
+//     at D = 256) are double-buffered in shared memory through
 //     cp.async: tile j+1 is in flight while tile j is multiplied. Rows
 //     are padded by 16 bytes, so ldmatrix's eight rows hit distinct banks.
 //   - S = Q K^T in f32 registers (K read as the col-major B operand with
@@ -41,14 +58,19 @@
 //   - The k-dim of Q K^T is D rounded up to 16 (72 -> 80); the pad
 //     columns of every tile are zeros written by the kernel, since stale
 //     shared memory may hold NaN and 0 * NaN would poison S. P V's n-dim
-//     is D in n8 tiles (9 at D = 72, the last through ldmatrix.x2).
-//     Instantiated at padded widths 80 (the DiT's D = 72) and 128
-//     (olmo-1b's); any other D <= 128 rounds up to the next one.
+//     is D in n8 tiles (9 at D = 72, 21 at D = 168, the last through
+//     ldmatrix.x2). Instantiated at padded widths 80 (the DiT's D = 72),
+//     128 (olmo-1b's and glm4-9b's), 176 (gemma3-27b's D = 168) and 256
+//     (gemma2-9b's), with GQA and the window, and with the softcap too;
+//     at 80 and 128 also without either, which compiles to the kernel the
+//     DiT and olmo-1b ran before GQA came. Any other D <= 256 rounds up
+//     to the next width.
 //   - Loads are 16-byte cp.async when D % 8 == 0 and every row start is
 //     16-byte aligned (the launcher's `vec`), else element loads into the
 //     same tiles. Keys past S are zero rows and get p = 0 exactly; rows
 //     past S are not stored; causal skips tiles above the diagonal and
-//     masks the diagonal tiles.
+//     masks the diagonal tiles; a window skips the tiles below it and
+//     masks the tiles it cuts.
 //   - O is normalised in registers, staged through the Q tile and stored
 //     with 16-byte stores where `vec` allows.
 // On an H100 80GB HBM3 at 700 W (chip_smoke.py) it reaches about a fifth
@@ -65,13 +87,14 @@
 
 namespace {
 
-constexpr int MAX_D = 128;
+constexpr int MAX_D = 256;
 constexpr float NEG_INF = -2.0e38f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Per-tensor strides in elements: batch, token, head.
+// Per-tensor strides in elements: batch, token, head. G = H / Hkv query
+// heads share one KV head.
 struct Layout {
-  int H;
+  int H, G;
   long long q[3], k[3], v[3], o[3];
 };
 
@@ -102,7 +125,8 @@ template <int NC>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o,
-                    Layout L, int S, int D, float scale, int causal) {
+                    Layout L, int S, int D, float scale, int causal,
+                    int window, float cap) {
   extern __shared__ float smem[];
   float* qs = smem;                       // [BQ][D]
   float* ks = qs + BQ * D;                // [BK][D + 1]
@@ -110,10 +134,10 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y / L.H, h = blockIdx.y % L.H;
+  const int b = blockIdx.y / L.H, h = blockIdx.y % L.H, hk = h / L.G;
   q += b * L.q[0] + h * L.q[2];
-  k += b * L.k[0] + h * L.k[2];
-  v += b * L.v[0] + h * L.v[2];
+  k += b * L.k[0] + hk * L.k[2];
+  v += b * L.v[0] + hk * L.v[2];
   o += b * L.o[0] + h * L.o[2];
 
   for (int e = tid; e < BQ * D; e += THREADS) {
@@ -131,9 +155,14 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // Causal: tiles wholly above the diagonal contribute exp(NEG_INF - m) = 0
-  // once m is finite (tile 0 always holds key 0), so they are skipped.
+  // once m is finite, so they are skipped; so are tiles wholly below the
+  // first row's window. A row that meets only masked keys in its first
+  // tiles carries m = NEG_INF and junk l and acc until its first valid
+  // key, whose finite max scales them by exp(NEG_INF - m) = 0; every row
+  // has one (its diagonal).
   const int kv_end = causal ? min(S, q0 + BQ) : S;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
     __syncthreads();
     for (int e = tid; e < BK * D; e += THREADS) {
       const int j = e / D, d = e % D;
@@ -161,7 +190,9 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int r = 0; r < ROWS; ++r) {
       const int qi = q0 + warp * ROWS + r;
       float sr = s[r] * scale;
-      if (causal && key > qi) sr = NEG_INF;
+      if (cap > 0.f) sr = cap * tanhf(sr / cap);
+      if ((causal && key > qi) || (window > 0 && qi - key >= window))
+        sr = NEG_INF;
       float mx = key_ok ? sr : NEG_INF;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -211,7 +242,7 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 template <int NC>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                int B, int S, int D, const Layout& L, float scale, int causal,
-               cudaStream_t stream) {
+               int window, float cap, cudaStream_t stream) {
   static unsigned long long done = 0;
   const size_t smem = sizeof(float) * (BQ * D + BK * (D + 1) + BK * D);
   auto kern = flash_attention_f32<NC>;
@@ -220,12 +251,11 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   dim3 grid((S + BQ - 1) / BQ, B * L.H);
   kern<<<grid, THREADS, smem, stream>>>((const float*)q, (const float*)k,
                                         (const float*)v, (float*)o, L, S, D,
-                                        scale, causal);
+                                        scale, causal, window, cap);
   return (int)cudaGetLastError();
 }
 
 // -------------------------------------------------- bf16 tensor-core kernel
-constexpr int TC_BK = 64;     // keys per tile
 constexpr int TC_THREADS = 128;
 
 typedef __nv_bfloat16 bf16;
@@ -336,28 +366,34 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 }
 
 // DK: k-dim of Q K^T (D padded to 16); NT: n8 tiles of P V (D <= 8 NT);
-// MT: m16 tiles per warp (the block holds 64 MT query rows).
-template <int DK, int NT, int MT>
+// MT: m16 tiles per warp (the block holds 64 MT query rows); BK: keys per
+// K/V tile; QREG: Q fragments kept in registers (else re-read from shared
+// memory each k16 step); EXT: GQA and the window (off, the kernel is the
+// DiT's and olmo-1b's as before them: KV head h, no window test); CAP:
+// softcap the scaled scores.
+template <int DK, int NT, int MT, int BK, bool QREG, bool EXT, bool CAP>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ o,
-                   Layout L, int S, int D, float scale_log2, int causal,
-                   int vec) {
+                   Layout L, int S, int D, float scale, float exp_scale,
+                   float cap, int causal, int window, int vec) {
   constexpr int RS = DK + 8;              // row stride: +16 bytes
   constexpr int BQ = 64 * MT;
-  constexpr int TILE = TC_BK * RS;
+  constexpr int TILE = BK * RS;
+  constexpr int KS = BK / 16;             // 16-key groups of a tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [BQ][RS]; O staging
-  bf16* sK = sQ + BQ * RS;                        // [2][64][RS]
-  bf16* sV = sK + 2 * TILE;                       // [2][64][RS]
+  bf16* sK = sQ + BQ * RS;                        // [2][BK][RS]
+  bf16* sV = sK + 2 * TILE;                       // [2][BK][RS]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;    // mma row group, lane in quad
   const int q0 = blockIdx.x * BQ;
   const int b = blockIdx.y / L.H, h = blockIdx.y % L.H;
+  const int hk = EXT ? h / L.G : h;
   q += b * L.q[0] + h * L.q[2];
-  k += b * L.k[0] + h * L.k[2];
-  v += b * L.v[0] + h * L.v[2];
+  k += b * L.k[0] + hk * L.k[2];
+  v += b * L.v[0] + hk * L.v[2];
   o += b * L.o[0] + h * L.o[2];
 
   // Zero the pad columns D .. DK - 1 of every tile; loads never write
@@ -365,20 +401,23 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (D < DK) {
     const int pad = DK - D;
     const bf16 zero = __ushort_as_bfloat16(0);
-    for (int e = tid; e < (BQ + 4 * TC_BK) * pad; e += TC_THREADS) {
+    for (int e = tid; e < (BQ + 4 * BK) * pad; e += TC_THREADS) {
       const int r = e / pad;
       sQ[r * RS + D + (e - r * pad)] = zero;
     }
   }
 
+  // Key tiles j0 .. j_end - 1: causal stops at the block's last row, a
+  // window starts at the tile holding the first row's first valid key.
   const Chunks ck = chunks_of(vec ? D : 8, tid);
-  const int n_keys_tiles = (S + TC_BK - 1) / TC_BK;
-  const int n_tiles =
-      causal ? min(n_keys_tiles, (q0 + BQ - 1) / TC_BK + 1) : n_keys_tiles;
+  const int n_key_tiles = (S + BK - 1) / BK;
+  const int j_end =
+      causal ? min(n_key_tiles, (q0 + BQ - 1) / BK + 1) : n_key_tiles;
+  const int j0 = EXT && window > 0 ? max(0, q0 - window + 1) / BK : 0;
 
   load_tile<RS, BQ>(sQ, q, L.q[1], q0, S, D, vec, ck, tid);
-  load_tile<RS, TC_BK>(sK, k, L.k[1], 0, S, D, vec, ck, tid);
-  load_tile<RS, TC_BK>(sV, v, L.v[1], 0, S, D, vec, ck, tid);
+  load_tile<RS, BK>(sK, k, L.k[1], j0 * BK, S, D, vec, ck, tid);
+  load_tile<RS, BK>(sV, v, L.v[1], j0 * BK, S, D, vec, ck, tid);
   cp_async_commit();
 
   // Rows of this lane: q0 + warp * 16 MT + 16 mt + g (+ 8).
@@ -393,15 +432,15 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     m[mt][0] = m[mt][1] = NEG_INF;
     l[mt][0] = l[mt][1] = 0.f;
   }
-  uint32_t qf[MT][DK / 16][4];
+  uint32_t qf[QREG ? MT : 1][QREG ? DK / 16 : 1][4];
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      load_tile<RS, TC_BK>(sK + (buf ^ 1) * TILE, k, L.k[1], (j + 1) * TC_BK,
-                           S, D, vec, ck, tid);
-      load_tile<RS, TC_BK>(sV + (buf ^ 1) * TILE, v, L.v[1], (j + 1) * TC_BK,
-                           S, D, vec, ck, tid);
+  for (int j = j0; j < j_end; ++j) {
+    const int buf = (j - j0) & 1;
+    if (j + 1 < j_end) {
+      load_tile<RS, BK>(sK + (buf ^ 1) * TILE, k, L.k[1], (j + 1) * BK, S, D,
+                        vec, ck, tid);
+      load_tile<RS, BK>(sV + (buf ^ 1) * TILE, v, L.v[1], (j + 1) * BK, S, D,
+                        vec, ck, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -409,66 +448,98 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();
 
-    if (j == 0) {
+    if constexpr (QREG) {
+      if (j == j0) {
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int kk = 0; kk < DK / 16; ++kk)
-          ldsm_x4(qf[mt][kk],
-                  smem_addr(sQ + (warp * 16 * MT + mt * 16 + (lane & 15)) * RS
-                            + kk * 16 + (lane >> 4) * 8));
+          for (int kk = 0; kk < DK / 16; ++kk)
+            ldsm_x4(qf[mt][kk],
+                    smem_addr(sQ + (warp * 16 * MT + mt * 16 + (lane & 15))
+                                       * RS + kk * 16 + (lane >> 4) * 8));
+      }
     }
     const bf16* Kt = sK + buf * TILE;
     const bf16* Vt = sV + buf * TILE;
 
-    // S = Q K^T: 16 MT rows x 64 keys per warp, 8 n8 tiles per m16 tile;
-    // each K fragment feeds MT products.
-    float s[MT][8][4];
+    // S = Q K^T: 16 MT rows x BK keys per warp, BK / 8 n8 tiles per m16
+    // tile; each K fragment feeds MT products.
+    float s[MT][BK / 8][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < BK / 8; ++n)
         s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < DK / 16; ++kk) {
+      uint32_t qa[MT][4];
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
+      for (int mt = 0; mt < MT; ++mt) {
+        if constexpr (QREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[mt][e] = qf[mt][kk][e];
+        } else {
+          ldsm_x4(qa[mt],
+                  smem_addr(sQ + (warp * 16 * MT + mt * 16 + (lane & 15)) * RS
+                            + kk * 16 + (lane >> 4) * 8));
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < KS; ++np) {
         uint32_t bk[4];
         const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
         ldsm_x4(bk, smem_addr(Kt + key * RS + kk * 16 +
                               ((lane >> 3) & 1) * 8));
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(s[mt][2 * np], qf[mt][kk], bk[0], bk[1]);
-          mma_bf16(s[mt][2 * np + 1], qf[mt][kk], bk[2], bk[3]);
+          mma_bf16(s[mt][2 * np], qa[mt], bk[0], bk[1]);
+          mma_bf16(s[mt][2 * np + 1], qa[mt], bk[2], bk[3]);
         }
       }
     }
 
-    // Mask keys past S and, causal, above the diagonal (only the last and
-    // the diagonal tiles need it).
-    const int key0 = j * TC_BK;
-    if (key0 + TC_BK > S || (causal && key0 + TC_BK - 1 > q0)) {
+    // Softcap the scaled scores, as the reference does before its mask.
+    if constexpr (CAP) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int n = 0; n < 8; ++n)
+        for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[mt][n][e] = cap * tanhf((s[mt][n][e] * scale) / cap);
+    }
+
+    // Mask keys past S, above the diagonal (causal) and outside the
+    // window (only the last, the diagonal and the window's edge tiles
+    // need it).
+    const int key0 = j * BK;
+    if (key0 + BK > S || (causal && key0 + BK - 1 > q0) ||
+        (EXT && window > 0 && q0 + BQ - 1 - key0 >= window)) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int key = key0 + n * 8 + 2 * t + (e & 1);
             const int row = wrow + mt * 16 + (e >> 1) * 8;
-            if (key >= S || (causal && key > row)) s[mt][n][e] = NEG_INF;
+            if (key >= S || (causal && key > row) ||
+                (EXT && window > 0 && row - key >= window))
+              s[mt][n][e] = NEG_INF;
           }
     }
 
-    // Online softmax per m16 tile (rows g and g + 8); the scale is
-    // positive, so the max is taken on raw scores and folded into exp2.
-    uint32_t pf[MT][4][4];
+    // Online softmax per m16 tile (rows g and g + 8). Without a cap the
+    // scale is positive, so the max is taken on raw scores and the scale
+    // folded into exp_scale (scale * log2 e); with one the scores are
+    // already scaled and exp_scale is log2 e. Either way the difference
+    // to the row max is taken first.
+    uint32_t pf[MT][KS][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       float mx0 = m[mt][0], mx1 = m[mt][1];
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < BK / 8; ++n) {
         mx0 = fmaxf(mx0, fmaxf(s[mt][n][0], s[mt][n][1]));
         mx1 = fmaxf(mx1, fmaxf(s[mt][n][2], s[mt][n][3]));
       }
@@ -477,8 +548,8 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
       }
-      const float alpha0 = ex2((m[mt][0] - mx0) * scale_log2);
-      const float alpha1 = ex2((m[mt][1] - mx1) * scale_log2);
+      const float alpha0 = ex2((m[mt][0] - mx0) * exp_scale);
+      const float alpha1 = ex2((m[mt][1] - mx1) * exp_scale);
       m[mt][0] = mx0;
       m[mt][1] = mx1;
 
@@ -486,11 +557,11 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // 16 kk .. 16 kk + 15, i.e. S tiles 2 kk and 2 kk + 1.
       float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float p0 = ex2((s[mt][n][0] - mx0) * scale_log2);
-        const float p1 = ex2((s[mt][n][1] - mx0) * scale_log2);
-        const float p2 = ex2((s[mt][n][2] - mx1) * scale_log2);
-        const float p3 = ex2((s[mt][n][3] - mx1) * scale_log2);
+      for (int n = 0; n < BK / 8; ++n) {
+        const float p0 = ex2((s[mt][n][0] - mx0) * exp_scale);
+        const float p1 = ex2((s[mt][n][1] - mx0) * exp_scale);
+        const float p2 = ex2((s[mt][n][2] - mx1) * exp_scale);
+        const float p3 = ex2((s[mt][n][3] - mx1) * exp_scale);
         ls0 += p0 + p1;
         ls1 += p2 + p3;
         pf[mt][n >> 1][(n & 1) * 2] = pack_bf16(p0, p1);
@@ -511,7 +582,7 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // O += P V; each V fragment feeds MT products.
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < KS; ++kk) {
       const bf16* vrow = Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8)
                                   * RS;
 #pragma unroll
@@ -535,7 +606,8 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();    // this buffer is refilled at iteration j + 1
   }
 
-  // Normalise and stage the warp's rows in its own rows of the Q tile.
+  // Normalise and stage the warp's rows in its own rows of the Q tile
+  // (no other warp reads them).
   bf16* so = sQ + warp * 16 * MT * RS;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
@@ -576,39 +648,64 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DK, int NT, int MT>
+template <int DK, int NT, int MT, int BK, bool QREG, bool EXT, bool CAP>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int S, int D, const Layout& L, float scale, int causal, int vec,
-              cudaStream_t stream) {
+              int S, int D, const Layout& L, float scale, int causal,
+              int window, float cap, int vec, cudaStream_t stream) {
   static unsigned long long done = 0;
-  const size_t smem = sizeof(bf16) * (64 * MT + 4 * TC_BK) * (DK + 8);
-  auto kern = flash_attention_tc<DK, NT, MT>;
+  const size_t smem = sizeof(bf16) * (64 * MT + 4 * BK) * (DK + 8);
+  auto kern = flash_attention_tc<DK, NT, MT, BK, QREG, EXT, CAP>;
   const int err = allow_smem(kern, smem, &done);
   if (err) return err;
   dim3 grid((S + 64 * MT - 1) / (64 * MT), B * L.H);
   kern<<<grid, TC_THREADS, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, L, S, D,
-      scale * LOG2E, causal, vec);
+      scale, CAP ? LOG2E : scale * LOG2E, cap, causal, window, vec);
   return (int)cudaGetLastError();
+}
+
+// The instantiation at one padded width for the call's features: with the
+// softcap, with GQA or a window, or (PLAIN: instantiated at the DiT's and
+// olmo-1b's widths only) neither.
+template <int DK, int NT, int MT, int BK, bool QREG, bool PLAIN>
+int launch_tc_for(const void* q, const void* k, const void* v, void* o,
+                  int B, int S, int D, const Layout& L, float scale,
+                  int causal, int window, float cap, int vec,
+                  cudaStream_t stream) {
+  if (cap > 0.f)
+    return launch_tc<DK, NT, MT, BK, QREG, true, true>(
+        q, k, v, o, B, S, D, L, scale, causal, window, cap, vec, stream);
+  if constexpr (PLAIN) {
+    if (L.G == 1 && window == 0)
+      return launch_tc<DK, NT, MT, BK, QREG, false, false>(
+          q, k, v, o, B, S, D, L, scale, causal, window, cap, vec, stream);
+  }
+  return launch_tc<DK, NT, MT, BK, QREG, true, false>(
+      q, k, v, o, B, S, D, L, scale, causal, window, cap, vec, stream);
 }
 
 }  // namespace
 
-// q, k, v, o: (B, S, H, D) at the given element strides (12 values:
-// batch, token, head for q, k, v, o; the last dim is contiguous). dtype:
-// 0 = float32, 1 = bfloat16. scale is D^-0.5, rounded to f32 by the caller
-// as the reference rounds it. vec (bf16): D % 8 == 0 and every row start
+// q, o: (B, S, H, D); k, v: (B, S, Hkv, D), H % Hkv == 0; at the given
+// element strides (12 values: batch, token, head for q, k, v, o; the last
+// dim is contiguous). dtype: 0 = float32, 1 = bfloat16. scale is D^-0.5,
+// rounded to f32 by the caller as the reference rounds it. window > 0
+// masks keys with row - key >= window; softcap > 0 caps the scaled
+// scores; 0 turns either off. vec (bf16): D % 8 == 0 and every row start
 // is 16-byte aligned, so tiles move in 16-byte copies.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
-                                      int H, int D, const long long* strides,
-                                      float scale, int causal, int dtype,
-                                      int vec, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || D <= 0 || D > MAX_D ||
+                                      int H, int Hkv, int D,
+                                      const long long* strides, float scale,
+                                      int causal, int window, float softcap,
+                                      int dtype, int vec, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || D <= 0 || D > MAX_D || Hkv <= 0 ||
+      H % Hkv || window < 0 || !(softcap >= 0.f) ||
       (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
   Layout L;
   L.H = H;
+  L.G = H / Hkv;
   for (int i = 0; i < 3; ++i) {
     L.q[i] = strides[i];
     L.k[i] = strides[3 + i];
@@ -617,22 +714,39 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   }
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
+#define F32_CASE(NC)                                                        \
+  case NC:                                                                  \
+    return launch_f32<NC>(q, k, v, o, B, S, D, L, scale, causal, window,    \
+                          softcap, st);
     switch ((D + 31) / 32) {
-      case 1: return launch_f32<1>(q, k, v, o, B, S, D, L, scale, causal, st);
-      case 2: return launch_f32<2>(q, k, v, o, B, S, D, L, scale, causal, st);
-      case 3: return launch_f32<3>(q, k, v, o, B, S, D, L, scale, causal, st);
+      F32_CASE(1)
+      F32_CASE(2)
+      F32_CASE(3)
+      F32_CASE(4)
+      F32_CASE(5)
+      F32_CASE(6)
+      F32_CASE(7)
       default:
-        return launch_f32<4>(q, k, v, o, B, S, D, L, scale, causal, st);
+        return launch_f32<8>(q, k, v, o, B, S, D, L, scale, causal, window,
+                             softcap, st);
     }
+#undef F32_CASE
   }
   if (dtype == 1) {
     if (vec && D % 8) return (int)cudaErrorInvalidValue;
-    // <padded D, n8 tiles, m16 tiles per warp>
+    // <padded D, n8 tiles, m16 tiles per warp, keys per tile, Q in regs,
+    //  a plain instance>
     if (D <= 72)
-      return launch_tc<80, 9, 2>(q, k, v, o, B, S, D, L, scale, causal, vec,
-                                 st);
-    return launch_tc<128, 16, 1>(q, k, v, o, B, S, D, L, scale, causal, vec,
-                                 st);
+      return launch_tc_for<80, 9, 2, 64, true, true>(
+          q, k, v, o, B, S, D, L, scale, causal, window, softcap, vec, st);
+    if (D <= 128)
+      return launch_tc_for<128, 16, 1, 64, true, true>(
+          q, k, v, o, B, S, D, L, scale, causal, window, softcap, vec, st);
+    if (D <= 168)
+      return launch_tc_for<176, 21, 1, 32, false, false>(
+          q, k, v, o, B, S, D, L, scale, causal, window, softcap, vec, st);
+    return launch_tc_for<256, 32, 1, 32, false, false>(
+        q, k, v, o, B, S, D, L, scale, causal, window, softcap, vec, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -3,10 +3,17 @@
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::
 flash_attention`` (``pl.pallas_call`` at line 83, body ``_kernel`` at
 line 30) and its ``(B, S, H, D)`` wrapper ``mha_flash`` (line 105).
-``q, k, v`` are f32 or bf16 with D <= 128; the output has the input
+``q, k, v`` are f32 or bf16 with D <= 256; the output has the input
 dtype. The constants are the TPU kernel's: masked scores
 ``NEG_INF = -2e38``, the normaliser clamped at ``1e-37``, scale
 ``D ** -0.5`` rounded to f32; causal or not.
+
+``mha_flash`` also computes what the reference's ``full_attention``
+adds for the LM prefill (``repro/models/attention.py:40``): GQA (k and v
+at ``Hkv`` heads, ``H % Hkv == 0``; query head h reads KV head
+``h // (H // Hkv)``, never a repeated copy), a sliding window
+(``window > 0`` masks keys with ``row - key >= window``) and a softcap
+(``cap * tanh(s / cap)`` on the scaled score, before the mask).
 
 The CUDA kernel (``csrc/flash_attention.cu``) reads q, k and v where they
 lie, at the strides ``launch_args`` hands it, so ``mha_flash`` launches on
@@ -36,13 +43,14 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.models.attention import full_attention
 
-MAX_D = 128
+MAX_D = 256
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float]
-             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                ctypes.c_int, ctypes.c_int, ctypes.c_float]
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -54,16 +62,26 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(bh, s, d)
 
 
-def _check(q, k, v, ndim):
+def _check(q, k, v, ndim, window=0, softcap=0.0):
     if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention takes f32 or bf16 q/k/v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.ndim != ndim or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"q, k, v must share one {ndim}-d shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+    if q.ndim != ndim or k.shape != v.shape or k.ndim != ndim:
+        raise ValueError(f"q, k, v must be {ndim}-d with k and v of one "
+                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
+    kv_heads = k.shape[2] if ndim == 4 else 1
+    heads = q.shape[2] if ndim == 4 else 1
+    if (q.shape[:2] != k.shape[:2] or q.shape[-1] != k.shape[-1]
+            or kv_heads == 0 or heads % kv_heads):
+        raise ValueError(f"q {tuple(q.shape)} and k, v {tuple(k.shape)}: "
+                         "self-attention takes one batch, length and head "
+                         "dim, and H a multiple of Hkv")
     if q.shape[-1] > MAX_D:
         raise ValueError(f"head dim {q.shape[-1]} > {MAX_D}")
+    if int(window) < 0 or not float(softcap) >= 0.0:
+        raise ValueError(f"window {window} and softcap {softcap} must be "
+                         ">= 0 (0: off)")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention operands on different devices")
     if q.device.type not in ("cpu", "cuda"):
@@ -76,7 +94,8 @@ def launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Returns ``(B, S, H, D, strides, vec)``: ``strides`` holds the batch,
     token and head strides in elements of q, k, v and o (12 ints; the last
-    dim must be contiguous), and ``vec`` says that every row start is
+    dim must be contiguous; k's and v's head strides step over their own
+    ``Hkv`` heads), and ``vec`` says that every row start is
     16-byte aligned and D a whole number of 16-byte chunks, so the kernel
     may move tiles in 16-byte copies. Strides of size-1 dims are ignored
     for alignment (they address nothing).
@@ -95,8 +114,9 @@ def launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return b, s, h, d, tuple(strides), vec
 
 
-def _launch(q, k, v, causal):
-    """Launch on (B, S, H, D) CUDA tensors; a contiguous (B, S, H, D) out."""
+def _launch(q, k, v, causal, window=0, softcap=0.0):
+    """Launch on (B, S, H, D) q and (B, S, Hkv, D) k, v CUDA tensors; a
+    contiguous (B, S, H, D) out."""
     global launches
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     b, s, h, d, strides, vec = launch_args(q, k, v, o)
@@ -104,9 +124,9 @@ def _launch(q, k, v, causal):
                        _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b,
-                 s, h, d, (ctypes.c_longlong * 12)(*strides), d ** -0.5,
-                 int(bool(causal)), _DTYPES[q.dtype], int(vec),
-                 _lib.stream_of(q.device))
+                 s, h, k.shape[2], d, (ctypes.c_longlong * 12)(*strides),
+                 d ** -0.5, int(bool(causal)), int(window), float(softcap),
+                 _DTYPES[q.dtype], int(vec), _lib.stream_of(q.device))
     _lib.check(err, "flash_attention")
     launches += 1
     return o
@@ -123,10 +143,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool = False) -> torch.Tensor:
-    """q, k, v: (B, S, H, D), any strides with a contiguous last dim ->
-    a contiguous (B, S, H, D) output; one kernel launch, no copies."""
-    _check(q, k, v, 4)
+              causal: bool = False, window: int = 0,
+              softcap: float = 0.0) -> torch.Tensor:
+    """q: (B, S, H, D), k, v: (B, S, Hkv, D), any strides with a contiguous
+    last dim -> a contiguous (B, S, H, D) output; one kernel launch, no
+    copies, KV never repeated. ``window`` > 0 and ``softcap`` > 0 as in
+    ``full_attention``; 0 turns each off."""
+    _check(q, k, v, 4, window, softcap)
     if q.device.type == "cpu":
-        return full_attention(q, k, v, causal=causal)
-    return _launch(q, k, v, causal)
+        return full_attention(q, k, v, causal=causal, window=window,
+                              attn_softcap=softcap)
+    return _launch(q, k, v, causal, window, softcap)

@@ -106,7 +106,8 @@ def build_parser() -> argparse.ArgumentParser:
                f"{OP_LADDER_HELP}.")
     ap.add_argument("--arch", default="dit-xl-512",
                     help="model to serve (ported: dit-xl-512, pixart-alpha, "
-                         "sd15-unet, diffusion; olmo-1b, autoregressive)")
+                         "sd15-unet, diffusion; olmo-1b, gemma2-9b, "
+                         "gemma3-27b, glm4-9b, autoregressive)")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="serve the 3-layer smoke config (--no-smoke: the "

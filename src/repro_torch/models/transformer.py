@@ -1,7 +1,9 @@
 """Decoder-only LM, dense family: prefill and token-by-token decode.
 
-Counterpart of ``repro.models.transformer``, reduced to the dense family
-with global attention (olmo-1b). Params are nested dicts like the
+Counterpart of ``repro.models.transformer``, reduced to the dense family:
+olmo-1b, and gemma2-9b, gemma3-27b and glm4-9b with GQA, per-layer
+sliding windows (``cfg.layer_windows()``), the attention softcap and the
+logit softcap. Params are nested dicts like the
 reference's, except that ``layers`` is a list with one dict per layer (the
 reference stacks them on a leading L axis for ``lax.scan``);
 ``params_from_jax`` converts.
@@ -14,14 +16,15 @@ the same ops on the same cast weight, so bit-identical) and the cast
 embedding. The model functions take raw params or ``Weights``.
 
 Prefill self-attention runs the attention kernel (``kernels.
-flash_attention.mha_flash``, causal); decode attention is plain PyTorch
+flash_attention.mha_flash``, causal, with the layer's window and the
+softcap); decode attention is plain PyTorch
 (``models.attention.decode_attention``), as the reference's is an einsum.
 The KV cache is written in place (the reference returns a new cache);
 ``Cache.pos`` is a host int, so a decode step never waits for the card.
 
-MoE, SSM, hybrid and VLM layers, GQA, sliding windows and softcaps in
-prefill, the mixed/ring decode, ``DriftDecode`` and the training
-``forward`` are not yet ported (ROADMAP Queue A items 12 and 14).
+MoE, SSM, hybrid and VLM layers, the mixed/ring decode, ``DriftDecode``
+and the training ``forward`` are not yet ported (ROADMAP Queue A items 12
+and 14).
 """
 from __future__ import annotations
 
@@ -44,11 +47,6 @@ def _check_cfg(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not yet ported to "
             "repro_torch; only the dense LM is (ROADMAP Queue A item 12)")
-    if (cfg.kv_heads != cfg.n_heads or set(cfg.layer_kinds()) != {"global"}
-            or cfg.attn_softcap or cfg.logit_softcap):
-        raise NotImplementedError(
-            f"{cfg.name}: GQA, sliding windows and softcaps are not yet "
-            "ported to repro_torch (ROADMAP Queue A item 12)")
 
 
 # ============================================================ parameters
@@ -155,11 +153,12 @@ def _proj(ctx, x: torch.Tensor, p: Proj, name: str, rclass: int):
 
 
 def _attn_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
-                positions: torch.Tensor, mode: str, cache_kv,
+                window: int, positions: torch.Tensor, mode: str, cache_kv,
                 cache_pos: int = 0, ctx=None, rclass: int = dvfs.CLASS_BODY
                 ) -> torch.Tensor:
     """Self-attention sub-block, mode 'prefill' or 'decode'; writes this
-    layer's K and V into ``cache_kv`` in place."""
+    layer's K and V into ``cache_kv`` in place. ``window`` is the layer's
+    (0: global)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
     q = _proj(ctx, x, p["wq"], "attn.q", rclass).reshape(b, s, h, hd)
@@ -171,11 +170,13 @@ def _attn_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     if mode == "prefill":
         ck[:, :s] = k.to(ck.dtype)
         cv[:, :s] = v.to(cv.dtype)
-        o = mha_flash(q, k, v, causal=True)
+        o = mha_flash(q, k, v, causal=True, window=window,
+                      softcap=cfg.attn_softcap)
     elif mode == "decode":
         ck[:, cache_pos:cache_pos + 1] = k.to(ck.dtype)
         cv[:, cache_pos:cache_pos + 1] = v.to(cv.dtype)
         o = attention.decode_attention(q, ck, cv, pos=cache_pos,
+                                       window=window,
                                        attn_softcap=cfg.attn_softcap)
     else:
         raise ValueError(f"attention mode {mode!r}; ported: prefill, decode")
@@ -191,13 +192,13 @@ def _mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor, ctx=None,
     return _proj(ctx, h, p["w_down"], "mlp.down", rclass)
 
 
-def _layer(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+def _layer(cfg: ModelConfig, p: Params, x: torch.Tensor, *, window: int,
            positions: torch.Tensor, mode: str, cache_kv, cache_pos: int = 0,
            ctx=None, rclass: int = dvfs.CLASS_BODY) -> torch.Tensor:
     h_in = apply_norm(cfg, p["ln1"], x)
-    x = x + _attn_block(cfg, p["attn"], h_in, positions=positions,
-                        mode=mode, cache_kv=cache_kv, cache_pos=cache_pos,
-                        ctx=ctx, rclass=rclass)
+    x = x + _attn_block(cfg, p["attn"], h_in, window=window,
+                        positions=positions, mode=mode, cache_kv=cache_kv,
+                        cache_pos=cache_pos, ctx=ctx, rclass=rclass)
     h2 = apply_norm(cfg, p["ln2"], x)
     return x + _mlp_block(cfg, p["mlp"], h2, ctx=ctx, rclass=rclass)
 
@@ -224,9 +225,9 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int
     b, s, _ = x.shape
     cache = init_cache(cfg, b, max_seq, cfg.dtype, x.device)
     positions = torch.arange(s, device=x.device)
-    for i, lp in enumerate(w.layers):
-        x = _layer(cfg, lp, x, positions=positions, mode="prefill",
-                   cache_kv=(cache.k[i], cache.v[i]))
+    for i, (lp, win) in enumerate(zip(w.layers, cfg.layer_windows())):
+        x = _layer(cfg, lp, x, window=win, positions=positions,
+                   mode="prefill", cache_kv=(cache.k[i], cache.v[i]))
     x = apply_norm(cfg, w.final_norm, x)
     return _unembed(cfg, w, x), cache._replace(pos=s)
 
@@ -237,10 +238,11 @@ def _decode(cfg: ModelConfig, w: Weights, cache: Cache,
     positions = torch.full((1,), cache.pos, dtype=torch.int64,
                            device=x.device)
     ctxs = []
-    for i, lp in enumerate(w.layers):
+    for i, (lp, win) in enumerate(zip(w.layers, cfg.layer_windows())):
         ctx = None if ctx_factory is None else ctx_factory(i)
         rclass = dvfs.CLASS_FIRST_BLOCK if i < 1 else dvfs.CLASS_BODY
-        x = _layer(cfg, lp, x, positions=positions, mode="decode",
+        x = _layer(cfg, lp, x, window=win, positions=positions,
+                   mode="decode",
                    cache_kv=(cache.k[i], cache.v[i]), cache_pos=cache.pos,
                    ctx=ctx, rclass=rclass)
         ctxs.append(ctx)

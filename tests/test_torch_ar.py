@@ -439,7 +439,7 @@ def test_engine_serves_both_paradigms_and_rejects_unported():
     with pytest.raises(ValueError, match="autoregressive serving"):
         eng.submit(arch=ARCH, mode="drift")
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        eng.submit(arch="gemma2-9b", mode="stat_abft")
+        eng.submit(arch="deepseek-moe-16b", mode="stat_abft")
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
         eng.submit(arch="mamba2-370m", mode="stat_abft")
     assert len(eng.queue) == 0

@@ -93,6 +93,24 @@ def test_abft_kernel_wraps_at_k4608_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("fill", [127, -128])
+def test_abft_kernel_past_k_2_17_on_card(cuda, fill):
+    """K = 2^17 + 64, every operand ``fill``: the header's bound for
+    accumulators below 2^31 is K < 2^17. At 127 the products stay below
+    2^31 (127^2 * K ~ 2.115e9); at -128 they reach 2^14 * K ~ 2.149e9 and
+    wrap. Either way every output is bit-equal to the plain version, which
+    wraps mod 2^32 as the reference does."""
+    m, k, n = 64, 2 ** 17 + 64, 64
+    aq = torch.full((m, k), fill, dtype=torch.int8, device=cuda)
+    bq = torch.full((k, n), fill, dtype=torch.int8, device=cuda)
+    flips = torch.zeros((m, n), dtype=torch.int32, device=cuda)
+    flips[1, 2] = -2 ** 31
+    got = _abft_check(aq, bq, flips)
+    want = (fill * fill * k + 2 ** 31) % 2 ** 32 - 2 ** 31
+    assert int(got[0][0, 0]) == want
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("offset_a,offset_b", [(1, 0), (0, 2), (16, 4)])
 def test_abft_kernel_on_offset_operands_on_card(cuda, offset_a, offset_b):
     """Operands that start off 16 bytes (A) or 4 bytes (B) take the
@@ -263,6 +281,91 @@ def test_mha_flash_is_one_launch_with_contiguous_output(cuda, dtype):
                if getattr(e, "self_device_time_total",
                           getattr(e, "self_cuda_time_total", 0)) > 0]
     assert [e.count for e in kernels] == [1]
+
+
+def _gqa_qkv(rng, b, s, h, hkv, d, dtype, fused, q_scale, device):
+    """q (B, S, H, D) and k, v (B, S, Hkv, D): views of one fused
+    (B, S, H + 2 Hkv, D) projection, or separate tensors."""
+    if fused:
+        x = torch.from_numpy(rng.standard_normal(
+            (b, s, h + 2 * hkv, d)).astype(np.float32)).to(device, dtype)
+        q, k, v = x[:, :, :h], x[:, :, h:h + hkv], x[:, :, h + hkv:]
+    else:
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (b, s, n, d)).astype(np.float32)).to(device, dtype)
+            for n in (h, hkv, hkv))
+    if q_scale != 1.0:
+        q = (q.float() * q_scale).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+@pytest.mark.parametrize("windowed", [False, True])
+@pytest.mark.parametrize("ratio", [1, 2, 16])
+@pytest.mark.parametrize("d", [16, 128, 168, 256])
+@pytest.mark.parametrize("dtype,s,tol", [(torch.bfloat16, 8, 3e-2),
+                                         (torch.bfloat16, 1024, 1e-2),
+                                         (torch.float32, 100, 2e-5)])
+def test_flash_gqa_window_softcap_matches_plain_on_card(
+        cuda, dtype, s, tol, d, ratio, windowed, softcap, causal):
+    """The kernel against ``full_attention`` at 16 query heads over
+    16 / ratio KV heads, head dims on each tensor-core instantiation (16
+    on the one padded to 80, 128, 168 padded to 176, 256) and the f32
+    kernel's NC = 1, 4, 6, 8; windows that bind (3 of 8, 300 of 1024, 37
+    of 100: tiles skipped and cut), the softcap of 50 with queries scaled
+    by 8 so that scores of ~30 bend. bf16 on views of one fused
+    projection, within 3e-2 at S = 8 and 1e-2 at S = 1024 (p and the
+    output rounded to bf16); f32 on separate tensors within 2e-5. One
+    launch each, a contiguous finite output."""
+    h = 16
+    window = {8: 3, 100: 37, 1024: 300}[s] if windowed else 0
+    rng = np.random.default_rng(d * 7 + ratio * 3 + s + window)
+    q, k, v = _gqa_qkv(rng, 1, s, h, h // ratio, d, dtype,
+                       fused=dtype == torch.bfloat16,
+                       q_scale=8.0 if softcap else 1.0, device=cuda)
+    n0 = tfk.launches
+    got = tfk.mha_flash(q, k, v, causal=causal, window=window,
+                        softcap=softcap)
+    torch.cuda.synchronize()
+    assert tfk.launches == n0 + 1
+    assert got.shape == q.shape and got.is_contiguous()
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    want = full_attention(q, k, v, causal=causal, window=window,
+                          attn_softcap=softcap)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,ratio", [(256, 2), (168, 2), (128, 16)])
+def test_mha_flash_gqa_is_one_kernel_on_card(cuda, d, ratio):
+    """gemma2-9b's, gemma3-27b's and glm4-9b's prefill calls at 8 tokens:
+    one kernel launch and one allocation, the contiguous (B, S, H, D)
+    output (K and V are never repeated or copied); where the profiler
+    records the call, it sees that one kernel."""
+    rng = np.random.default_rng(d)
+    h = 16 if ratio == 2 else 32
+    q, k, v = _gqa_qkv(rng, 2, 8, h, h // ratio, d, torch.bfloat16,
+                       fused=False, q_scale=1.0, device=cuda)
+    tfk.mha_flash(q, k, v, causal=True)          # loads the library
+    torch.cuda.synchronize()
+    n0 = tfk.launches
+    allocs0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        o = tfk.mha_flash(q, k, v, causal=True, window=4096, softcap=50.0)
+        torch.cuda.synchronize()
+    assert tfk.launches == n0 + 1
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] \
+        == allocs0 + 1
+    assert o.shape == q.shape and o.is_contiguous()
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0)) > 0]
+    if kernels:
+        assert [e.count for e in kernels] == [1]
+        assert "flash_attention" in kernels[0].key
 
 
 @pytest.mark.gpu

@@ -321,8 +321,8 @@ def test_rollback_and_flash_wrappers_reject_bad_inputs():
     with pytest.raises(TypeError):
         tfk.flash_attention(q.double(), q.double(), q.double())
     with pytest.raises(ValueError):
-        tfk.flash_attention(torch.zeros((2, 8, 160)), torch.zeros((2, 8, 160)),
-                            torch.zeros((2, 8, 160)))
+        tfk.flash_attention(torch.zeros((2, 8, 264)), torch.zeros((2, 8, 264)),
+                            torch.zeros((2, 8, 264)))
 
 
 def test_cpu_wrappers_do_not_count_launches():

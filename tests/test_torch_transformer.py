@@ -64,7 +64,7 @@ def test_config_matches_reference():
         16, 2048, 128, 8192, 50304)
     assert full.dtype == torch.bfloat16
     assert configs.get_config(ARCH, smoke=True).dtype == torch.float32
-    for arch in ("gemma2-9b", "glm4-9b", "mamba2-370m"):
+    for arch in ("deepseek-moe-16b", "kimi-k2-1t-a32b", "mamba2-370m"):
         with pytest.raises(NotImplementedError, match="Queue A item 12"):
             configs.get_config(arch)
 
@@ -222,7 +222,7 @@ def test_unported_paths_raise(setup):
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
         transformer.init_params(dataclasses.replace(cfg, family="moe"), 0)
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        transformer.init_params(dataclasses.replace(cfg, n_kv_heads=2), 0)
+        transformer.init_params(dataclasses.replace(cfg, family="ssm"), 0)
     with pytest.raises(NotImplementedError, match="Queue A item 14"):
         transformer.forward(cfg, {}, None)
     params = transformer.init_params(cfg, 0)
