@@ -52,7 +52,8 @@ Phases, each printing one JSON line with its wall time:
                32/16, 168) window 1024, glm4-9b's (1, 4096, 32/2, 128)),
                each one launch within tolerance of the plain version,
                beside its causal- and window-clipped bound and SDPA with
-               ``enable_gqa`` (none where a softcap), and the UNet's two
+               ``enable_gqa`` (a compiled ``flex_attention`` where a
+               softcap), and the UNet's two
                self-attention shapes again over ``UNET_REPS`` times the
                launches.
 4. reference -- the SMOKE DiT and the SMOKE olmo-1b served on the card
@@ -761,15 +762,47 @@ def attn_pairs(s: int, causal: bool, window: int) -> int:
     return total
 
 
+def flex_softcap(torch, s: int, window: int, cap: float, dev):
+    """The library call that computes a causal, softcapped row's function:
+    ``flex_attention`` with the cap as its ``score_mod`` (which sees the
+    scaled score, as the reference's ``full_attention`` caps it), the
+    causal and window mask as a block mask, and ``enable_gqa``; compiled
+    (``torch.compile``, Triton) on its first call, which the caller makes
+    before timing it. A yardstick here only: the port never calls it.
+    Inductor and Triton write their caches under ``build/``."""
+    import os
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          str(ROOT / "build" / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
+
+    def score_mod(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, qi, ki):
+        keep = qi >= ki
+        return keep & (qi - ki < window) if window else keep
+    block_mask = create_block_mask(mask_mod, None, None, s, s, device=dev)
+    compiled = torch.compile(flex_attention, dynamic=False)
+
+    def call(q_, k_, v_):
+        return compiled(q_, k_, v_, score_mod=score_mod,
+                        block_mask=block_mask, enable_gqa=True)
+    return call
+
+
 def phase_kernels_lm(torch, reps: int):
     """The attention kernel at the GQA models' calls (``LM_ATTN``), bf16:
     one launch on the (B, S, H, D) q and (B, S, Hkv, D) k, v, within the
     row's tolerance of the plain ``full_attention``; device ms over cold
     inputs beside the bound (4 D flops per attended pair and head at the
     bf16 rate, or q, k, v and o moved once), the plain version's ms and
-    ``F.scaled_dot_product_attention(enable_gqa=True)`` with a boolean
-    mask for a window, where no softcap leaves it a different function.
-    Softcapped rows scale q by 8 so that scores of ~30 bend."""
+    the library call: ``F.scaled_dot_product_attention(enable_gqa=True)``
+    with a boolean mask for a window, or, where a softcap leaves SDPA a
+    different function, ``flex_softcap`` (its error against the plain
+    version recorded, or why it failed). Softcapped rows scale q by 8 so
+    that scores of ~30 bend."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.models.attention import _mask, full_attention
@@ -804,7 +837,6 @@ def phase_kernels_lm(torch, reps: int):
             raise AssertionError(f"mha_flash {label} {(b, s, h, hkv, d)}: "
                                  f"{launched} launches, max abs err {err} "
                                  f"beyond {tol}")
-        del want
         pairs = attn_pairs(s, causal, window)
         flops = 4 * b * h * d * pairs
         bytes_ = 2 * b * s * d * (2 * h + 2 * hkv)
@@ -821,33 +853,47 @@ def phase_kernels_lm(torch, reps: int):
                    bound_by="operations" if t_o >= t_b else "bytes",
                    attended_pairs=pairs, library_ms=None,
                    library_kernels=None)
-        if not cap:
+        lib_ring = [tuple(x.transpose(1, 2) for x in t) for t in ring]
+        if cap:
+            try:
+                lib = flex_softcap(torch, s, window, cap, dev)
+                lib_err = max_abs_err([lib(*lib_ring[0]).transpose(1, 2)],
+                                      [want])
+                row.update(library_call="flex_attention (compiled)",
+                           library_max_abs_err=lib_err,
+                           library_ms=device_ms(lib, lib_ring, r),
+                           library_kernels=kernel_names(lib, lib_ring[0]))
+            except Exception as e:      # recorded: the row keeps its null
+                row.update(library_call="flex_attention (compiled)",
+                           library_error=f"{type(e).__name__}: {e}"[:400])
+        else:
             mask = None
             if window:
                 pos = torch.arange(s, device=dev)
                 mask = _mask(pos, pos, causal, window)
-            lib_ring = [tuple(x.transpose(1, 2) for x in t) for t in ring]
 
             def sdpa(q_, k_, v_, mask=mask, causal=causal):
                 return F.scaled_dot_product_attention(
                     q_, k_, v_, attn_mask=mask,
                     is_causal=causal and mask is None, enable_gqa=True)
-            row.update(library_ms=device_ms(sdpa, lib_ring, r),
+            row.update(library_call="F.scaled_dot_product_attention",
+                       library_ms=device_ms(sdpa, lib_ring, r),
                        library_kernels=kernel_names(sdpa, lib_ring[0]))
-            del lib_ring
         row["tflops"] = tflops(flops, row["ms"])
         rows.append(row)
-        del ring, q, k, v, got
+        del ring, lib_ring, q, k, v, got, want
         torch.cuda.empty_cache()
     emit({"phase": "kernels", "kernel": "mha_flash (GQA models, UNet)",
           "rows": rows,
           "note": "bf16; ms is the attention kernel's device time per "
                   "launch (torch.profiler, cold inputs), plain_ms the plain "
                   "full_attention's (scores in f32), library_ms one "
-                  "F.scaled_dot_product_attention(enable_gqa=True) call on "
-                  "(B, H, S, D) views, with a boolean mask for a window, "
-                  "null where the softcap leaves no single library call "
-                  "computing the same function; bound_ms at 989 TFLOP/s "
+                  "library_call on (B, H, S, D) views: "
+                  "F.scaled_dot_product_attention(enable_gqa=True), with a "
+                  "boolean mask for a window, or, with a softcap, a "
+                  "compiled flex_attention (score_mod cap, block mask, "
+                  "enable_gqa; library_error where it failed); bound_ms at "
+                  "989 TFLOP/s "
                   "(4 D flops per attended query-key pair and head, causal "
                   "and window clipped) or 3.35 TB/s (q, k, v, o once); the "
                   "UNet rows time UNET_REPS times as many launches"})
@@ -1019,11 +1065,14 @@ def phase_reference(torch):
 def _reference_gqa(torch, engine):
     """SMOKE gemma2-9b, gemma3-27b and glm4-9b on the card and the CPU with
     the same params, prompts and masks: 12 stat_abft tokens at undervolt,
-    window 3, so that the decode passes the SMOKE window of 8 (the card
-    runs the f32 attention kernel in prefill, GQA, windows and gemma2's
-    softcap included). Tokens, token match, rollbacks and evaluations
-    exact; detections within 2%, as olmo-1b's; modeled joules equal."""
+    window 3, so that the decode passes the SMOKE window of 8. Tokens,
+    token match, rollbacks and evaluations exact; detections within 2%,
+    as olmo-1b's; modeled joules equal. The served prompts have 8 tokens,
+    so the window binds in decode only; a 12-token ``prefill`` on both
+    sides binds it in the card's f32 attention kernel (GQA and gemma2's
+    softcap included): one launch per layer, logits within 1e-4."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fk
     from repro_torch.models import transformer
     from repro_torch.serving.ar import prompt_tokens
     rows = []
@@ -1036,6 +1085,18 @@ def _reference_gqa(torch, engine):
         for lp in params["layers"]:
             lp["attn"]["wo"] = lp["attn"]["wo"] * 4.0
             lp["mlp"]["w_down"] = lp["mlp"]["w_down"] * 4.0
+        long = torch.randint(0, cfg.vocab, (2, 12),
+                             generator=torch.Generator().manual_seed(9))
+        n0 = fk.launches
+        card = transformer.prefill(cfg, _to(params, "cuda"), long.cuda(),
+                                   16)[0].cpu()
+        launched = fk.launches - n0
+        prefill_err = float((card - transformer.prefill(
+            cfg, params, long, 16)[0]).abs().max())
+        if not (launched == cfg.n_layers and prefill_err <= 1e-4):
+            raise AssertionError(f"{arch} SMOKE 12-token prefill: "
+                                 f"{launched} launches, logits max err "
+                                 f"{prefill_err}")
         prompts = prompt_tokens(cfg, [0, 1])
         out = {}
         for device in ("cuda", "cpu"):
@@ -1060,7 +1121,8 @@ def _reference_gqa(torch, engine):
                                      f"{b.ar_detections}")
             for r, dev in ((a, "cuda"), (b, "cpu")):
                 check_energy("reference", f"{arch} stat_abft ({dev})", [r])
-            rows.append(dict(arch=arch, request_id=b.request_id,
+            rows.append(dict(arch=arch, prefill12_max_abs_err=prefill_err,
+                             request_id=b.request_id,
                              tokens=list(b.tokens),
                              detections_card=a.ar_detections,
                              detections_cpu=b.ar_detections,
@@ -2446,7 +2508,8 @@ def kernel_summary(kernels_out, path_launches):
                       "of its own"),
              lm_shapes=[{k: r[k] for k in (
                  "name", "shape", "window", "softcap", "max_abs_err", "ms",
-                 "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                 "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "library_call")}
                  for r in lm_rows]),
         row("fault_inject", csrc + "fault_inject.cu",
             "src/repro/kernels/fault_inject.py:24", fi, "bytes",

@@ -257,6 +257,13 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 
 // -------------------------------------------------- bf16 tensor-core kernel
 constexpr int TC_THREADS = 128;
+// Up to padded width 128 the Q fragments stay in registers and K/V tiles
+// hold 64 keys; wider, Q is re-read from shared memory and tiles hold 32
+// (registers: one m16 tile's O accumulator alone is DK / 2 floats).
+__host__ __device__ constexpr bool q_in_regs(int dk) { return dk <= 128; }
+__host__ __device__ constexpr int key_tile(int dk) {
+  return q_in_regs(dk) ? 64 : 32;
+}
 
 typedef __nv_bfloat16 bf16;
 
@@ -366,17 +373,17 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 }
 
 // DK: k-dim of Q K^T (D padded to 16); NT: n8 tiles of P V (D <= 8 NT);
-// MT: m16 tiles per warp (the block holds 64 MT query rows); BK: keys per
-// K/V tile; QREG: Q fragments kept in registers (else re-read from shared
-// memory each k16 step); EXT: GQA and the window (off, the kernel is the
-// DiT's and olmo-1b's as before them: KV head h, no window test); CAP:
-// softcap the scaled scores.
-template <int DK, int NT, int MT, int BK, bool QREG, bool EXT, bool CAP>
+// MT: m16 tiles per warp (the block holds 64 MT query rows); EXT: GQA and
+// the window (off, the kernel is the DiT's and olmo-1b's as before them:
+// KV head h, no window test); CAP: softcap the scaled scores.
+template <int DK, int NT, int MT, bool EXT, bool CAP>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ o,
                    Layout L, int S, int D, float scale, float exp_scale,
                    float cap, int causal, int window, int vec) {
+  constexpr bool QREG = q_in_regs(DK);    // else re-read per k16 step
+  constexpr int BK = key_tile(DK);        // keys per K/V tile
   constexpr int RS = DK + 8;              // row stride: +16 bytes
   constexpr int BQ = 64 * MT;
   constexpr int TILE = BK * RS;
@@ -648,13 +655,13 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DK, int NT, int MT, int BK, bool QREG, bool EXT, bool CAP>
+template <int DK, int NT, int MT, bool EXT, bool CAP>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
               int S, int D, const Layout& L, float scale, int causal,
               int window, float cap, int vec, cudaStream_t stream) {
   static unsigned long long done = 0;
-  const size_t smem = sizeof(bf16) * (64 * MT + 4 * BK) * (DK + 8);
-  auto kern = flash_attention_tc<DK, NT, MT, BK, QREG, EXT, CAP>;
+  const size_t smem = sizeof(bf16) * (64 * MT + 4 * key_tile(DK)) * (DK + 8);
+  auto kern = flash_attention_tc<DK, NT, MT, EXT, CAP>;
   const int err = allow_smem(kern, smem, &done);
   if (err) return err;
   dim3 grid((S + 64 * MT - 1) / (64 * MT), B * L.H);
@@ -665,22 +672,22 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 // The instantiation at one padded width for the call's features: with the
-// softcap, with GQA or a window, or (PLAIN: instantiated at the DiT's and
+// softcap, with GQA or a window, or (a plain instance, at the DiT's and
 // olmo-1b's widths only) neither.
-template <int DK, int NT, int MT, int BK, bool QREG, bool PLAIN>
+template <int DK, int NT, int MT>
 int launch_tc_for(const void* q, const void* k, const void* v, void* o,
                   int B, int S, int D, const Layout& L, float scale,
                   int causal, int window, float cap, int vec,
                   cudaStream_t stream) {
   if (cap > 0.f)
-    return launch_tc<DK, NT, MT, BK, QREG, true, true>(
+    return launch_tc<DK, NT, MT, true, true>(
         q, k, v, o, B, S, D, L, scale, causal, window, cap, vec, stream);
-  if constexpr (PLAIN) {
+  if constexpr (q_in_regs(DK)) {
     if (L.G == 1 && window == 0)
-      return launch_tc<DK, NT, MT, BK, QREG, false, false>(
+      return launch_tc<DK, NT, MT, false, false>(
           q, k, v, o, B, S, D, L, scale, causal, window, cap, vec, stream);
   }
-  return launch_tc<DK, NT, MT, BK, QREG, true, false>(
+  return launch_tc<DK, NT, MT, true, false>(
       q, k, v, o, B, S, D, L, scale, causal, window, cap, vec, stream);
 }
 
@@ -734,18 +741,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   }
   if (dtype == 1) {
     if (vec && D % 8) return (int)cudaErrorInvalidValue;
-    // <padded D, n8 tiles, m16 tiles per warp, keys per tile, Q in regs,
-    //  a plain instance>
+    // <padded D, n8 tiles, m16 tiles per warp>
     if (D <= 72)
-      return launch_tc_for<80, 9, 2, 64, true, true>(
+      return launch_tc_for<80, 9, 2>(
           q, k, v, o, B, S, D, L, scale, causal, window, softcap, vec, st);
     if (D <= 128)
-      return launch_tc_for<128, 16, 1, 64, true, true>(
+      return launch_tc_for<128, 16, 1>(
           q, k, v, o, B, S, D, L, scale, causal, window, softcap, vec, st);
     if (D <= 168)
-      return launch_tc_for<176, 21, 1, 32, false, false>(
+      return launch_tc_for<176, 21, 1>(
           q, k, v, o, B, S, D, L, scale, causal, window, softcap, vec, st);
-    return launch_tc_for<256, 32, 1, 32, false, false>(
+    return launch_tc_for<256, 32, 1>(
         q, k, v, o, B, S, D, L, scale, causal, window, softcap, vec, st);
   }
   return (int)cudaErrorInvalidValue;
