@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases device,build,kernels --reps 3
     python3 chip_smoke.py --phases device,build,kernels,ar
     python3 chip_smoke.py --phases device,build,kernels,lm
+    python3 chip_smoke.py --phases device,build,kernels,moe
     python3 chip_smoke.py --phases device,build,offload
     python3 chip_smoke.py --phases device,build,sched
     python3 chip_smoke.py --phases device,build,baselines
@@ -48,8 +49,9 @@ Phases, each printing one JSON line with its wall time:
                shape (bit-equal). Then the GQA models' attention calls
                (``LM_ATTN``: gemma2-9b's prefill at (2, 8, 16/8, 256)
                with the softcap of 50 and window 4096 or none, a binding
-               window at (1, 8192, 16/8, 256), gemma3-27b's (1, 2048,
-               32/16, 168) window 1024, glm4-9b's (1, 4096, 32/2, 128)),
+               window at (1, 8192, 16/8, 256), gemma3-27b's prefill
+               (2, 8, 32/16, 168) and (1, 2048, 32/16, 168), window 1024,
+               glm4-9b's (1, 4096, 32/2, 128)),
                each one launch within tolerance of the plain version,
                beside its causal- and window-clipped bound and SDPA with
                ``enable_gqa`` (a compiled ``flex_attention`` where a
@@ -66,9 +68,15 @@ Phases, each printing one JSON line with its wall time:
                PixArt and the SMOKE UNet in drift, the same way (latents
                within 1e-3, counts within 1%, joules within 1e-6; dmr's
                finals equal to the clean reference's). Then SMOKE
-               gemma2-9b, gemma3-27b and glm4-9b, 12 stat_abft tokens
-               (past the SMOKE window of 8): tokens, rollbacks,
-               evaluations and joules equal, detections within 2%.
+               gemma2-9b, gemma3-27b and glm4-9b, and SMOKE
+               deepseek-moe-16b and kimi-k2-1t-a32b (MoE; kimi's head dim
+               8 over 8/2 heads takes the f32 kernel at its smallest
+               width), 12 stat_abft tokens (past the SMOKE window of 8):
+               tokens, rollbacks, evaluations and joules equal,
+               detections within 2%; a 12-token prefill, one attention
+               launch a layer, logits within 1e-4; the MoE rows record
+               the smallest gap between a token's k-th and (k+1)-th
+               router probability on the card.
 5. serve    -- ``repro_torch.launch.serve.main`` drives a full-width
                DiT-XL/2-512 engine (28 layers, random seeded weights): 2
                requests in drift/undervolt, then the same seeds in faulty
@@ -129,12 +137,26 @@ Phases, each printing one JSON line with its wall time:
                time per decode step and a profiled request.
 9. lm       -- the same for full-width gemma2-9b (42 layers, d 3584, 16
                heads of 256 over 8 KV heads, windows of 4096 on alternate
-               layers, softcaps; ~9.24 B parameters, f32 masters and the
-               bf16 copy, 55.5 GB), after the olmo-1b engine is freed:
-               287 fault_inject launches (41 faulted layers x 7 GEMMs) per
+               layers, softcaps; 9.24 B parameters, 18.5 GB of bf16
+               weights from ``transformer.init_weights``, no f32
+               masters), after the olmo-1b engine is freed: 287
+               fault_inject launches (41 faulted layers x 7 GEMMs) per
                faulted decode step, 42 attention launches per prefill;
                peak device memory, ms per decode step, the profiled
-               request's device busy share.
+               request's device busy share. Then, after gemma2-9b is
+               freed, full-width gemma3-27b the same way (62 layers, d
+               5376, 32 heads of 168 over 16, windows of 1024 on 5 of 6
+               layers, a tied 262144 x 5376 embedding; 28.3 B parameters,
+               56.6 GB): 427 fault_inject launches per faulted step, 62
+               attentions per prefill.
+9b. moe     -- full-width deepseek-moe-16b (28 layers, d 2048, 16 heads
+               of 128, 2 shared + 64 routed experts of 1408, top-6; 16.9
+               B parameters, 33.8 GB in bf16) the same way, after every
+               earlier engine is freed: the expert FFNs are unprotected,
+               so 108 fault_inject launches (27 faulted layers x the 4
+               attention projections) per faulted decode step, 28
+               attentions per prefill, no abft_matmul or
+               rollback_correct launch.
 
 10. baselines -- the full-width DiT-XL/2-512 serves the same 2 seeds at
                undervolt for 10 steps in thundervolt, approx_abft, dmr
@@ -181,7 +203,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "reference", "serve", "offload",
-          "sched", "ar", "lm", "baselines", "families")
+          "sched", "ar", "lm", "moe", "baselines", "families")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, int8 and bf16
 # tensor-core rates, float32 rate outside the tensor cores.
@@ -196,8 +218,10 @@ BUCKET = 2
 SERVE_STEPS = 10
 THRESHOLD = 1 << 10
 AR_ARCH = "olmo-1b"
-LM_ARCH = "gemma2-9b"       # the full-width GQA model of the lm phase
+LM_ARCHS = ("gemma2-9b", "gemma3-27b")   # full width in the lm phase
 GQA_ARCHS = ("gemma2-9b", "gemma3-27b", "glm4-9b")
+MOE_ARCH = "deepseek-moe-16b"             # full width in the moe phase
+MOE_ARCHS = ("deepseek-moe-16b", "kimi-k2-1t-a32b")
 AR_STEPS = 16
 AR_WINDOW = 4
 TS_ARGS = ["--taylorseer", "--precision", "int8-body4"]
@@ -741,6 +765,8 @@ LM_ATTN = (
      3e-2),
     ("gemma2-9b, binding window", (1, 8192, 16, 8, 256), True, 4096, 50.0,
      1e-2),
+    ("gemma3-27b prefill, local layer", (2, 8, 32, 16, 168), True, 1024,
+     0.0, 3e-2),
     ("gemma3-27b, local layer", (1, 2048, 32, 16, 168), True, 1024, 0.0,
      1e-2),
     ("glm4-9b, global layer", (1, 4096, 32, 2, 128), True, 0, 0.0, 1e-2),
@@ -1059,24 +1085,38 @@ def phase_reference(torch):
                 lm_rollbacks=lm_out["cpu"][0].ar_rollbacks,
                 lm_tokens=[list(r.tokens) for r in lm_out["cpu"]],
                 slice8=_reference_slice8(torch, engine, cpu_params, lat),
-                gqa=_reference_gqa(torch, engine))
+                gqa=_reference_lm(torch, engine, GQA_ARCHS),
+                moe=_reference_lm(torch, engine, MOE_ARCHS))
 
 
-def _reference_gqa(torch, engine):
-    """SMOKE gemma2-9b, gemma3-27b and glm4-9b on the card and the CPU with
-    the same params, prompts and masks: 12 stat_abft tokens at undervolt,
-    window 3, so that the decode passes the SMOKE window of 8. Tokens,
-    token match, rollbacks and evaluations exact; detections within 2%,
-    as olmo-1b's; modeled joules equal. The served prompts have 8 tokens,
-    so the window binds in decode only; a 12-token ``prefill`` on both
-    sides binds it in the card's f32 attention kernel (GQA and gemma2's
-    softcap included): one launch per layer, logits within 1e-4."""
+def _reference_lm(torch, engine, archs):
+    """SMOKE language models (the GQA ones, or the MoE ones) on the card
+    and the CPU with the same params, prompts and masks: 12 stat_abft
+    tokens at undervolt, window 3, so that the decode passes the SMOKE
+    window of 8. Tokens, token match, rollbacks and evaluations exact;
+    detections within 2%, as olmo-1b's; modeled joules equal. The served
+    prompts have 8 tokens, so the window binds in decode only; a 12-token
+    ``prefill`` on both sides binds it in the card's f32 attention kernel
+    (GQA, gemma2's softcap and kimi-k2's head dim 8 included): one launch
+    per layer, logits within 1e-4. An MoE row records, over the card's
+    run, the smallest nonzero gap between a token's k-th and (k+1)-th
+    router probability (routing may differ from the CPU's only below it)
+    and the tokens whose gap is 0 (exact ties, which both sides break
+    toward the lower expert index)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fk
-    from repro_torch.models import transformer
+    from repro_torch.models import moe, transformer
     from repro_torch.serving.ar import prompt_tokens
+    route = moe.route
+    margins = []
+
+    def recording_route(cfg, router, x):
+        r = route(cfg, router, x)
+        top = torch.topk(r.probs, cfg.top_k + 1, dim=-1).values
+        margins.append(top[:, -2] - top[:, -1])
+        return r
     rows = []
-    for arch in GQA_ARCHS:
+    for arch in archs:
         cfg = get_config(arch, smoke=True)
         params = transformer.init_params(cfg, 8)
         # As the CPU tests scale them, so that greedy decoding does not
@@ -1084,7 +1124,10 @@ def _reference_gqa(torch, engine):
         params["embed"] = params["embed"] * 0.05
         for lp in params["layers"]:
             lp["attn"]["wo"] = lp["attn"]["wo"] * 4.0
-            lp["mlp"]["w_down"] = lp["mlp"]["w_down"] * 4.0
+            ffn = lp["moe"] if cfg.family == "moe" else lp["mlp"]
+            ffn["w_down"] = ffn["w_down"] * 4.0
+            if "shared" in ffn:
+                ffn["shared"]["w_down"] = ffn["shared"]["w_down"] * 4.0
         long = torch.randint(0, cfg.vocab, (2, 12),
                              generator=torch.Generator().manual_seed(9))
         n0 = fk.launches
@@ -1099,6 +1142,7 @@ def _reference_gqa(torch, engine):
                                  f"{prefill_err}")
         prompts = prompt_tokens(cfg, [0, 1])
         out = {}
+        margins.clear()
         for device in ("cuda", "cpu"):
             eng = engine(arch, device, params)
             eng.servable_for(arch).batch_inputs = \
@@ -1106,7 +1150,11 @@ def _reference_gqa(torch, engine):
             for s_ in (0, 1):
                 eng.submit(arch=arch, steps=12, mode="stat_abft",
                            op="undervolt", seed=s_, rollback_interval=3)
-            out[device] = eng.run()
+            moe.route = recording_route if device == "cuda" else route
+            try:
+                out[device] = eng.run()
+            finally:
+                moe.route = route
         for a, b in zip(out["cuda"], out["cpu"]):
             if ((a.tokens, a.token_match_vs_clean, a.ar_rollbacks,
                  a.n_model_evals, a.energy_j)
@@ -1121,14 +1169,19 @@ def _reference_gqa(torch, engine):
                                      f"{b.ar_detections}")
             for r, dev in ((a, "cuda"), (b, "cpu")):
                 check_energy("reference", f"{arch} stat_abft ({dev})", [r])
-            rows.append(dict(arch=arch, prefill12_max_abs_err=prefill_err,
-                             request_id=b.request_id,
-                             tokens=list(b.tokens),
-                             detections_card=a.ar_detections,
-                             detections_cpu=b.ar_detections,
-                             rollbacks=b.ar_rollbacks,
-                             evals=b.n_model_evals,
-                             token_match_vs_clean=b.token_match_vs_clean))
+            row = dict(arch=arch, prefill12_max_abs_err=prefill_err,
+                       prefill12_launches=launched,
+                       request_id=b.request_id, tokens=list(b.tokens),
+                       detections_card=a.ar_detections,
+                       detections_cpu=b.ar_detections,
+                       rollbacks=b.ar_rollbacks, evals=b.n_model_evals,
+                       token_match_vs_clean=b.token_match_vs_clean)
+            if cfg.family == "moe":
+                gaps = torch.cat(margins)
+                row.update(route_calls_card=len(margins),
+                           min_topk_margin_card=float(gaps[gaps > 0].min()),
+                           exact_topk_ties_card=int((gaps == 0).sum()))
+            rows.append(row)
     return rows
 
 
@@ -1940,26 +1993,46 @@ def phase_sched(torch, smi):
 
 def phase_ar(torch):
     """Full-width olmo-1b through the CLI: stat_abft, then faulty."""
-    return _serve_ar(torch, AR_ARCH, 21)
+    return _serve_ar(torch, AR_ARCH, 21, "ar")
 
 
 def phase_lm(torch):
     """Full-width gemma2-9b (42 layers, d 3584, 16 heads of 256 over 8 KV
-    heads, windows of 4096 on alternate layers, softcaps 50 and 30, ~9.24 B
-    parameters: 37 GB of f32 masters and the 18.5 GB bf16 copy) through
-    the CLI as ``ar`` drives olmo-1b, after every earlier engine is
-    freed."""
+    heads, windows of 4096 on alternate layers, softcaps 50 and 30, 9.24 B
+    parameters: 18.5 GB of bf16 weights) and then gemma3-27b (62 layers,
+    d 5376, 32 heads of 168 over 16, windows of 1024 on 5 of 6 layers, a
+    tied 262144 x 5376 embedding, 28.3 B parameters: 56.6 GB) through the
+    CLI as ``ar`` drives olmo-1b, each after every earlier engine is
+    freed. The phase's launches are both archs' summed; each arch's own
+    are in its record."""
+    runs, total = [], {}
+    for arch, seed in zip(LM_ARCHS, (22, 24)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs.append(_serve_ar(torch, arch, seed, "lm"))
+        _add_launches(total, runs[-1]["launches"])
+    energy = [e for r in runs for e in r.pop("energy")]
+    return dict(launches=total, archs=runs, energy=energy)
+
+
+def phase_moe(torch):
+    """Full-width deepseek-moe-16b (28 layers, d 2048, 16 heads of 128, 2
+    shared + 64 routed experts of 1408, top-6; 16.9 B parameters: 33.8 GB
+    of bf16 weights) through the CLI as ``ar`` drives olmo-1b, after every
+    earlier engine is freed."""
     gc.collect()
     torch.cuda.empty_cache()
-    return _serve_ar(torch, LM_ARCH, 22)
+    return _serve_ar(torch, MOE_ARCH, 23, "moe")
 
 
-def _serve_ar(torch, arch, seed):
-    """One full-width autoregressive arch through the CLI: 2 requests at
-    bucket 2, 16 tokens, window 4, stat_abft then faulty at undervolt;
-    exact launch counts, detections, rollbacks, token match 1.0, ledgers;
-    then ms per decode step and a profiled request. The engine is freed
-    before it returns."""
+def _serve_ar(torch, arch, seed, path):
+    """One full-width autoregressive arch through the CLI: its weights
+    from ``transformer.init_weights`` on the card (no f32 masters), 2
+    requests at bucket 2, 16 tokens, window 4, stat_abft then faulty at
+    undervolt; exact launch counts, detections, rollbacks, token match
+    1.0, ledgers; then ms per decode step and a profiled request. Peak
+    memory is read over the init and over the two runs. The engine is
+    freed before it returns."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import abft_matmul as ak
     from repro_torch.kernels import fault_inject as fik
@@ -1967,32 +2040,50 @@ def _serve_ar(torch, arch, seed):
     from repro_torch.kernels import rollback_correct as rk
     from repro_torch.launch import serve
     from repro_torch.models import transformer
-    from repro_torch.serving import DriftServeEngine
+    from repro_torch.serving import DriftServeEngine, ar
 
     dev = torch.device("cuda")
     cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    held0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     eng = DriftServeEngine(arch=arch, smoke=False, bucket=BUCKET,
                            device="cuda")
-    params = transformer.init_params(cfg, seed, dev)
+    params = transformer.init_weights(cfg, seed, dev)
     eng.set_params(arch, False, params)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    weights_bytes = torch.cuda.memory_allocated() - held0
+    init_peak = torch.cuda.max_memory_allocated()
 
     argv = ["--arch", arch, "--no-smoke", "--batch", str(BUCKET),
             "--steps", str(AR_STEPS), "--requests", "2",
             "--rollback-interval", str(AR_WINDOW), "--op", "undervolt",
             "--device", "cuda"]
+    # each batch's decode (stat_abft, its clean reference, faulty): the
+    # NaN-residual rows it rolled back on beside its detections
+    decode, batches = ar.decode_batch, []
+
+    def recording_decode(*args, **kw):
+        out = decode(*args, **kw)
+        batches.append(dict(detections=out.detections,
+                            nan_rows=out.nan_rows, rollbacks=out.rollbacks,
+                            evals=out.n_model_evals))
+        return out
     torch.cuda.reset_peak_memory_stats()
     ak.launches = rk.launches = fk.launches = fik.launches = 0
-    t0 = time.perf_counter()
-    stat = serve.main(argv + ["--mode", "stat_abft"], engine=eng)
-    torch.cuda.synchronize()
-    t_stat = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    faulty = serve.main(argv + ["--mode", "faulty"], engine=eng)
-    torch.cuda.synchronize()
-    t_faulty = time.perf_counter() - t0
+    ar.decode_batch = recording_decode
+    try:
+        t0 = time.perf_counter()
+        stat = serve.main(argv + ["--mode", "stat_abft"], engine=eng)
+        torch.cuda.synchronize()
+        t_stat = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        faulty = serve.main(argv + ["--mode", "faulty"], engine=eng)
+        torch.cuda.synchronize()
+        t_faulty = time.perf_counter() - t0
+    finally:
+        ar.decode_batch = decode
     launches = {"fault_inject": fik.launches, "flash_attention": fk.launches,
                 "abft_matmul": ak.launches, "rollback_correct": rk.launches}
     peak = torch.cuda.max_memory_allocated()
@@ -2002,7 +2093,9 @@ def _serve_ar(torch, arch, seed):
     # pass are faulted, replays and the clean reference are not.
     faulted_steps = sum(1 for i in range(1, AR_STEPS)
                         if i >= eng.nominal_steps)
-    per_step = (cfg.n_layers - 1) * 7
+    # protected GEMMs a faulted layer: attn q/k/v/o, and the dense MLP's
+    # gate/up/down (the MoE experts are unprotected)
+    per_step = (cfg.n_layers - 1) * (4 if cfg.family == "moe" else 7)
     prefills = 3                 # stat_abft, its clean reference, faulty
     want = {"fault_inject": 2 * faulted_steps * per_step,
             "flash_attention": prefills * cfg.n_layers,
@@ -2035,7 +2128,6 @@ def _serve_ar(torch, arch, seed):
                              monitor_ber=r.monitor_ber,
                              monitor_op_index=r.monitor_op_index))
     (clean,) = eng._clean_samples.values()
-    path = "ar" if arch == AR_ARCH else "lm"
     energy = (check_energy(path, f"{arch} stat_abft", stat)
               + check_energy(path, f"{arch} faulty", faulty))
     for r in stat:
@@ -2047,8 +2139,11 @@ def _serve_ar(torch, arch, seed):
                vocab=cfg.vocab, params=transformer.param_count(cfg),
                bucket=BUCKET, steps=AR_STEPS, window=AR_WINDOW,
                setup_s=setup_s, stat_abft_run_s=t_stat,
-               faulty_run_s=t_faulty, peak_mem_bytes=peak,
-               launches=launches, requests=reqs, energy=energy,
+               faulty_run_s=t_faulty, held_before_bytes=held0,
+               weights_bytes=weights_bytes,
+               init_peak_mem_bytes=init_peak, peak_mem_bytes=peak,
+               launches=launches, requests=reqs, decode_batches=batches,
+               energy=energy,
                clean_tokens=clean.tolist(), builds=eng.cache.builds,
                step_ms=_ar_step_ms(torch, eng, arch, cfg),
                breakdown=_profile_ar(torch, eng, argv))
@@ -2063,9 +2158,9 @@ def _ar_step_ms(torch, eng, arch, cfg):
     """Per mode: host wall ms per decode step, each ended by a
     synchronize, over the faulted steps of one pass (a decoder built the
     way the engine builds it, on the engine's prepared weights: a second
-    bf16 copy of gemma2-9b would not fit beside the first and the f32
-    masters), and the device kernels one more faulted step runs, counted
-    by the profiler."""
+    copy of gemma3-27b's 56.6 GB would not fit beside the first), and the
+    device kernels one more faulted step runs, counted by the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import dvfs, fault
     from repro_torch.serving import ar
@@ -2086,8 +2181,8 @@ def _ar_step_ms(torch, eng, arch, cfg):
         times = []
         for i in range(1, AR_STEPS):
             t0 = time.perf_counter()
-            tok, cache, monitor, _, _ = fns.step(weights, cache, tok, i,
-                                                 monitor, src, 1.0)
+            tok, cache, monitor, *_ = fns.step(weights, cache, tok, i,
+                                               monitor, src, 1.0)
             torch.cuda.synchronize()
             if i >= eng.nominal_steps:
                 times.append(1e3 * (time.perf_counter() - t0))
@@ -2109,7 +2204,7 @@ def _profile_ar(torch, eng, argv):
     argv = argv + ["--mode", "stat_abft", "--requests", "1", "--seed", "100"]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve.main(argv, engine=eng)
+        (res,) = serve.main(argv, engine=eng)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -2124,6 +2219,9 @@ def _profile_ar(torch, eng, argv):
     return dict(what="1 stat_abft request at bucket 2, 16 tokens: prefill, "
                      "15 faulted steps, 15 replayed, plus its clean "
                      "reference", wall_s=wall, device_busy_s=busy,
+                token_match_vs_clean=res.token_match_vs_clean,
+                ar_detections=res.ar_detections,
+                ar_rollbacks=res.ar_rollbacks,
                 device_busy_share=busy / wall, fault_inject_s=fi,
                 fault_inject_share_of_busy=fi / busy if busy else None,
                 n_kernels=sum(r[2] for r in rows),
@@ -2502,10 +2600,10 @@ def kernel_summary(kernels_out, path_launches):
                  "(the olmo-1b prefill's), one kernel on the tensors in "
                  "place; lm_shapes: the GQA models' calls",
                  mha["library_ms"],
-                 counted="flash_attention", paths=("ar", "lm"),
-                 note="the flash_attention launches of the ar and lm "
-                      "paths, each made through mha_flash; not a kernel "
-                      "of its own"),
+                 counted="flash_attention", paths=("ar", "lm", "moe"),
+                 note="the flash_attention launches of the ar, lm and "
+                      "moe paths, each made through mha_flash; not a "
+                      "kernel of its own"),
              lm_shapes=[{k: r[k] for k in (
                  "name", "shape", "window", "softcap", "max_abs_err", "ms",
                  "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2575,13 +2673,14 @@ def main(argv=None) -> int:
                            + (phase_kernels_lm(torch, args.reps),))
         elif phase == "reference":
             rec.update(phase_reference(torch))
-        elif phase in ("serve", "offload", "sched", "ar", "lm", "baselines",
-                       "families"):
+        elif phase in ("serve", "offload", "sched", "ar", "lm", "moe",
+                       "baselines", "families"):
             out = (phase_serve(torch) if phase == "serve"
                    else phase_offload(torch, smi) if phase == "offload"
                    else phase_sched(torch, smi) if phase == "sched"
                    else phase_ar(torch) if phase == "ar"
                    else phase_lm(torch) if phase == "lm"
+                   else phase_moe(torch) if phase == "moe"
                    else phase_baselines(torch) if phase == "baselines"
                    else phase_families(torch, args.reps))
             path_launches[phase] = out["launches"]

@@ -1,8 +1,9 @@
 """Architecture registry of the port: ``get_config(arch, smoke=False)``.
 
-``dit-xl-512``, ``pixart-alpha`` and ``sd15-unet`` (diffusion) and
+``dit-xl-512``, ``pixart-alpha`` and ``sd15-unet`` (diffusion),
 ``olmo-1b``, ``gemma2-9b``, ``gemma3-27b`` and ``glm4-9b``
-(autoregressive, dense) are ported; any other arch the JAX registry
+(autoregressive, dense) and ``deepseek-moe-16b`` and ``kimi-k2-1t-a32b``
+(autoregressive, MoE) are ported; any other arch the JAX registry
 knows raises, naming the ROADMAP queue item that ports it.
 """
 from __future__ import annotations
@@ -20,13 +21,13 @@ _MODULES: Dict[str, str] = {
     "gemma2-9b": "gemma2_9b",
     "gemma3-27b": "gemma3_27b",
     "glm4-9b": "glm4_9b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
 }
 
 # Archs of the JAX registry that a later slice ports (ROADMAP Queue A).
 _NOT_YET_PORTED: Dict[str, str] = {
     "whisper-base": "Queue A item 12 (other families)",
-    "kimi-k2-1t-a32b": "Queue A item 12 (other families)",
-    "deepseek-moe-16b": "Queue A item 12 (other families)",
     "mamba2-370m": "Queue A item 12 (other families)",
     "hymba-1.5b": "Queue A item 12 (other families)",
     "internvl2-76b": "Queue A item 12 (other families)",

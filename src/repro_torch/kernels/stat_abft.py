@@ -86,8 +86,19 @@ def detect(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor,
            w_abs_sum: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-row fault flags: ``|residual|`` above the statistical
     threshold."""
-    return (residuals(x, w, y, w_sum).abs()
-            > threshold(x, w, w_abs_sum))
+    return detect_and_nan(x, w, y, w_sum, w_abs_sum)[0]
+
+
+def detect_and_nan(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor,
+                   w_sum: Optional[torch.Tensor] = None,
+                   w_abs_sum: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``detect``'s flags and, apart, the rows whose residual is NaN: a
+    flip that turns a word into a NaN makes ``|r| > tau`` false, so
+    ``detect`` (as the reference's) never flags it (ROADMAP Queue C item
+    6)."""
+    r = residuals(x, w, y, w_sum).abs()
+    return r > threshold(x, w, w_abs_sum), torch.isnan(r)
 
 
 def min_detectable_magnitude(x: torch.Tensor, w: torch.Tensor

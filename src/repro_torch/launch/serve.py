@@ -107,7 +107,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="dit-xl-512",
                     help="model to serve (ported: dit-xl-512, pixart-alpha, "
                          "sd15-unet, diffusion; olmo-1b, gemma2-9b, "
-                         "gemma3-27b, glm4-9b, autoregressive)")
+                         "gemma3-27b, glm4-9b, deepseek-moe-16b, "
+                         "kimi-k2-1t-a32b, autoregressive)")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="serve the 3-layer smoke config (--no-smoke: the "

@@ -1,8 +1,8 @@
 """Shared model machinery: the model config, norms, RoPE, activations, inits.
 
 Counterpart of ``repro.models.common``, reduced to what the DiT, PixArt,
-UNet and dense LM paths use. Parameters are plain nested dicts of tensors, as in the
-reference.
+UNet, dense LM and MoE LM paths use. Parameters are plain nested dicts of
+tensors, as in the reference.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ Params = Dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dit | unet | dense (those ported)
+    family: str                      # dit | unet | dense | moe (those ported)
     n_layers: int
     d_model: int
     n_heads: int = 0
@@ -36,6 +36,11 @@ class ModelConfig:
     act: str = "silu"                # silu | gelu
     tie_embeddings: bool = True
     rope_theta: float = 10000.0
+    # --- MoE ---
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
     # --- DiT / UNet (diffusion) ---
     latent_size: int = 0             # spatial latent (e.g. 64 for 512px f8)
     latent_channels: int = 4

@@ -1,19 +1,25 @@
-"""Decoder-only LM, dense family: prefill and token-by-token decode.
+"""Decoder-only LM, dense and MoE families: prefill and token-by-token
+decode.
 
-Counterpart of ``repro.models.transformer``, reduced to the dense family:
-olmo-1b, and gemma2-9b, gemma3-27b and glm4-9b with GQA, per-layer
+Counterpart of ``repro.models.transformer``, reduced to the dense and MoE
+families: olmo-1b; gemma2-9b, gemma3-27b and glm4-9b with GQA, per-layer
 sliding windows (``cfg.layer_windows()``), the attention softcap and the
-logit softcap. Params are nested dicts like the
-reference's, except that ``layers`` is a list with one dict per layer (the
-reference stacks them on a leading L axis for ``lax.scan``);
+logit softcap; deepseek-moe-16b and kimi-k2 with the MoE FFN
+(``models.moe``) in place of the dense MLP. Params are nested dicts like
+the reference's, except that ``layers`` is a list with one dict per layer
+(the reference stacks them on a leading L axis for ``lax.scan``);
 ``params_from_jax`` converts.
 
 The reference casts every f32 weight to the activation dtype on every call
 (``_proj``), and statistical ABFT sums every weight over its output axis
 on every call. ``prepare`` does both once: ``Weights`` holds each
 projection as a ``Proj`` (the cast weight and its two per-row sums, from
-the same ops on the same cast weight, so bit-identical) and the cast
-embedding. The model functions take raw params or ``Weights``.
+the same ops on the same cast weight, so bit-identical), the cast
+embedding, and the MoE router and experts cast (they are unprotected, so
+they carry no sums). ``init_weights`` draws the same weights as
+``init_params`` and prepares each one as it is drawn, so serving never
+holds the f32 masters: at full width it needs the activation-dtype bytes
+alone. The model functions take raw params or ``Weights``.
 
 Prefill self-attention runs the attention kernel (``kernels.
 flash_attention.mha_flash``, causal, with the layer's window and the
@@ -22,8 +28,8 @@ softcap); decode attention is plain PyTorch
 The KV cache is written in place (the reference returns a new cache);
 ``Cache.pos`` is a host int, so a decode step never waits for the card.
 
-MoE, SSM, hybrid and VLM layers, the mixed/ring decode, ``DriftDecode``
-and the training ``forward`` are not yet ported (ROADMAP Queue A items 12
+SSM, hybrid and VLM layers, the mixed/ring decode, ``DriftDecode`` and
+the training ``forward`` are not yet ported (ROADMAP Queue A items 12
 and 14).
 """
 from __future__ import annotations
@@ -37,22 +43,31 @@ import torch
 from repro_torch.core import dvfs
 from repro_torch.kernels.flash_attention import mha_flash
 from repro_torch.kernels.stat_abft import weight_sums
-from repro_torch.models import attention
+from repro_torch.models import attention, moe
 from repro_torch.models.common import (ModelConfig, Params, activation,
                                        apply_norm, apply_rope, dense_init,
                                        embed_init, norm_params, softcap)
 
 def _check_cfg(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not yet ported to "
-            "repro_torch; only the dense LM is (ROADMAP Queue A item 12)")
+            "repro_torch; only the dense and MoE LMs are (ROADMAP Queue A "
+            "item 12)")
 
 
 # ============================================================ parameters
-def init_params(cfg: ModelConfig, seed: int, device="cpu") -> Params:
-    """Random params from ``seed`` with the reference's init law:
-    truncated-normal projections (std 1/sqrt(d_in)) and embedding (std 1)."""
+def _identity(w):
+    return w
+
+
+def _draw(cfg: ModelConfig, seed: int, device, proj: Callable,
+          plain: Callable) -> Params:
+    """Random weights from ``seed`` with the reference's init law:
+    truncated-normal projections (std 1/sqrt(d_in)), embedding (std 1) and
+    MoE experts (``moe.init_moe_params``), drawn in one order from one
+    generator. Each projection is handed to ``proj`` and each other weight
+    to ``plain`` as soon as it is drawn."""
     _check_cfg(cfg)
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
@@ -60,21 +75,31 @@ def init_params(cfg: ModelConfig, seed: int, device="cpu") -> Params:
     h, hkv, pdt = cfg.n_heads, cfg.kv_heads, cfg.param_dtype
 
     def dense(a, b):
-        return dense_init(a, b, pdt, device, g)
+        return proj(dense_init(a, b, pdt, device, g))
 
-    p: Params = {"embed": embed_init(cfg.vocab, d, pdt, device, g)}
-    p["layers"] = [{
-        "ln1": norm_params(cfg, device),
-        "attn": {"wq": dense(d, h * hd), "wk": dense(d, hkv * hd),
-                 "wv": dense(d, hkv * hd), "wo": dense(h * hd, d)},
-        "ln2": norm_params(cfg, device),
-        "mlp": {"w_gate": dense(d, f), "w_up": dense(d, f),
-                "w_down": dense(f, d)},
-    } for _ in range(cfg.n_layers)]
+    def layer() -> Params:
+        lp: Params = {"ln1": norm_params(cfg, device)}
+        lp["attn"] = {"wq": dense(d, h * hd), "wk": dense(d, hkv * hd),
+                      "wv": dense(d, hkv * hd), "wo": dense(h * hd, d)}
+        lp["ln2"] = norm_params(cfg, device)
+        if cfg.family == "moe":
+            lp["moe"] = moe.init_moe_params(cfg, g, device, plain)
+        else:
+            lp["mlp"] = {"w_gate": dense(d, f), "w_up": dense(d, f),
+                         "w_down": dense(f, d)}
+        return lp
+
+    p: Params = {"embed": plain(embed_init(cfg.vocab, d, pdt, device, g))}
+    p["layers"] = [layer() for _ in range(cfg.n_layers)]
     p["final_norm"] = norm_params(cfg, device)
     if not cfg.tie_embeddings:
         p["lm_head"] = dense(d, cfg.vocab)
     return p
+
+
+def init_params(cfg: ModelConfig, seed: int, device="cpu") -> Params:
+    """Random params from ``seed`` in ``cfg.param_dtype`` (``_draw``)."""
+    return _draw(cfg, seed, device, _identity, _identity)
 
 
 def params_from_jax(tree: Dict[str, Any], device="cpu") -> Params:
@@ -105,6 +130,12 @@ def _proj_of(w: torch.Tensor, dtype: torch.dtype) -> Proj:
     return Proj(wc, *weight_sums(wc))
 
 
+def _cast_tree(t, dtype: torch.dtype):
+    if isinstance(t, dict):
+        return {k: _cast_tree(v, dtype) for k, v in t.items()}
+    return t.to(dtype)
+
+
 @dataclasses.dataclass
 class Weights:
     """Params prepared once for serving (see the module docstring)."""
@@ -115,20 +146,37 @@ class Weights:
 
 
 def prepare(cfg: ModelConfig, params) -> Weights:
-    """Cast every weight to ``cfg.dtype`` once and sum it for detection."""
+    """Cast every weight to ``cfg.dtype`` once and sum each projection for
+    detection; ``Weights`` pass through as they are."""
     if isinstance(params, Weights):
         return params
     _check_cfg(cfg)
     dt = cfg.dtype
-    layers = [{
-        "ln1": lp["ln1"], "ln2": lp["ln2"],
-        "attn": {k: _proj_of(v, dt) for k, v in lp["attn"].items()},
-        "mlp": {k: _proj_of(v, dt) for k, v in lp["mlp"].items()},
-    } for lp in params["layers"]]
+    layers = []
+    for lp in params["layers"]:
+        out = {"ln1": lp["ln1"], "ln2": lp["ln2"],
+               "attn": {k: _proj_of(v, dt) for k, v in lp["attn"].items()}}
+        if "moe" in lp:
+            out["moe"] = _cast_tree(lp["moe"], dt)
+        else:
+            out["mlp"] = {k: _proj_of(v, dt) for k, v in lp["mlp"].items()}
+        layers.append(out)
     head = (None if cfg.tie_embeddings
             else _proj_of(params["lm_head"], dt))
     return Weights(params["embed"].to(dt), layers, params["final_norm"],
                    head)
+
+
+def init_weights(cfg: ModelConfig, seed: int, device="cpu") -> Weights:
+    """``prepare(cfg, init_params(cfg, seed, device))``, bit for bit, with
+    no f32 master kept: each weight is drawn as ``init_params`` draws it,
+    rounded to ``cfg.param_dtype`` and then to ``cfg.dtype``, and its draw
+    freed before the next one."""
+    dt = cfg.dtype
+    p = _draw(cfg, seed, device, lambda w: _proj_of(w, dt),
+              lambda w: w.to(dt))
+    return Weights(p["embed"], p["layers"], p["final_norm"],
+                   p.get("lm_head"))
 
 
 # ============================================================== caching
@@ -200,6 +248,9 @@ def _layer(cfg: ModelConfig, p: Params, x: torch.Tensor, *, window: int,
                         positions=positions, mode=mode, cache_kv=cache_kv,
                         cache_pos=cache_pos, ctx=ctx, rclass=rclass)
     h2 = apply_norm(cfg, p["ln2"], x)
+    if cfg.family == "moe":       # unprotected: no ctx, as the reference
+        y2, _ = moe.moe_ffn(cfg, p["moe"], h2.reshape(-1, h2.shape[-1]))
+        return x + y2.reshape(h2.shape)
     return x + _mlp_block(cfg, p["mlp"], h2, ctx=ctx, rclass=rclass)
 
 
@@ -289,14 +340,15 @@ def decode_step_mixed(cfg: ModelConfig, params, cache, tokens):
 
 def param_count(cfg: ModelConfig) -> int:
     """Analytical parameter count, the reference's formula for the dense
-    family (its MoE and SSM terms wait for the families themselves)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: param_count of the {cfg.family!r} family is not "
-            "yet ported to repro_torch (ROADMAP Queue A item 12)")
+    and MoE families (its SSM terms wait for the families themselves)."""
+    _check_cfg(cfg)
     d, h, hkv, hd, f, v = (cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd,
                            cfg.d_ff, cfg.vocab)
-    per_layer = d * h * hd + 2 * d * hkv * hd + h * hd * d + 3 * d * f
+    per_layer = d * h * hd + 2 * d * hkv * hd + h * hd * d
+    if cfg.family == "moe":
+        per_layer += moe.moe_param_count(cfg)
+    else:
+        per_layer += 3 * d * f
     n = cfg.n_layers * per_layer + v * d
     if not cfg.tie_embeddings:
         n += v * d

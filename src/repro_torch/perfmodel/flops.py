@@ -9,10 +9,9 @@ plus explicit attention FLOPs (2 * 2 * S^2 * d per layer at train/prefill,
 window-clipped for local layers), which the 6ND rule ignores.
 
 The port has the DiT (PixArt's cross-attention term included), the UNet
-and the dense LM families. The reference's terms that only other
-families reach -- MoE experts, the SSM scan -- raise
-``NotImplementedError`` naming ROADMAP Queue A item 12, which ports those
-families.
+and the dense and MoE LM families. The reference's term that only other
+families reach -- the SSM scan -- raises ``NotImplementedError`` naming
+ROADMAP Queue A item 12, which ports those families.
 """
 from __future__ import annotations
 
@@ -31,11 +30,19 @@ def not_ported(cfg: ModelConfig, what: str) -> NotImplementedError:
 
 
 def active_params(cfg: ModelConfig) -> float:
-    """Parameters touched per token."""
-    if cfg.family == "moe":
-        raise not_ported(cfg, "active_params")
-    n = tf_lib.param_count(cfg) if cfg.family not in ("dit", "unet") \
-        else dit_lib.param_count(cfg)
+    """Parameters touched per token (MoE: top-k + shared experts only)."""
+    if cfg.family != "moe":
+        n = tf_lib.param_count(cfg) if cfg.family not in ("dit", "unet") \
+            else dit_lib.param_count(cfg)
+        return float(n)
+    d, f = cfg.d_model, cfg.d_ff
+    per_layer = (d * cfg.n_heads * cfg.hd + 2 * d * cfg.kv_heads * cfg.hd
+                 + cfg.n_heads * cfg.hd * d)
+    per_layer += (3 * d * f * (cfg.top_k + cfg.n_shared_experts)
+                  + d * cfg.n_experts)
+    n = cfg.n_layers * per_layer + cfg.vocab * d
+    if not cfg.tie_embeddings:
+        n += cfg.vocab * d
     return float(n)
 
 

@@ -4,14 +4,24 @@ Counterpart of ``repro.serving.ar``: greedy token-by-token decoding over
 ``models.transformer`` under the DVFS BER table, with ReaLM-style
 statistical ABFT (``kernels.stat_abft``) on every projection GEMM:
 
-  * every faulted decode step routes ``attn.{q,k,v,o}`` and
-    ``mlp.{gate,up,down}`` through a detection-only ``StatAbftContext``:
+  * every faulted decode step routes ``attn.{q,k,v,o}`` and, in the
+    dense family, ``mlp.{gate,up,down}`` through a detection-only
+    ``StatAbftContext`` (the MoE family's expert FFNs are unprotected, as
+    in the reference):
     bit flips are injected into the f32 view of each GEMM output by the
     injection kernel (``kernels.fault_inject``), with the mask a flip
     source draws for ``FaultSite(step, layer_idx, name)``, and rows whose
     checksum residual leaves the rounding envelope are counted;
   * decoding runs in windows of ``rollback_interval`` tokens. A window
     that detects anything is rolled back and replayed fault-free.
+
+One departure from the reference (ROADMAP Queue C item 6): a flip that
+makes a NaN leaves a NaN residual, which ``|r| > tau`` never flags, so
+the reference keeps a window whose only faults made NaNs, and its tokens
+with it. The port counts such rows apart (``nan_rows``) and rolls their
+window back too. Detections, the heatmap and the BER monitor stay the
+reference's statistical counts; only the replay decision (and so
+rollbacks, evaluations and tokens) differs, and only for such windows.
 
 Rollback restores ``(cache.pos, last token)`` only. The reference snapshots
 its immutable cache for free; the port writes the cache in place and does
@@ -64,10 +74,16 @@ def prompt_tokens(cfg: ModelConfig, seeds, device="cpu") -> torch.Tensor:
 
 def protected_words_per_step(cfg: ModelConfig, batch: int) -> int:
     """GEMM output words routed through the ABFT context per decode step
-    (the BER monitor's normalization)."""
+    (the BER monitor's normalization), by the reference's family
+    branches: attn.{q,k,v,o}, plus mlp.{gate,up,down} outside the MoE
+    family (whose expert FFNs are unprotected) and the SSM one."""
     d, h, hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd,
                         cfg.d_ff)
-    per_layer = h * hd + 2 * hkv * hd + d + 2 * f + d
+    per_layer = 0
+    if cfg.family != "ssm":
+        per_layer += h * hd + 2 * hkv * hd + d          # attn.{q,k,v,o}
+        if cfg.family != "moe":
+            per_layer += 2 * f + d                      # mlp.{gate,up,down}
     return cfg.n_layers * per_layer * batch
 
 
@@ -78,7 +94,8 @@ class StatAbftContext:
     model dtype, injects the flip source's mask for ``FaultSite(step,
     layer_idx, name)`` into its f32 view at ``ber_by_class[rclass]``, and
     (with ``detect``) counts rows whose checksum residual exceeds the
-    statistical threshold. The counts stay on the device. No correction.
+    statistical threshold and, apart, rows whose residual is NaN. The
+    counts stay on the device. No correction.
     """
 
     def __init__(self, flip_source: Optional[fault.FlipSource], step: int,
@@ -89,7 +106,7 @@ class StatAbftContext:
         self.ber_by_class = ber_by_class
         self.detect = detect
         self.stats: Dict[str, object] = {"detected_rows": 0,
-                                         "gemm_words": 0.0}
+                                         "nan_rows": 0, "gemm_words": 0.0}
 
     def matmul(self, x: torch.Tensor, proj: transformer.Proj, *, name: str,
                rclass: int) -> torch.Tensor:
@@ -102,10 +119,11 @@ class StatAbftContext:
             # bf16 -> f32 is exact; f32 -> bf16 rounds to nearest even.
             y_faulty = fault.inject_f32(y.float(), mask.to(y.device))
         if self.detect:
-            flagged = stat_abft.detect(x, proj.w, y_faulty, proj.w_sum,
-                                       proj.w_abs_sum)
+            flagged, nan = stat_abft.detect_and_nan(
+                x, proj.w, y_faulty, proj.w_sum, proj.w_abs_sum)
             self.stats["detected_rows"] = (self.stats["detected_rows"]
                                            + flagged.sum())
+            self.stats["nan_rows"] = self.stats["nan_rows"] + nan.sum()
         self.stats["gemm_words"] += float(y.numel())
         return y_faulty.to(x.dtype)
 
@@ -136,6 +154,7 @@ class DecodeOut(NamedTuple):
     n_model_evals: int           # prefill + decode steps incl. replays
     n_words: float               # GEMM words checked (0 for clean)
     heatmap: torch.Tensor        # (steps, 1) int32 detections per step
+    nan_rows: float              # NaN-residual rows, summed (not detected)
 
 
 def make_decoder(cfg: ModelConfig, dcfg: DecodeConfig, *,
@@ -161,11 +180,12 @@ def make_decoder(cfg: ModelConfig, dcfg: DecodeConfig, *,
     def step(params, cache, tok, step_idx: int, monitor, flip_source,
              ber_scale: float):
         """One decode step; returns (next token, cache, monitor,
-        detections (0-d device tensor or 0), GEMM words)."""
+        detections, NaN-residual rows (each a 0-d device tensor or 0),
+        GEMM words)."""
         if dcfg.mode == "clean" or ber_scale == 0.0:
             logits, cache, _ = transformer.decode_step(cfg, params, cache,
                                                        tok[:, None])
-            det, words = 0, 0.0
+            det, nan, words = 0, 0, 0.0
         else:
             row = ber_table[min(max(step_idx, 0), n_rows - 1)] \
                 * np.float32(ber_scale)
@@ -175,14 +195,16 @@ def make_decoder(cfg: ModelConfig, dcfg: DecodeConfig, *,
                                        row, detect=dcfg.mode == "stat_abft")
             logits, cache, stats = transformer.decode_step_stats(
                 cfg, params, cache, tok[:, None], ctx_factory)
-            det, words = stats["detected_rows"], stats["gemm_words"]
+            det, nan, words = (stats["detected_rows"], stats["nan_rows"],
+                               stats["gemm_words"])
             det_t = torch.as_tensor(det, dtype=torch.float32,
                                     device=tok.device)
             monitor = dvfs.ber_monitor_update(
                 monitor, det_t,
                 max(protected_words_per_step(cfg, tok.shape[0]), 1), 0,
                 dcfg.monitor_target_ber)
-        return logits[:, -1, :].argmax(dim=-1), cache, monitor, det, words
+        return (logits[:, -1, :].argmax(dim=-1), cache, monitor, det, nan,
+                words)
 
     return DecoderFns(dcfg=dcfg, prefill=prefill, step=step)
 
@@ -207,7 +229,7 @@ def decode_batch(fns: DecoderFns, params, tokens: torch.Tensor,
     last_tok, cache = fns.prefill(params, tokens)
     generated = [last_tok]
     monitor = monitor0
-    detections = 0.0
+    detections = nan_rows = 0.0
     n_words = 0.0
     rollbacks = 0
     n_model_evals = 1                          # the prefill pass
@@ -220,23 +242,26 @@ def decode_batch(fns: DecoderFns, params, tokens: torch.Tensor,
         n = min(window, dcfg.steps - i)
         snap_cache, snap_tok = cache, last_tok  # cache.pos is the snapshot
         window_toks = []
-        det_w = zero
+        det_w = nan_w = zero
         for j in range(n):
-            last_tok, cache, monitor, det, words = fns.step(
+            last_tok, cache, monitor, det, nan, words = fns.step(
                 params, cache, last_tok, i + j, monitor, flip_source, 1.0)
             window_toks.append(last_tok)
             det_steps.append(zero + det)
             det_w = det_w + det
+            nan_w = nan_w + nan
             n_words += words
         n_model_evals += n
-        det_w_host = float(det_w)             # one host sync per window
+        # one host sync per window
+        det_w_host, nan_w_host = torch.stack([det_w, nan_w]).tolist()
         detections += det_w_host
-        if dcfg.mode == "stat_abft" and det_w_host > 0:
+        nan_rows += nan_w_host
+        if dcfg.mode == "stat_abft" and (det_w_host > 0 or nan_w_host > 0):
             # Revert the corrupted window and replay it fault-free.
             cache, last_tok = snap_cache, snap_tok
             window_toks = []
             for j in range(n):
-                last_tok, cache, _m, _d, _w = fns.step(
+                last_tok, cache, *_ = fns.step(
                     params, cache, last_tok, i + j, monitor, flip_source,
                     0.0)
                 window_toks.append(last_tok)
@@ -253,4 +278,4 @@ def decode_batch(fns: DecoderFns, params, tokens: torch.Tensor,
     heatmap = torch.stack(det_steps).to(torch.int32)[:, None]
     return DecodeOut(tokens=toks, monitor=monitor, detections=detections,
                      rollbacks=rollbacks, n_model_evals=n_model_evals,
-                     n_words=n_words, heatmap=heatmap)
+                     n_words=n_words, heatmap=heatmap, nan_rows=nan_rows)

@@ -297,7 +297,8 @@ class AutoregressiveServable:
     (``serving.ar``) behind the engine's queue, cache and monitor."""
 
     paradigm = "autoregressive"
-    init_params = staticmethod(transformer.init_params)
+    # prepared weights only: a full-width engine never holds f32 masters
+    init_params = staticmethod(transformer.init_weights)
 
     #: the AR protection story is detection + window rollback; "drift"
     #: (inline tile rollback) is a diffusion mechanism.
@@ -305,7 +306,8 @@ class AutoregressiveServable:
 
     def __init__(self, engine):
         self.eng = engine
-        # (arch, smoke) -> (params object, its prepared Weights)
+        # (arch, smoke) -> (params object, its prepared Weights); one
+        # object twice when the params are Weights already
         self._weights: Dict[Tuple[str, bool], tuple] = {}
 
     def validate_request(self, fields: dict) -> dict:
@@ -363,7 +365,9 @@ class AutoregressiveServable:
 
     def _weights_for(self, key: SamplerKey, params) -> transformer.Weights:
         """The prepared weights of ``params``, built once per params
-        object (``set_params`` swaps the object and so re-prepares)."""
+        object (``set_params`` swaps the object and so re-prepares);
+        ``Weights`` (``init_weights``'s, the default) are used as they
+        are, never copied."""
         k = (key.arch, key.smoke)
         hit = self._weights.get(k)
         if hit is None or hit[0] is not params:
@@ -466,6 +470,7 @@ SERVABLE_BY_FAMILY = {
     "dit": DiffusionServable,
     "unet": DiffusionServable,
     "dense": AutoregressiveServable,
+    "moe": AutoregressiveServable,
 }
 
 # family -> serving paradigm, as the reference names them.

@@ -157,6 +157,59 @@ def test_stat_detection_matches_jax(dtype):
     assert got[:3].all() and not got[3:].any()
 
 
+def test_nan_residual_escapes_detect_and_is_counted_apart():
+    """A NaN in a row's output makes its residual NaN, which ``|r| > tau``
+    never flags, in the reference and in ``detect`` alike (ROADMAP Queue C
+    item 6); ``detect_and_nan`` returns the same flags and the NaN rows
+    apart."""
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((4, 1, 64)).astype(np.float32)
+    w = (rng.standard_normal((64, 96)) / 8).astype(np.float32)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    y = tx @ tw
+    y[1, 0, 3] = float("nan")
+    y[2, 0, 0] += 1.5 * float(stat_abft.min_detectable_magnitude(tx, tw)[2])
+    want = np.asarray(jstat.detect(jnp.asarray(x), jnp.asarray(w),
+                                   jnp.asarray(y.numpy())))
+    flags, nan = stat_abft.detect_and_nan(tx, tw, y)
+    np.testing.assert_array_equal(flags.numpy(), want)
+    assert torch.equal(flags, stat_abft.detect(tx, tw, y))
+    assert flags[:, 0].tolist() == [False, False, True, False]
+    assert nan[:, 0].tolist() == [False, True, False, False]
+
+
+@pytest.mark.parametrize("mode", ["stat_abft", "faulty"])
+def test_nan_only_window_rolls_back(mode):
+    """A window whose faults made only NaN residuals (no statistical
+    detection) is replayed in stat_abft, where the reference would keep
+    its tokens; detections and the heatmap stay 0, ``nan_rows`` counts
+    them. Faulty mode keeps the corrupted token. The decode loop is
+    driven by stub callables: step 5's faulted pass reports 2 NaN rows and
+    emits token 999."""
+    dcfg = ar.DecodeConfig(steps=8, window=3, mode=mode,
+                           monitor_target_ber=3e-3)
+
+    def prefill(params, tokens):
+        return torch.zeros((2,), dtype=torch.long), None
+
+    def step(params, cache, tok, i, monitor, src, ber_scale):
+        hit = i == 5 and ber_scale == 1.0
+        nan = torch.tensor(2) if hit else 0
+        nxt = torch.full((2,), 999 if hit else i, dtype=torch.long)
+        return nxt, cache, monitor, 0, nan, 0.0
+    out = ar.decode_batch(ar.DecoderFns(dcfg, prefill, step), None,
+                          torch.zeros((2, ar.PROMPT_LEN), dtype=torch.long),
+                          dvfs.ber_monitor_init("cpu"), None)
+    assert out.detections == 0 and int(out.heatmap.sum()) == 0
+    assert out.nan_rows == 2.0
+    if mode == "stat_abft":
+        assert out.rollbacks == 1 and out.n_model_evals == 1 + 7 + 3
+        assert out.tokens[0].tolist() == [0, 1, 2, 3, 4, 5, 6, 7]
+    else:
+        assert out.rollbacks == 0 and out.n_model_evals == 8
+        assert out.tokens[0, 5] == 999
+
+
 def test_unit_roundoff_follows_finfo():
     """eps / 2 as the reference computes it: 2^-8 for bf16 (its docstring
     says 2^-9), 2^-24 for f32."""
@@ -439,7 +492,7 @@ def test_engine_serves_both_paradigms_and_rejects_unported():
     with pytest.raises(ValueError, match="autoregressive serving"):
         eng.submit(arch=ARCH, mode="drift")
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        eng.submit(arch="deepseek-moe-16b", mode="stat_abft")
+        eng.submit(arch="hymba-1.5b", mode="stat_abft")
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
         eng.submit(arch="mamba2-370m", mode="stat_abft")
     assert len(eng.queue) == 0

@@ -1,16 +1,21 @@
 """The port's CUDA kernels against their plain PyTorch versions, the
-checkpoint-offload store's side-stream copies into pinned memory, and a
-drain through the telemetry front end's ``/events`` with offload on, on
-the card.
+checkpoint-offload store's side-stream copies into pinned memory, a
+drain through the telemetry front end's ``/events`` with offload on, the
+bf16-only LM weights (``transformer.init_weights``) and the MoE routing,
+on the card.
 
 Marked ``gpu``: each test skips without a CUDA device. This module imports
 no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
+
+from repro_torch import configs
 
 from repro_torch.kernels import abft_matmul as tak
 from repro_torch.kernels import fault_inject as tfi
@@ -18,6 +23,7 @@ from repro_torch.kernels import flash_attention as tfk
 from repro_torch.kernels import ops
 from repro_torch.kernels import rollback_correct as trk
 from repro_torch.kernels import stat_abft
+from repro_torch.models import moe, transformer
 from repro_torch.models.attention import full_attention
 from repro_torch.serving.offload import OffloadConfig, OffloadStore
 from repro_torch.serving.offload.layout import tree_leaves, tree_map
@@ -514,3 +520,74 @@ def test_events_drain_with_offload_on_card_matches_run(cuda):
     assert len(commits) == got.offload_store.stats.commits == 4
     assert all(s.t1_wall_s > s.t0_wall_s and s.attrs["nbytes"] > 0
                for s in commits)
+
+
+# ------------------------------------------------- LM weights, MoE routing
+def _weight_leaves(w):
+    """{path: tensor} over a ``transformer.Weights``, ``Proj`` fields
+    included."""
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{path}.{k}")
+        elif isinstance(t, transformer.Proj):
+            for f in t._fields:
+                out[f"{path}.{f}"] = getattr(t, f)
+        elif t is not None:
+            out[path] = t
+    for name in ("embed", "lm_head", "final_norm"):
+        walk(getattr(w, name), name)
+    for i, lp in enumerate(w.layers):
+        walk(lp, f"layers.{i}")
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma2-9b", "deepseek-moe-16b",
+                                  "kimi-k2-1t-a32b"])
+def test_init_weights_on_card_equals_prepared_init_params(cuda, arch):
+    """Drawn on the card, ``init_weights`` is ``prepare(init_params(...))``
+    bit for bit for a bf16 SMOKE config: the generator's draws do not
+    depend on the f32 masters being kept."""
+    cfg = dataclasses.replace(configs.get_config(arch, smoke=True),
+                              dtype=torch.bfloat16)
+    want = _weight_leaves(transformer.prepare(
+        cfg, transformer.init_params(cfg, 11, cuda)))
+    got = _weight_leaves(transformer.init_weights(cfg, 11, cuda))
+    assert sorted(got) == sorted(want)
+    for k, g in got.items():
+        assert g.device.type == "cuda" and g.dtype == want[k].dtype, k
+        assert torch.equal(g, want[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "kimi-k2-1t-a32b"])
+def test_moe_ffn_on_card_matches_cpu(cuda, arch):
+    """The SMOKE MoE FFN at 256 tokens with capacity factor 0.5 (tokens
+    drop) and a zero row (its probabilities all tie): routing integers
+    equal to the CPU's, ties to the lowest expert ids, ``y`` within 1e-5,
+    and two card runs bit-equal (the combine adds in a fixed order)."""
+    cfg = dataclasses.replace(configs.get_config(arch, smoke=True),
+                              capacity_factor=0.5)
+    p = moe.init_moe_params(cfg, torch.Generator().manual_seed(3))
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (256, cfg.d_model)).astype(np.float32))
+    x[3] = 0.0
+    pc = {k: (v.to(cuda) if not isinstance(v, dict)
+              else {n: w.to(cuda) for n, w in v.items()})
+          for k, v in p.items()}
+    want = moe.route(cfg, p["router"], x)
+    got = moe.route(cfg, pc["router"], x.to(cuda))
+    for f in ("flat_e", "rank", "keep", "slot"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert int((~got.keep).sum()) > 0
+    k = cfg.top_k
+    assert got.flat_e[3 * k:4 * k].tolist() == list(range(k))
+    y, aux = moe.moe_ffn(cfg, pc, x.to(cuda))
+    y2, _ = moe.moe_ffn(cfg, pc, x.to(cuda))
+    assert torch.equal(y, y2)
+    y_cpu, aux_cpu = moe.moe_ffn(cfg, p, x)
+    torch.testing.assert_close(y.cpu(), y_cpu, atol=1e-5, rtol=0)
+    assert abs(float(aux) - float(aux_cpu)) <= 1e-6

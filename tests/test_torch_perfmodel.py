@@ -234,10 +234,10 @@ def test_taylorseer_and_narrowed_plans_bill_less(models):
 
 
 def test_unported_families_raise():
-    moe = ModelConfig(name="m", family="moe", n_layers=2, d_model=8,
-                      n_heads=2, d_ff=16, vocab=32)
-    ssm = dataclasses.replace(moe, family="ssm")
-    for fn, cfg in ((flops.active_params, moe),
+    hybrid = ModelConfig(name="m", family="hybrid", n_layers=2, d_model=8,
+                         n_heads=2, d_ff=16, vocab=32)
+    ssm = dataclasses.replace(hybrid, family="ssm")
+    for fn, cfg in ((flops.active_params, hybrid),
                     (transformer.param_count, ssm),
                     (flops.gemm_macs_per_model_eval, ssm)):
         with pytest.raises(NotImplementedError, match="Queue A item 12"):

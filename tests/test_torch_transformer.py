@@ -64,7 +64,7 @@ def test_config_matches_reference():
         16, 2048, 128, 8192, 50304)
     assert full.dtype == torch.bfloat16
     assert configs.get_config(ARCH, smoke=True).dtype == torch.float32
-    for arch in ("deepseek-moe-16b", "kimi-k2-1t-a32b", "mamba2-370m"):
+    for arch in ("whisper-base", "hymba-1.5b", "mamba2-370m"):
         with pytest.raises(NotImplementedError, match="Queue A item 12"):
             configs.get_config(arch)
 
@@ -220,7 +220,7 @@ def test_unported_paths_raise(setup):
     import dataclasses
     _, cfg, _, _ = setup
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        transformer.init_params(dataclasses.replace(cfg, family="moe"), 0)
+        transformer.init_params(dataclasses.replace(cfg, family="hybrid"), 0)
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
         transformer.init_params(dataclasses.replace(cfg, family="ssm"), 0)
     with pytest.raises(NotImplementedError, match="Queue A item 14"):
