@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases device,build,kernels,ar
     python3 chip_smoke.py --phases device,build,kernels,lm
     python3 chip_smoke.py --phases device,build,kernels,moe
+    python3 chip_smoke.py --phases device,build,kernels,ssm
     python3 chip_smoke.py --phases device,build,offload
     python3 chip_smoke.py --phases device,build,sched
     python3 chip_smoke.py --phases device,build,baselines
@@ -51,7 +52,8 @@ Phases, each printing one JSON line with its wall time:
                with the softcap of 50 and window 4096 or none, a binding
                window at (1, 8192, 16/8, 256), gemma3-27b's prefill
                (2, 8, 32/16, 168) and (1, 2048, 32/16, 168), window 1024,
-               glm4-9b's (1, 4096, 32/2, 128)),
+               glm4-9b's (1, 4096, 32/2, 128), hymba-1.5b's prefill
+               (2, 8, 25/5, 64) and (1, 2048, 25/5, 64), window 1024),
                each one launch within tolerance of the plain version,
                beside its causal- and window-clipped bound and SDPA with
                ``enable_gqa`` (a compiled ``flex_attention`` where a
@@ -71,10 +73,12 @@ Phases, each printing one JSON line with its wall time:
                gemma2-9b, gemma3-27b and glm4-9b, and SMOKE
                deepseek-moe-16b and kimi-k2-1t-a32b (MoE; kimi's head dim
                8 over 8/2 heads takes the f32 kernel at its smallest
-               width), 12 stat_abft tokens (past the SMOKE window of 8):
+               width), and SMOKE mamba2-370m and hymba-1.5b (SSM and
+               hybrid), 12 stat_abft tokens (past the SMOKE window of 8):
                tokens, rollbacks, evaluations and joules equal,
-               detections within 2%; a 12-token prefill, one attention
-               launch a layer, logits within 1e-4; the MoE rows record
+               detections within 2% (mamba2's 0 and 0); a 12-token
+               prefill (two SSD chunks of 8), one attention launch an
+               attention layer, logits within 1e-4; the MoE rows record
                the smallest gap between a token's k-th and (k+1)-th
                router probability on the card.
 5. serve    -- ``repro_torch.launch.serve.main`` drives a full-width
@@ -148,7 +152,9 @@ Phases, each printing one JSON line with its wall time:
                5376, 32 heads of 168 over 16, windows of 1024 on 5 of 6
                layers, a tied 262144 x 5376 embedding; 28.3 B parameters,
                56.6 GB): 427 fault_inject launches per faulted step, 62
-               attentions per prefill.
+               attentions per prefill; then glm4-9b (40 layers, d 4096,
+               32 heads of 128 over 2; 9.40 B parameters, 18.8 GB): 273
+               and 40.
 9b. moe     -- full-width deepseek-moe-16b (28 layers, d 2048, 16 heads
                of 128, 2 shared + 64 routed experts of 1408, top-6; 16.9
                B parameters, 33.8 GB in bf16) the same way, after every
@@ -157,6 +163,16 @@ Phases, each printing one JSON line with its wall time:
                attention projections) per faulted decode step, 28
                attentions per prefill, no abft_matmul or
                rollback_correct launch.
+9c. ssm     -- full-width mamba2-370m (48 SSD layers, d 1024; 367.6 M
+               parameters, 0.74 GB in bf16) and then hymba-1.5b (32
+               layers of attention, 25 heads of 64 over 5, windows of 1024
+               but on layers 0, 15 and 31, beside an SSD block; 1.589 B,
+               3.18 GB) the same way. mamba2 protects nothing and has no
+               attention: no launch, no detection or rollback, 16
+               evaluations, faulty tokens equal to the clean ones. hymba:
+               217 fault_inject launches (31 faulted layers x 7 GEMMs) per
+               faulted decode step, 32 attentions per prefill; its
+               rollbacks restore the SSM state.
 
 10. baselines -- the full-width DiT-XL/2-512 serves the same 2 seeds at
                undervolt for 10 steps in thundervolt, approx_abft, dmr
@@ -185,8 +201,9 @@ bills (its modeled latency plus the planner's modeled stall), and
 stat_abft's replays must bill as ``compute_replay``. These joules and seconds are the modeled paper
 accelerator's, not this card's; the ``energy`` line says so.
 
-Then it prints the ``energy`` line, the card's name and power limit, the
-``kernels`` summary line and, last, ``{"ok": true, "device": {...}}``.
+Then it prints the run's wall time over every phase (the build included),
+the ``energy`` line, the card's name and power limit, the ``kernels``
+summary line and, last, ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repository, it
 raises and exits non-zero.
 """
@@ -203,7 +220,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "reference", "serve", "offload",
-          "sched", "ar", "lm", "moe", "baselines", "families")
+          "sched", "ar", "lm", "moe", "ssm", "baselines", "families")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, int8 and bf16
 # tensor-core rates, float32 rate outside the tensor cores.
@@ -218,10 +235,13 @@ BUCKET = 2
 SERVE_STEPS = 10
 THRESHOLD = 1 << 10
 AR_ARCH = "olmo-1b"
-LM_ARCHS = ("gemma2-9b", "gemma3-27b")   # full width in the lm phase
+# full width in the lm phase, each with its weights' seed
+LM_ARCHS = (("gemma2-9b", 22), ("gemma3-27b", 24), ("glm4-9b", 25))
 GQA_ARCHS = ("gemma2-9b", "gemma3-27b", "glm4-9b")
 MOE_ARCH = "deepseek-moe-16b"             # full width in the moe phase
 MOE_ARCHS = ("deepseek-moe-16b", "kimi-k2-1t-a32b")
+# full width in the ssm phase, and at SMOKE in reference
+SSM_ARCHS = (("mamba2-370m", 26), ("hymba-1.5b", 27))
 AR_STEPS = 16
 AR_WINDOW = 4
 TS_ARGS = ["--taylorseer", "--precision", "int8-body4"]
@@ -770,6 +790,10 @@ LM_ATTN = (
     ("gemma3-27b, local layer", (1, 2048, 32, 16, 168), True, 1024, 0.0,
      1e-2),
     ("glm4-9b, global layer", (1, 4096, 32, 2, 128), True, 0, 0.0, 1e-2),
+    ("hymba-1.5b prefill, local layer", (2, 8, 25, 5, 64), True, 1024, 0.0,
+     3e-2),
+    ("hymba-1.5b, binding window", (1, 2048, 25, 5, 64), True, 1024, 0.0,
+     1e-2),
     ("sd15-unet 32x32 self-attention", (2, 1024, 10, 10, 64), False, 0, 0.0,
      1e-2),
     ("sd15-unet 16x16 self-attention", (2, 256, 20, 20, 64), False, 0, 0.0,
@@ -1086,23 +1110,27 @@ def phase_reference(torch):
                 lm_tokens=[list(r.tokens) for r in lm_out["cpu"]],
                 slice8=_reference_slice8(torch, engine, cpu_params, lat),
                 gqa=_reference_lm(torch, engine, GQA_ARCHS),
-                moe=_reference_lm(torch, engine, MOE_ARCHS))
+                moe=_reference_lm(torch, engine, MOE_ARCHS),
+                ssm=_reference_lm(torch, engine,
+                                  [a for a, _ in SSM_ARCHS]))
 
 
 def _reference_lm(torch, engine, archs):
-    """SMOKE language models (the GQA ones, or the MoE ones) on the card
-    and the CPU with the same params, prompts and masks: 12 stat_abft
-    tokens at undervolt, window 3, so that the decode passes the SMOKE
-    window of 8. Tokens, token match, rollbacks and evaluations exact;
-    detections within 2%, as olmo-1b's; modeled joules equal. The served
-    prompts have 8 tokens, so the window binds in decode only; a 12-token
-    ``prefill`` on both sides binds it in the card's f32 attention kernel
-    (GQA, gemma2's softcap and kimi-k2's head dim 8 included): one launch
-    per layer, logits within 1e-4. An MoE row records, over the card's
-    run, the smallest nonzero gap between a token's k-th and (k+1)-th
-    router probability (routing may differ from the CPU's only below it)
-    and the tokens whose gap is 0 (exact ties, which both sides break
-    toward the lower expert index)."""
+    """SMOKE language models (the GQA ones, the MoE ones, or the SSM and
+    hybrid ones) on the card and the CPU with the same params, prompts
+    and masks: 12 stat_abft tokens at undervolt, window 3, so that the
+    decode passes the SMOKE window of 8. Tokens, token match, rollbacks
+    and evaluations exact; detections within 2%, as olmo-1b's; modeled
+    joules equal. mamba2-370m has no protected GEMM: no detection, no
+    rollback, one evaluation a token. The served prompts have 8 tokens, so
+    the window binds in decode only; a 12-token ``prefill`` on both sides
+    binds it in the card's f32 attention kernel (GQA, gemma2's softcap and
+    kimi-k2's head dim 8 included) and runs the SSD over two chunks of 8:
+    one launch per attention layer, logits within 1e-4. An MoE row
+    records, over the card's run, the smallest nonzero gap between a
+    token's k-th and (k+1)-th router probability (routing may differ from
+    the CPU's only below it) and the tokens whose gap is 0 (exact ties,
+    which both sides break toward the lower expert index)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.models import moe, transformer
@@ -1120,14 +1148,18 @@ def _reference_lm(torch, engine, archs):
         cfg = get_config(arch, smoke=True)
         params = transformer.init_params(cfg, 8)
         # As the CPU tests scale them, so that greedy decoding does not
-        # repeat one token: the embedding down, wo and w_down up.
+        # repeat one token: the embedding down, wo, w_down and the SSD's
+        # out_proj up.
         params["embed"] = params["embed"] * 0.05
         for lp in params["layers"]:
-            lp["attn"]["wo"] = lp["attn"]["wo"] * 4.0
-            ffn = lp["moe"] if cfg.family == "moe" else lp["mlp"]
-            ffn["w_down"] = ffn["w_down"] * 4.0
-            if "shared" in ffn:
-                ffn["shared"]["w_down"] = ffn["shared"]["w_down"] * 4.0
+            if "attn" in lp:
+                lp["attn"]["wo"] = lp["attn"]["wo"] * 4.0
+                ffn = lp["moe"] if cfg.family == "moe" else lp["mlp"]
+                ffn["w_down"] = ffn["w_down"] * 4.0
+                if "shared" in ffn:
+                    ffn["shared"]["w_down"] = ffn["shared"]["w_down"] * 4.0
+            if "ssm" in lp:
+                lp["ssm"]["out_proj"] = lp["ssm"]["out_proj"] * 4.0
         long = torch.randint(0, cfg.vocab, (2, 12),
                              generator=torch.Generator().manual_seed(9))
         n0 = fk.launches
@@ -1136,7 +1168,8 @@ def _reference_lm(torch, engine, archs):
         launched = fk.launches - n0
         prefill_err = float((card - transformer.prefill(
             cfg, params, long, 16)[0]).abs().max())
-        if not (launched == cfg.n_layers and prefill_err <= 1e-4):
+        attn_layers = 0 if cfg.family == "ssm" else cfg.n_layers
+        if not (launched == attn_layers and prefill_err <= 1e-4):
             raise AssertionError(f"{arch} SMOKE 12-token prefill: "
                                  f"{launched} launches, logits max err "
                                  f"{prefill_err}")
@@ -1161,7 +1194,15 @@ def _reference_lm(torch, engine, archs):
                     != (b.tokens, b.token_match_vs_clean, b.ar_rollbacks,
                         b.n_model_evals, b.energy_j)):
                 raise AssertionError(f"{arch} SMOKE card vs CPU: {a} vs {b}")
-            if not (b.ar_detections > 0 and b.ar_rollbacks >= 1 and abs(
+            if cfg.family == "ssm":
+                if (a.ar_detections, b.ar_detections, b.ar_rollbacks,
+                        b.n_model_evals) != (0, 0, 0, 12):
+                    raise AssertionError(f"{arch} SMOKE: detections "
+                                         f"{a.ar_detections}, "
+                                         f"{b.ar_detections}, rollbacks "
+                                         f"{b.ar_rollbacks}, evals "
+                                         f"{b.n_model_evals}")
+            elif not (b.ar_detections > 0 and b.ar_rollbacks >= 1 and abs(
                     a.ar_detections - b.ar_detections)
                     <= 0.02 * b.ar_detections):
                 raise AssertionError(f"{arch} SMOKE detections "
@@ -1999,17 +2040,34 @@ def phase_ar(torch):
 def phase_lm(torch):
     """Full-width gemma2-9b (42 layers, d 3584, 16 heads of 256 over 8 KV
     heads, windows of 4096 on alternate layers, softcaps 50 and 30, 9.24 B
-    parameters: 18.5 GB of bf16 weights) and then gemma3-27b (62 layers,
+    parameters: 18.5 GB of bf16 weights), then gemma3-27b (62 layers,
     d 5376, 32 heads of 168 over 16, windows of 1024 on 5 of 6 layers, a
-    tied 262144 x 5376 embedding, 28.3 B parameters: 56.6 GB) through the
-    CLI as ``ar`` drives olmo-1b, each after every earlier engine is
-    freed. The phase's launches are both archs' summed; each arch's own
-    are in its record."""
+    tied 262144 x 5376 embedding, 28.3 B parameters: 56.6 GB), then
+    glm4-9b (40 layers, d 4096, 32 heads of 128 over 2, 9.40 B
+    parameters: 18.8 GB) through the CLI as ``ar`` drives olmo-1b, each
+    after every earlier engine is freed."""
+    return _serve_archs(torch, LM_ARCHS, "lm")
+
+
+def phase_ssm(torch):
+    """Full-width mamba2-370m (48 SSD layers, d 1024, 32 SSM heads of 64,
+    state 128; 367.6 M parameters: 0.74 GB of bf16 weights) and then
+    hymba-1.5b (32 layers, each attention of 25 heads of 64 over 5, windows
+    of 1024 but on layers 0, 15 and 31, beside an SSD block of 50 heads,
+    state 16; 1.589 B parameters: 3.18 GB) through the CLI as ``ar``
+    drives olmo-1b, each after every earlier engine is freed."""
+    return _serve_archs(torch, SSM_ARCHS, "ssm")
+
+
+def _serve_archs(torch, archs, path):
+    """``_serve_ar`` for each (arch, seed) in turn, each after every
+    earlier engine is freed. The phase's launches are the archs' summed;
+    each arch's own are in its record."""
     runs, total = [], {}
-    for arch, seed in zip(LM_ARCHS, (22, 24)):
+    for arch, seed in archs:
         gc.collect()
         torch.cuda.empty_cache()
-        runs.append(_serve_ar(torch, arch, seed, "lm"))
+        runs.append(_serve_ar(torch, arch, seed, path))
         _add_launches(total, runs[-1]["launches"])
     energy = [e for r in runs for e in r.pop("energy")]
     return dict(launches=total, archs=runs, energy=energy)
@@ -2030,9 +2088,11 @@ def _serve_ar(torch, arch, seed, path):
     from ``transformer.init_weights`` on the card (no f32 masters), 2
     requests at bucket 2, 16 tokens, window 4, stat_abft then faulty at
     undervolt; exact launch counts, detections, rollbacks, token match
-    1.0, ledgers; then ms per decode step and a profiled request. Peak
-    memory is read over the init and over the two runs. The engine is
-    freed before it returns."""
+    1.0, ledgers; then ms per decode step and a profiled request. An SSM
+    arch has no protected GEMM and no attention: no launch, no detection,
+    no rollback, one evaluation a token, and its faulty tokens are the
+    clean ones. Peak memory is read over the init and over the two runs.
+    The engine is freed before it returns."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import abft_matmul as ak
     from repro_torch.kernels import fault_inject as fik
@@ -2093,12 +2153,14 @@ def _serve_ar(torch, arch, seed, path):
     # pass are faulted, replays and the clean reference are not.
     faulted_steps = sum(1 for i in range(1, AR_STEPS)
                         if i >= eng.nominal_steps)
-    # protected GEMMs a faulted layer: attn q/k/v/o, and the dense MLP's
-    # gate/up/down (the MoE experts are unprotected)
-    per_step = (cfg.n_layers - 1) * (4 if cfg.family == "moe" else 7)
+    # protected GEMMs a faulted layer: attn q/k/v/o, and the dense or
+    # hybrid MLP's gate/up/down (the MoE experts and the SSD blocks are
+    # unprotected; an SSM layer has neither attention nor MLP)
+    ssm = cfg.family == "ssm"
+    per_step = (cfg.n_layers - 1) * {"moe": 4, "ssm": 0}.get(cfg.family, 7)
     prefills = 3                 # stat_abft, its clean reference, faulty
     want = {"fault_inject": 2 * faulted_steps * per_step,
-            "flash_attention": prefills * cfg.n_layers,
+            "flash_attention": prefills * (0 if ssm else cfg.n_layers),
             "abft_matmul": 0, "rollback_correct": 0}
     if launches != want:
         raise AssertionError(f"{arch} launch counts {launches} != {want}")
@@ -2109,7 +2171,14 @@ def _serve_ar(torch, arch, seed, path):
                 raise AssertionError(f"{arch} {mode} request "
                                      f"{r.request_id}: {len(r.tokens)} "
                                      "tokens")
-            if mode == "stat_abft" and not (
+            if ssm and (r.ar_detections, r.ar_rollbacks,
+                        r.token_match_vs_clean, r.n_model_evals) != (
+                            0, 0, 1.0, AR_STEPS):
+                raise AssertionError(
+                    f"{arch} {mode} request {r.request_id}: detections "
+                    f"{r.ar_detections}, rollbacks {r.ar_rollbacks}, match "
+                    f"{r.token_match_vs_clean}, evals {r.n_model_evals}")
+            if mode == "stat_abft" and not ssm and not (
                     r.ar_detections > 0 and r.ar_rollbacks >= 1
                     and r.token_match_vs_clean == 1.0
                     and r.n_model_evals > AR_STEPS):
@@ -2131,11 +2200,15 @@ def _serve_ar(torch, arch, seed, path):
     energy = (check_energy(path, f"{arch} stat_abft", stat)
               + check_energy(path, f"{arch} faulty", faulty))
     for r in stat:
-        if not r.energy_breakdown["compute_replay"] > 0:
+        if (r.energy_breakdown["compute_replay"] > 0) != (r.ar_rollbacks > 0):
             raise AssertionError(f"stat_abft request {r.request_id}: "
-                                 "replays billed no compute_replay")
-    out = dict(arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
-               heads=[cfg.n_heads, cfg.kv_heads, cfg.hd], d_ff=cfg.d_ff,
+                                 f"{r.ar_rollbacks} rollbacks billed "
+                                 f"{r.energy_breakdown['compute_replay']} J "
+                                 "of compute_replay")
+    out = dict(arch=arch, family=cfg.family, layers=cfg.n_layers,
+               d_model=cfg.d_model,
+               heads=None if ssm else [cfg.n_heads, cfg.kv_heads, cfg.hd],
+               d_ff=cfg.d_ff,
                vocab=cfg.vocab, params=transformer.param_count(cfg),
                bucket=BUCKET, steps=AR_STEPS, window=AR_WINDOW,
                setup_s=setup_s, stat_abft_run_s=t_stat,
@@ -2147,6 +2220,9 @@ def _serve_ar(torch, arch, seed, path):
                clean_tokens=clean.tolist(), builds=eng.cache.builds,
                step_ms=_ar_step_ms(torch, eng, arch, cfg),
                breakdown=_profile_ar(torch, eng, argv))
+    if cfg.family in ("ssm", "hybrid"):
+        out["ssm"] = dict(heads=cfg.ssm_heads, head_dim=cfg.ssm_head_dim,
+                          state=cfg.ssm_state, chunk=cfg.ssm_chunk)
     out["peak_mem_bytes_with_timing"] = torch.cuda.max_memory_allocated()
     del eng, params, stat, faulty, clean
     gc.collect()
@@ -2600,9 +2676,10 @@ def kernel_summary(kernels_out, path_launches):
                  "(the olmo-1b prefill's), one kernel on the tensors in "
                  "place; lm_shapes: the GQA models' calls",
                  mha["library_ms"],
-                 counted="flash_attention", paths=("ar", "lm", "moe"),
-                 note="the flash_attention launches of the ar, lm and "
-                      "moe paths, each made through mha_flash; not a "
+                 counted="flash_attention",
+                 paths=("ar", "lm", "moe", "ssm"),
+                 note="the flash_attention launches of the ar, lm, moe "
+                      "and ssm paths, each made through mha_flash; not a "
                       "kernel of its own"),
              lm_shapes=[{k: r[k] for k in (
                  "name", "shape", "window", "softcap", "max_abs_err", "ms",
@@ -2648,6 +2725,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _lib
 
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     kernels_out = None
     path_launches = {}
@@ -2674,13 +2752,14 @@ def main(argv=None) -> int:
         elif phase == "reference":
             rec.update(phase_reference(torch))
         elif phase in ("serve", "offload", "sched", "ar", "lm", "moe",
-                       "baselines", "families"):
+                       "ssm", "baselines", "families"):
             out = (phase_serve(torch) if phase == "serve"
                    else phase_offload(torch, smi) if phase == "offload"
                    else phase_sched(torch, smi) if phase == "sched"
                    else phase_ar(torch) if phase == "ar"
                    else phase_lm(torch) if phase == "lm"
                    else phase_moe(torch) if phase == "moe"
+                   else phase_ssm(torch) if phase == "ssm"
                    else phase_baselines(torch) if phase == "baselines"
                    else phase_families(torch, args.reps))
             path_launches[phase] = out["launches"]
@@ -2696,6 +2775,7 @@ def main(argv=None) -> int:
         rec["wall_s"] = time.perf_counter() - t0
         emit(rec)
 
+    emit({"phases": phases, "wall_s": time.perf_counter() - t_start})
     if energy_recs:
         emit({"energy": energy_recs})
     print(smi, flush=True)

@@ -2,8 +2,9 @@
 
 ``dit-xl-512``, ``pixart-alpha`` and ``sd15-unet`` (diffusion),
 ``olmo-1b``, ``gemma2-9b``, ``gemma3-27b`` and ``glm4-9b``
-(autoregressive, dense) and ``deepseek-moe-16b`` and ``kimi-k2-1t-a32b``
-(autoregressive, MoE) are ported; any other arch the JAX registry
+(autoregressive, dense), ``deepseek-moe-16b`` and ``kimi-k2-1t-a32b``
+(autoregressive, MoE), ``mamba2-370m`` (SSM) and ``hymba-1.5b``
+(hybrid) are ported; any other arch the JAX registry
 knows raises, naming the ROADMAP queue item that ports it.
 """
 from __future__ import annotations
@@ -23,14 +24,14 @@ _MODULES: Dict[str, str] = {
     "glm4-9b": "glm4_9b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "mamba2-370m": "mamba2_370m",
+    "hymba-1.5b": "hymba_1p5b",
 }
 
 # Archs of the JAX registry that a later slice ports (ROADMAP Queue A).
 _NOT_YET_PORTED: Dict[str, str] = {
-    "whisper-base": "Queue A item 12 (other families)",
-    "mamba2-370m": "Queue A item 12 (other families)",
-    "hymba-1.5b": "Queue A item 12 (other families)",
-    "internvl2-76b": "Queue A item 12 (other families)",
+    "whisper-base": "Queue A item 12.4 (enc-dec and VLM)",
+    "internvl2-76b": "Queue A item 12.4 (enc-dec and VLM)",
 }
 
 

@@ -7,13 +7,19 @@ Counterpart of ``repro.models.attention``:
   It is the plain version of the attention kernel
   (``kernels.flash_attention``), which the DiT block and the LM prefill
   call.
+* ``chunked_attention``, the reference's online-softmax recurrence over
+  query and KV chunks in plain tensor ops, and ``attention_any``, which
+  takes it for sequences longer than ``CHUNK_THRESHOLD`` and
+  ``full_attention`` otherwise, as the reference dispatches. The LM
+  prefill calls ``attention_any`` on the CPU only (so it chunks past the
+  threshold there); on the card every prefill runs the attention kernel.
 * ``decode_attention``, one query token against a KV cache. The reference
   computes it as an einsum, not in a Pallas kernel (``attention.py:119``),
   and so does the port, in plain PyTorch.
 
 GQA never repeats KV heads: queries are reshaped to (B, S, Hkv, G, D) and
-contracted group-wise, as in the reference. The chunked and ring-buffer
-paths wait for the other families (ROADMAP Queue A item 12).
+contracted group-wise, as in the reference. The ring-buffer decode waits
+for the mixed decode (ROADMAP Queue A item 12).
 """
 from __future__ import annotations
 
@@ -22,6 +28,11 @@ import torch
 from repro_torch.models.common import softcap
 
 NEG_INF = -2.0e38
+
+#: ``attention_any`` chunks past this length, in chunks of these sizes.
+CHUNK_THRESHOLD = 4096
+Q_CHUNK = 512
+KV_CHUNK = 1024
 
 
 def _mask(pos_q: torch.Tensor, pos_k: torch.Tensor, causal: bool,
@@ -56,6 +67,70 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      attn_softcap: float = 0.0, q_chunk: int = Q_CHUNK,
+                      kv_chunk: int = KV_CHUNK) -> torch.Tensor:
+    """``full_attention``'s function by the reference's blockwise online
+    softmax: for each query chunk, a running max, normaliser and f32
+    accumulator over every KV chunk (none skipped), the normaliser clamped
+    at 1e-37. S must be a multiple of both chunks."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    if sq % q_chunk or sk % kv_chunk:
+        raise ValueError(f"lengths {sq}, {sk} not multiples of the chunks "
+                         f"{q_chunk}, {kv_chunk}")
+    nq, nk = sq // q_chunk, sk // kv_chunk
+    scale = d ** -0.5
+    qg = q.reshape(b, nq, q_chunk, hkv, g, d)
+    kc = k.reshape(b, nk, kv_chunk, hkv, d)
+    vc = v.reshape(b, nk, kv_chunk, hkv, d)
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        qb = qg[:, qi].float()                   # (b, q_chunk, hkv, g, d)
+        pos_q = qi * q_chunk + torch.arange(q_chunk, device=dev)
+        m = torch.full((b, hkv, g, q_chunk), NEG_INF, device=dev)
+        l = torch.zeros((b, hkv, g, q_chunk), device=dev)
+        acc = torch.zeros((b, hkv, g, q_chunk, d), device=dev)
+        for kj in range(nk):
+            pos_k = kj * kv_chunk + torch.arange(kv_chunk, device=dev)
+            s = torch.einsum("bqkgd,bskd->bkgqs", qb,
+                             kc[:, kj].float()) * scale
+            s = softcap(s, attn_softcap)
+            s = torch.where(_mask(pos_q, pos_k, causal, window), s,
+                            torch.full_like(s, NEG_INF))
+            m_cur = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_cur)
+            p = torch.exp(s - m_cur[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p, vc[:, kj].float())
+            m = m_cur
+        out = acc / torch.clamp(l, min=1e-37)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))  # (b, q_chunk, hkv, g, d)
+    return torch.stack(outs, dim=1).reshape(b, sq, h, d).to(q.dtype)
+
+
+def attention_any(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  attn_softcap: float = 0.0,
+                  chunk_threshold: int = CHUNK_THRESHOLD,
+                  q_chunk: int = Q_CHUNK,
+                  kv_chunk: int = KV_CHUNK) -> torch.Tensor:
+    """The reference's dispatch: ``full_attention`` up to
+    ``chunk_threshold`` tokens or when a length is not a multiple of its
+    chunk, ``chunked_attention`` past it."""
+    sq, sk = q.shape[1], k.shape[1]
+    if max(sq, sk) <= chunk_threshold or sq % q_chunk or sk % kv_chunk:
+        return full_attention(q, k, v, causal=causal, window=window,
+                              attn_softcap=attn_softcap)
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             attn_softcap=attn_softcap, q_chunk=q_chunk,
+                             kv_chunk=kv_chunk)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

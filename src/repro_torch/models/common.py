@@ -1,7 +1,7 @@
 """Shared model machinery: the model config, norms, RoPE, activations, inits.
 
 Counterpart of ``repro.models.common``, reduced to what the DiT, PixArt,
-UNet, dense LM and MoE LM paths use. Parameters are plain nested dicts of
+UNet and the dense, MoE, SSM and hybrid LM paths use. Parameters are plain nested dicts of
 tensors, as in the reference.
 """
 from __future__ import annotations
@@ -19,7 +19,7 @@ Params = Dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dit | unet | dense | moe (those ported)
+    family: str                      # dit | unet | dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int = 0
@@ -29,6 +29,7 @@ class ModelConfig:
     head_dim: int = 0                # 0 -> d_model // n_heads
     # --- attention pattern (LM) ---
     attn_pattern: Tuple[str, ...] = ("global",)   # cycled over layers
+    global_layer_indices: Tuple[int, ...] = ()    # force-global layers (hymba)
     window: int = 1024               # sliding-window size for 'local' layers
     logit_softcap: float = 0.0       # gemma2-style final-logit softcap
     attn_softcap: float = 0.0        # gemma2-style attention-logit softcap
@@ -41,6 +42,13 @@ class ModelConfig:
     n_shared_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
+    # --- SSM (mamba2 / hybrid) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
+    ssm_conv_width: int = 4
+    ssm_groups: int = 1
     # --- DiT / UNet (diffusion) ---
     latent_size: int = 0             # spatial latent (e.g. 64 for 512px f8)
     latent_channels: int = 4
@@ -70,14 +78,26 @@ class ModelConfig:
         return self.patch_size ** 2 * self.latent_channels
 
     def layer_kinds(self) -> Tuple[str, ...]:
-        """Per-layer attention kind, cycling ``attn_pattern`` over depth."""
+        """Per-layer attention kind, cycling ``attn_pattern`` over depth;
+        the layers of ``global_layer_indices`` are global."""
         p = self.attn_pattern
-        return tuple(p[i % len(p)] for i in range(self.n_layers))
+        kinds = [p[i % len(p)] for i in range(self.n_layers)]
+        for i in self.global_layer_indices:
+            kinds[i % self.n_layers] = "global"
+        return tuple(kinds)
 
     def layer_windows(self) -> Tuple[int, ...]:
         """Per-layer window (0 = unbounded/global)."""
         return tuple(0 if k == "global" else self.window
                      for k in self.layer_kinds())
+
+    @property
+    def ssm_heads(self) -> int:
+        return (self.d_model * self.ssm_expand) // self.ssm_head_dim
+
+    @property
+    def d_inner(self) -> int:
+        return self.d_model * self.ssm_expand
 
 
 # ----------------------------------------------------------------- inits

@@ -1,36 +1,45 @@
-"""Decoder-only LM, dense and MoE families: prefill and token-by-token
-decode.
+"""Decoder-only LM, dense, MoE, SSM and hybrid families: prefill and
+token-by-token decode.
 
-Counterpart of ``repro.models.transformer``, reduced to the dense and MoE
-families: olmo-1b; gemma2-9b, gemma3-27b and glm4-9b with GQA, per-layer
-sliding windows (``cfg.layer_windows()``), the attention softcap and the
-logit softcap; deepseek-moe-16b and kimi-k2 with the MoE FFN
-(``models.moe``) in place of the dense MLP. Params are nested dicts like
-the reference's, except that ``layers`` is a list with one dict per layer
-(the reference stacks them on a leading L axis for ``lax.scan``);
-``params_from_jax`` converts.
+Counterpart of ``repro.models.transformer``, reduced to the dense, MoE,
+SSM and hybrid families: olmo-1b; gemma2-9b, gemma3-27b and glm4-9b with
+GQA, per-layer sliding windows (``cfg.layer_windows()``), the attention
+softcap and the logit softcap; deepseek-moe-16b and kimi-k2 with the MoE
+FFN (``models.moe``) in place of the dense MLP; mamba2-370m, whose layers
+are SSD blocks alone (``models.mamba2``), and hymba-1.5b, whose layers run
+attention and an SSD block side by side and mix their normalized outputs.
+Params are nested dicts like the reference's, except that ``layers`` is a
+list with one dict per layer (the reference stacks them on a leading L
+axis for ``lax.scan``); ``params_from_jax`` converts.
 
 The reference casts every f32 weight to the activation dtype on every call
 (``_proj``), and statistical ABFT sums every weight over its output axis
 on every call. ``prepare`` does both once: ``Weights`` holds each
 projection as a ``Proj`` (the cast weight and its two per-row sums, from
 the same ops on the same cast weight, so bit-identical), the cast
-embedding, and the MoE router and experts cast (they are unprotected, so
-they carry no sums). ``init_weights`` draws the same weights as
-``init_params`` and prepares each one as it is drawn, so serving never
-holds the f32 masters: at full width it needs the activation-dtype bytes
-alone. The model functions take raw params or ``Weights``.
+embedding, and the MoE router and experts and the SSD blocks' ``in_proj``
+and ``out_proj`` cast (they are unprotected, so they carry no sums). The
+SSD blocks' small leaves (``A_log``, ``D``, ``dt_bias``, the conv weight
+and bias, the norm scale) keep their dtype: the reference reads the conv
+weight and norm scale in f32 from its f32 masters. ``init_weights`` draws
+the same weights as ``init_params`` and prepares each one as it is drawn,
+so serving never holds the f32 masters: at full width it needs the
+activation-dtype bytes alone. The model functions take raw params or
+``Weights``.
 
 Prefill self-attention runs the attention kernel (``kernels.
 flash_attention.mha_flash``, causal, with the layer's window and the
 softcap); decode attention is plain PyTorch
 (``models.attention.decode_attention``), as the reference's is an einsum.
-The KV cache is written in place (the reference returns a new cache);
-``Cache.pos`` is a host int, so a decode step never waits for the card.
+On the CPU the prefill's attention is the reference's ``attention_any``,
+which chunks past 4096 tokens. The KV cache is written in place (the
+reference returns a new cache); the SSM state is not: each step returns
+new ``SsmState`` tensors, as the reference does. ``Cache.pos`` is a host
+int, so a decode step never waits for the card.
 
-SSM, hybrid and VLM layers, the mixed/ring decode, ``DriftDecode`` and
-the training ``forward`` are not yet ported (ROADMAP Queue A items 12
-and 14).
+Enc-dec and VLM layers, the mixed/ring decode, ``DriftDecode`` and the
+training ``forward`` are not yet ported (ROADMAP Queue A items 12 and
+14).
 """
 from __future__ import annotations
 
@@ -43,17 +52,21 @@ import torch
 from repro_torch.core import dvfs
 from repro_torch.kernels.flash_attention import mha_flash
 from repro_torch.kernels.stat_abft import weight_sums
-from repro_torch.models import attention, moe
+from repro_torch.models import attention, mamba2, moe
 from repro_torch.models.common import (ModelConfig, Params, activation,
                                        apply_norm, apply_rope, dense_init,
-                                       embed_init, norm_params, softcap)
+                                       embed_init, norm_params, rmsnorm,
+                                       softcap)
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
 
 def _check_cfg(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not yet ported to "
-            "repro_torch; only the dense and MoE LMs are (ROADMAP Queue A "
-            "item 12)")
+            "repro_torch; only the dense, MoE, SSM and hybrid LMs are "
+            "(ROADMAP Queue A item 12.4)")
 
 
 # ============================================================ parameters
@@ -64,10 +77,13 @@ def _identity(w):
 def _draw(cfg: ModelConfig, seed: int, device, proj: Callable,
           plain: Callable) -> Params:
     """Random weights from ``seed`` with the reference's init law:
-    truncated-normal projections (std 1/sqrt(d_in)), embedding (std 1) and
-    MoE experts (``moe.init_moe_params``), drawn in one order from one
-    generator. Each projection is handed to ``proj`` and each other weight
-    to ``plain`` as soon as it is drawn."""
+    truncated-normal projections (std 1/sqrt(d_in)), embedding (std 1),
+    MoE experts (``moe.init_moe_params``) and SSD blocks
+    (``mamba2.init_ssm_params``), drawn in one order from one generator.
+    Each protected projection is handed to ``proj`` and each other cast
+    weight (embedding, experts, SSD projections) to ``plain`` as soon as
+    it is drawn; norm scales and the SSD blocks' small leaves are kept as
+    drawn."""
     _check_cfg(cfg)
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
@@ -79,6 +95,9 @@ def _draw(cfg: ModelConfig, seed: int, device, proj: Callable,
 
     def layer() -> Params:
         lp: Params = {"ln1": norm_params(cfg, device)}
+        if cfg.family == "ssm":
+            lp["ssm"] = mamba2.init_ssm_params(cfg, g, device, plain)
+            return lp
         lp["attn"] = {"wq": dense(d, h * hd), "wk": dense(d, hkv * hd),
                       "wv": dense(d, hkv * hd), "wo": dense(h * hd, d)}
         lp["ln2"] = norm_params(cfg, device)
@@ -87,6 +106,12 @@ def _draw(cfg: ModelConfig, seed: int, device, proj: Callable,
         else:
             lp["mlp"] = {"w_gate": dense(d, f), "w_up": dense(d, f),
                          "w_down": dense(f, d)}
+        if cfg.family == "hybrid":
+            lp["ssm"] = mamba2.init_ssm_params(cfg, g, device, plain)
+            lp["mix_attn"] = torch.ones((), dtype=torch.float32,
+                                        device=device)
+            lp["mix_ssm"] = torch.ones((), dtype=torch.float32,
+                                       device=device)
         return lp
 
     p: Params = {"embed": plain(embed_init(cfg.vocab, d, pdt, device, g))}
@@ -112,8 +137,13 @@ def params_from_jax(tree: Dict[str, Any], device="cpu") -> Params:
         a = np.array(t) if i is None else np.array(t[i])
         return torch.from_numpy(a).to(device)
 
+    def first_leaf(t):
+        while isinstance(t, dict):
+            t = next(v for v in t.values() if not isinstance(v, dict) or v)
+        return t
+
     out = {k: walk(v) for k, v in tree.items() if k != "layers"}
-    n_layers = len(tree["layers"]["attn"]["wq"])
+    n_layers = len(first_leaf(tree["layers"]))
     out["layers"] = [walk(tree["layers"], i) for i in range(n_layers)]
     return out
 
@@ -136,6 +166,15 @@ def _cast_tree(t, dtype: torch.dtype):
     return t.to(dtype)
 
 
+#: the SSD block's GEMM weights, cast once by ``prepare``; its other
+#: leaves keep their dtype (see the module docstring).
+SSM_PROJ = ("in_proj", "out_proj")
+
+
+def _prepare_ssm(p: Params, dtype: torch.dtype) -> Params:
+    return {k: v.to(dtype) if k in SSM_PROJ else v for k, v in p.items()}
+
+
 @dataclasses.dataclass
 class Weights:
     """Params prepared once for serving (see the module docstring)."""
@@ -154,12 +193,20 @@ def prepare(cfg: ModelConfig, params) -> Weights:
     dt = cfg.dtype
     layers = []
     for lp in params["layers"]:
-        out = {"ln1": lp["ln1"], "ln2": lp["ln2"],
-               "attn": {k: _proj_of(v, dt) for k, v in lp["attn"].items()}}
+        out = {"ln1": lp["ln1"]}
+        if "attn" in lp:
+            out["ln2"] = lp["ln2"]
+            out["attn"] = {k: _proj_of(v, dt)
+                           for k, v in lp["attn"].items()}
         if "moe" in lp:
             out["moe"] = _cast_tree(lp["moe"], dt)
-        else:
+        elif "mlp" in lp:
             out["mlp"] = {k: _proj_of(v, dt) for k, v in lp["mlp"].items()}
+        if "ssm" in lp:
+            out["ssm"] = _prepare_ssm(lp["ssm"], dt)
+        for k in ("mix_attn", "mix_ssm"):
+            if k in lp:
+                out[k] = lp[k]
         layers.append(out)
     head = (None if cfg.tie_embeddings
             else _proj_of(params["lm_head"], dt))
@@ -181,16 +228,41 @@ def init_weights(cfg: ModelConfig, seed: int, device="cpu") -> Weights:
 
 # ============================================================== caching
 class Cache(NamedTuple):
-    k: torch.Tensor     # (L, B, S, Hkv, hd), written in place
-    v: torch.Tensor
-    pos: int            # next write index (host int)
+    k: Optional[torch.Tensor]   # (L, B, S, Hkv, hd), written in place;
+    v: Optional[torch.Tensor]   # None for the SSM family
+    ssm: Optional[Tuple[mamba2.SsmState, ...]]   # one per layer, replaced
+    pos: int                    # next write index (host int)
+
+
+def _has_ssm(cfg: ModelConfig) -> bool:
+    return cfg.family in ("ssm", "hybrid")
+
+
+def _kv_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
+              device) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    if cfg.family == "ssm":
+        return None, None
+    shape = (cfg.n_layers, batch, max_seq, cfg.kv_heads, cfg.hd)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device="cpu") -> Cache:
-    shape = (cfg.n_layers, batch, max_seq, cfg.kv_heads, cfg.hd)
-    return Cache(torch.zeros(shape, dtype=dtype, device=device),
-                 torch.zeros(shape, dtype=dtype, device=device), 0)
+    k, v = _kv_cache(cfg, batch, max_seq, dtype, device)
+    ssm = None
+    if _has_ssm(cfg):
+        ssm = tuple(mamba2.init_ssm_state(cfg, batch, dtype, device)
+                    for _ in range(cfg.n_layers))
+    return Cache(k, v, ssm, 0)
+
+
+def _layer_kv(cache: Cache, i: int):
+    return None if cache.k is None else (cache.k[i], cache.v[i])
+
+
+def _layer_ssm(cache: Cache, i: int) -> Optional[mamba2.SsmState]:
+    return None if cache.ssm is None else cache.ssm[i]
 
 
 # ====================================================== layer primitives
@@ -218,8 +290,12 @@ def _attn_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     if mode == "prefill":
         ck[:, :s] = k.to(ck.dtype)
         cv[:, :s] = v.to(cv.dtype)
-        o = mha_flash(q, k, v, causal=True, window=window,
-                      softcap=cfg.attn_softcap)
+        if q.device.type == "cpu":    # chunked past 4096 tokens
+            o = attention.attention_any(q, k, v, causal=True, window=window,
+                                        attn_softcap=cfg.attn_softcap)
+        else:
+            o = mha_flash(q, k, v, causal=True, window=window,
+                          softcap=cfg.attn_softcap)
     elif mode == "decode":
         ck[:, cache_pos:cache_pos + 1] = k.to(ck.dtype)
         cv[:, cache_pos:cache_pos + 1] = v.to(cv.dtype)
@@ -240,18 +316,44 @@ def _mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor, ctx=None,
     return _proj(ctx, h, p["w_down"], "mlp.down", rclass)
 
 
+def _ssd(cfg: ModelConfig, p: Params, h_in: torch.Tensor, mode: str,
+         ssm_state: Optional[mamba2.SsmState]):
+    """The SSD block (unprotected: no ctx, as the reference): the whole
+    prompt from a zero state in prefill, one recurrence step in decode.
+    Returns its output and the new state."""
+    if mode == "decode":
+        return mamba2.ssd_decode_step(cfg, p, h_in, ssm_state)
+    return mamba2.ssd_forward(cfg, p, h_in, return_state=True)
+
+
 def _layer(cfg: ModelConfig, p: Params, x: torch.Tensor, *, window: int,
            positions: torch.Tensor, mode: str, cache_kv, cache_pos: int = 0,
-           ctx=None, rclass: int = dvfs.CLASS_BODY) -> torch.Tensor:
+           ssm_state: Optional[mamba2.SsmState] = None, ctx=None,
+           rclass: int = dvfs.CLASS_BODY
+           ) -> Tuple[torch.Tensor, Optional[mamba2.SsmState]]:
+    """One dense, MoE, SSM or hybrid layer; returns (x, new SSM state or
+    None)."""
     h_in = apply_norm(cfg, p["ln1"], x)
-    x = x + _attn_block(cfg, p["attn"], h_in, window=window,
-                        positions=positions, mode=mode, cache_kv=cache_kv,
-                        cache_pos=cache_pos, ctx=ctx, rclass=rclass)
+    if cfg.family == "ssm":
+        y, new_ssm = _ssd(cfg, p["ssm"], h_in, mode, ssm_state)
+        return x + y, new_ssm
+    attn_out = _attn_block(cfg, p["attn"], h_in, window=window,
+                           positions=positions, mode=mode, cache_kv=cache_kv,
+                           cache_pos=cache_pos, ctx=ctx, rclass=rclass)
+    new_ssm = None
+    if cfg.family == "hybrid":
+        ssm_out, new_ssm = _ssd(cfg, p["ssm"], h_in, mode, ssm_state)
+        # hymba: the mean of the per-branch normalized outputs, scaled
+        attn_n = rmsnorm(attn_out, None) * p["mix_attn"].to(x.dtype)
+        ssm_n = rmsnorm(ssm_out, None) * p["mix_ssm"].to(x.dtype)
+        x = x + 0.5 * (attn_n + ssm_n)
+    else:
+        x = x + attn_out
     h2 = apply_norm(cfg, p["ln2"], x)
     if cfg.family == "moe":       # unprotected: no ctx, as the reference
         y2, _ = moe.moe_ffn(cfg, p["moe"], h2.reshape(-1, h2.shape[-1]))
-        return x + y2.reshape(h2.shape)
-    return x + _mlp_block(cfg, p["mlp"], h2, ctx=ctx, rclass=rclass)
+        return x + y2.reshape(h2.shape), new_ssm
+    return x + _mlp_block(cfg, p["mlp"], h2, ctx=ctx, rclass=rclass), new_ssm
 
 
 def _embed(cfg: ModelConfig, w: Weights, tokens: torch.Tensor
@@ -274,13 +376,17 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int
     w = prepare(cfg, params)
     x = _embed(cfg, w, tokens)
     b, s, _ = x.shape
-    cache = init_cache(cfg, b, max_seq, cfg.dtype, x.device)
+    # the SSD blocks start from a zero state: no SSM state to allocate
+    cache = Cache(*_kv_cache(cfg, b, max_seq, cfg.dtype, x.device), None, 0)
     positions = torch.arange(s, device=x.device)
+    states = []
     for i, (lp, win) in enumerate(zip(w.layers, cfg.layer_windows())):
-        x = _layer(cfg, lp, x, window=win, positions=positions,
-                   mode="prefill", cache_kv=(cache.k[i], cache.v[i]))
+        x, st = _layer(cfg, lp, x, window=win, positions=positions,
+                       mode="prefill", cache_kv=_layer_kv(cache, i))
+        states.append(st)
     x = apply_norm(cfg, w.final_norm, x)
-    return _unembed(cfg, w, x), cache._replace(pos=s)
+    ssm = tuple(states) if _has_ssm(cfg) else None
+    return _unembed(cfg, w, x), cache._replace(ssm=ssm, pos=s)
 
 
 def _decode(cfg: ModelConfig, w: Weights, cache: Cache,
@@ -288,17 +394,20 @@ def _decode(cfg: ModelConfig, w: Weights, cache: Cache,
     x = _embed(cfg, w, tokens)
     positions = torch.full((1,), cache.pos, dtype=torch.int64,
                            device=x.device)
-    ctxs = []
+    ctxs, states = [], []
     for i, (lp, win) in enumerate(zip(w.layers, cfg.layer_windows())):
         ctx = None if ctx_factory is None else ctx_factory(i)
         rclass = dvfs.CLASS_FIRST_BLOCK if i < 1 else dvfs.CLASS_BODY
-        x = _layer(cfg, lp, x, window=win, positions=positions,
-                   mode="decode",
-                   cache_kv=(cache.k[i], cache.v[i]), cache_pos=cache.pos,
-                   ctx=ctx, rclass=rclass)
+        x, st = _layer(cfg, lp, x, window=win, positions=positions,
+                       mode="decode", cache_kv=_layer_kv(cache, i),
+                       cache_pos=cache.pos, ssm_state=_layer_ssm(cache, i),
+                       ctx=ctx, rclass=rclass)
         ctxs.append(ctx)
+        states.append(st)
     x = apply_norm(cfg, w.final_norm, x)
-    return _unembed(cfg, w, x), cache._replace(pos=cache.pos + 1), ctxs
+    ssm = tuple(states) if _has_ssm(cfg) else None
+    return (_unembed(cfg, w, x),
+            cache._replace(ssm=ssm, pos=cache.pos + 1), ctxs)
 
 
 def decode_step(cfg: ModelConfig, params, cache: Cache,
@@ -339,16 +448,23 @@ def decode_step_mixed(cfg: ModelConfig, params, cache, tokens):
 
 
 def param_count(cfg: ModelConfig) -> int:
-    """Analytical parameter count, the reference's formula for the dense
-    and MoE families (its SSM terms wait for the families themselves)."""
+    """Analytical parameter count, the reference's formula (the SSD
+    blocks' projections; not their conv, ``A_log``, ``D``, ``dt_bias`` or
+    norm scale)."""
     _check_cfg(cfg)
     d, h, hkv, hd, f, v = (cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd,
                            cfg.d_ff, cfg.vocab)
-    per_layer = d * h * hd + 2 * d * hkv * hd + h * hd * d
+    per_layer = 0
+    if cfg.family != "ssm":
+        per_layer += d * h * hd + 2 * d * hkv * hd + h * hd * d
     if cfg.family == "moe":
         per_layer += moe.moe_param_count(cfg)
-    else:
+    elif cfg.family != "ssm":
         per_layer += 3 * d * f
+    if cfg.family in ("ssm", "hybrid"):
+        di = cfg.d_inner
+        per_layer += d * (2 * di + 2 * cfg.ssm_groups * cfg.ssm_state
+                          + cfg.ssm_heads) + di * d
     n = cfg.n_layers * per_layer + v * d
     if not cfg.tie_embeddings:
         n += v * d

@@ -9,9 +9,7 @@ plus explicit attention FLOPs (2 * 2 * S^2 * d per layer at train/prefill,
 window-clipped for local layers), which the 6ND rule ignores.
 
 The port has the DiT (PixArt's cross-attention term included), the UNet
-and the dense and MoE LM families. The reference's term that only other
-families reach -- the SSM scan -- raises ``NotImplementedError`` naming
-ROADMAP Queue A item 12, which ports those families.
+and the dense, MoE, SSM and hybrid LM families (the SSD scan's term).
 """
 from __future__ import annotations
 
@@ -21,12 +19,6 @@ from repro_torch.configs import shapes as shapes_lib
 from repro_torch.models import dit as dit_lib
 from repro_torch.models import transformer as tf_lib
 from repro_torch.models.common import ModelConfig
-
-
-def not_ported(cfg: ModelConfig, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{cfg.name}: {what} of the {cfg.family!r} family is not yet "
-        "ported to repro_torch (ROADMAP Queue A item 12)")
 
 
 def active_params(cfg: ModelConfig) -> float:
@@ -61,8 +53,21 @@ def _attn_flops_full(cfg: ModelConfig, batch: int, seq: int) -> float:
 
 
 def _ssd_flops(cfg: ModelConfig, batch: int, seq: int) -> float:
-    """The SSM scan's FLOPs: not ported with its families."""
-    raise not_ported(cfg, "the SSD scan")
+    """Chunked SSD per layer: intra-chunk quadratic form + state recurrence.
+
+    Per chunk of length Q: CB scores 2*Q^2*G*N, y_intra 2*Q^2*H*P,
+    chunk state 2*Q*N*H*P, y_inter 2*Q*N*H*P. Decode (seq==1): one
+    recurrence update 4*N*H*P.
+    """
+    ng, ns = cfg.ssm_groups, cfg.ssm_state
+    nh, hp = cfg.ssm_heads, cfg.ssm_head_dim
+    if seq <= 1:
+        return batch * 4.0 * ns * nh * hp
+    q = min(cfg.ssm_chunk, seq)
+    nc = -(-seq // q)
+    per_chunk = (2.0 * q * q * ng * ns + 2.0 * q * q * nh * hp
+                 + 4.0 * q * ns * nh * hp)
+    return batch * nc * per_chunk
 
 
 def cell_flops(cfg: ModelConfig, shape: shapes_lib.ShapeSpec

@@ -5,9 +5,11 @@ Counterpart of ``repro.serving.ar``: greedy token-by-token decoding over
 statistical ABFT (``kernels.stat_abft``) on every projection GEMM:
 
   * every faulted decode step routes ``attn.{q,k,v,o}`` and, in the
-    dense family, ``mlp.{gate,up,down}`` through a detection-only
-    ``StatAbftContext`` (the MoE family's expert FFNs are unprotected, as
-    in the reference):
+    dense and hybrid families, ``mlp.{gate,up,down}`` through a
+    detection-only ``StatAbftContext`` (the MoE family's expert FFNs and
+    the SSD blocks of the SSM and hybrid families are unprotected, as in
+    the reference; an SSM arch has no protected word, so its faulty and
+    stat_abft decodes are its clean one):
     bit flips are injected into the f32 view of each GEMM output by the
     injection kernel (``kernels.fault_inject``), with the mask a flip
     source draws for ``FaultSite(step, layer_idx, name)``, and rows whose
@@ -23,10 +25,20 @@ window back too. Detections, the heatmap and the BER monitor stay the
 reference's statistical counts; only the replay decision (and so
 rollbacks, evaluations and tokens) differs, and only for such windows.
 
-Rollback restores ``(cache.pos, last token)`` only. The reference snapshots
-its immutable cache for free; the port writes the cache in place and does
-not clone it: the replay rewrites each slot ``i..i+n-1`` before it reads
-it, and ``decode_attention`` reads no slot past ``pos``.
+Rollback restores the window's snapshot of ``(cache, last token)``. The
+reference's cache is immutable, so its snapshot is a reference; the port's
+has two parts, each restored soundly without a copy:
+
+  * the KV cache is written in place and not cloned; restoring
+    ``cache.pos`` is enough, since the replay rewrites each slot
+    ``i..i+n-1`` before it reads it, and ``decode_attention`` reads no
+    slot past ``pos``;
+  * the SSM state (``cache.ssm``, one ``(h, conv)`` per layer) is
+    recurrent: each step's state is computed from all of the last one, so
+    a faulted step's NaN in ``h`` would stay for the rest of the request.
+    The decode step never writes a state in place; it returns new
+    tensors, so the snapshot's tuple still holds the state from the
+    window's start, and restoring the snapshot restores it.
 
 Host syncs: detections stay on the device for the whole window (the
 reference reads ``float(det)`` after every step); the host reads one
@@ -76,7 +88,8 @@ def protected_words_per_step(cfg: ModelConfig, batch: int) -> int:
     """GEMM output words routed through the ABFT context per decode step
     (the BER monitor's normalization), by the reference's family
     branches: attn.{q,k,v,o}, plus mlp.{gate,up,down} outside the MoE
-    family (whose expert FFNs are unprotected) and the SSM one."""
+    family (whose expert FFNs are unprotected); none in the SSM family,
+    whose SSD blocks are unprotected."""
     d, h, hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd,
                         cfg.d_ff)
     per_layer = 0
@@ -240,7 +253,8 @@ def decode_batch(fns: DecoderFns, params, tokens: torch.Tensor,
     i = 1
     while i < dcfg.steps:
         n = min(window, dcfg.steps - i)
-        snap_cache, snap_tok = cache, last_tok  # cache.pos is the snapshot
+        # cache.pos and the tuple of SSM states (never written in place)
+        snap_cache, snap_tok = cache, last_tok
         window_toks = []
         det_w = nan_w = zero
         for j in range(n):

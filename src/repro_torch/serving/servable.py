@@ -471,6 +471,8 @@ SERVABLE_BY_FAMILY = {
     "unet": DiffusionServable,
     "dense": AutoregressiveServable,
     "moe": AutoregressiveServable,
+    "ssm": AutoregressiveServable,
+    "hybrid": AutoregressiveServable,
 }
 
 # family -> serving paradigm, as the reference names them.
@@ -485,7 +487,7 @@ def servable_class(arch: str):
     if family not in SERVABLE_BY_FAMILY:
         raise NotImplementedError(
             f"arch {arch!r}: family {family!r} has no servable in "
-            "repro_torch yet (ROADMAP Queue A item 12)")
+            "repro_torch yet (ROADMAP Queue A item 12.4)")
     return SERVABLE_BY_FAMILY[family]
 
 

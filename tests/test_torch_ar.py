@@ -492,9 +492,9 @@ def test_engine_serves_both_paradigms_and_rejects_unported():
     with pytest.raises(ValueError, match="autoregressive serving"):
         eng.submit(arch=ARCH, mode="drift")
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        eng.submit(arch="hymba-1.5b", mode="stat_abft")
+        eng.submit(arch="whisper-base", mode="stat_abft")
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        eng.submit(arch="mamba2-370m", mode="stat_abft")
+        eng.submit(arch="internvl2-76b", mode="stat_abft")
     assert len(eng.queue) == 0
     eng.submit(steps=2, mode="stat_abft", op="undervolt", seed=0)
     eng.submit(arch=ARCH, steps=3, mode="faulty", op="undervolt", seed=0)

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, the
 checkpoint-offload store's side-stream copies into pinned memory, a
 drain through the telemetry front end's ``/events`` with offload on, the
-bf16-only LM weights (``transformer.init_weights``) and the MoE routing,
-on the card.
+bf16-only LM weights (``transformer.init_weights``), the MoE routing and
+the SSD blocks, on the card.
 
 Marked ``gpu``: each test skips without a CUDA device. This module imports
 no JAX, so it runs on a machine that has only PyTorch:
@@ -23,7 +23,7 @@ from repro_torch.kernels import flash_attention as tfk
 from repro_torch.kernels import ops
 from repro_torch.kernels import rollback_correct as trk
 from repro_torch.kernels import stat_abft
-from repro_torch.models import moe, transformer
+from repro_torch.models import mamba2, moe, transformer
 from repro_torch.models.attention import full_attention
 from repro_torch.serving.offload import OffloadConfig, OffloadStore
 from repro_torch.serving.offload.layout import tree_leaves, tree_map
@@ -344,6 +344,31 @@ def test_flash_gqa_window_softcap_matches_plain_on_card(
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,s,window,dtype,tol", [
+    (2, 8, 1024, torch.bfloat16, 3e-2), (2, 8, 0, torch.bfloat16, 3e-2),
+    (1, 2048, 1024, torch.bfloat16, 1e-2), (1, 100, 37, torch.float32, 2e-5)])
+def test_flash_group5_matches_plain_on_card(cuda, b, s, window, dtype, tol):
+    """hymba-1.5b's attention: 25 query heads over 5 KV heads (group 5, the
+    first odd group) at D = 64, causal. Its prefill at 8 tokens on a local
+    layer (window 1024) and a global one, a window that binds at 2048
+    tokens, and the f32 kernel at 100 tokens with a window of 37. bf16 on
+    views of one fused projection within 3e-2 (S = 8) and 1e-2 (S = 2048),
+    f32 within 2e-5; one launch, a contiguous finite output."""
+    rng = np.random.default_rng(s + window)
+    q, k, v = _gqa_qkv(rng, b, s, 25, 5, 64, dtype,
+                       fused=dtype == torch.bfloat16, q_scale=1.0,
+                       device=cuda)
+    n0 = tfk.launches
+    got = tfk.mha_flash(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert tfk.launches == n0 + 1
+    assert got.shape == q.shape and got.is_contiguous()
+    assert bool(torch.isfinite(got).all())
+    want = full_attention(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("d,ratio", [(256, 2), (168, 2), (128, 16)])
 def test_mha_flash_gqa_is_one_kernel_on_card(cuda, d, ratio):
     """gemma2-9b's, gemma3-27b's and glm4-9b's prefill calls at 8 tokens:
@@ -546,7 +571,8 @@ def _weight_leaves(w):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["gemma2-9b", "deepseek-moe-16b",
-                                  "kimi-k2-1t-a32b"])
+                                  "kimi-k2-1t-a32b", "mamba2-370m",
+                                  "hymba-1.5b"])
 def test_init_weights_on_card_equals_prepared_init_params(cuda, arch):
     """Drawn on the card, ``init_weights`` is ``prepare(init_params(...))``
     bit for bit for a bf16 SMOKE config: the generator's draws do not
@@ -591,3 +617,33 @@ def test_moe_ffn_on_card_matches_cpu(cuda, arch):
     y_cpu, aux_cpu = moe.moe_ffn(cfg, p, x)
     torch.testing.assert_close(y.cpu(), y_cpu, atol=1e-5, rtol=0)
     assert abs(float(aux) - float(aux_cpu)) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b"])
+def test_ssd_on_card_matches_cpu(cuda, arch):
+    """The SMOKE SSD block on the card against the CPU, f32: ``ssd_forward``
+    over 21 tokens (three chunks of 8, the last padded) with its state,
+    then one ``ssd_decode_step`` from that state, outputs and states within
+    1e-5; the state handed to the decode step is left as it was."""
+    cfg = configs.get_config(arch, smoke=True)
+    p = mamba2.init_ssm_params(cfg, torch.Generator().manual_seed(4))
+    rng = np.random.default_rng(6)
+    p = {k: v + torch.from_numpy(
+        0.1 * rng.standard_normal(tuple(v.shape)).astype(np.float32))
+        for k, v in p.items()}
+    x = torch.from_numpy(rng.standard_normal(
+        (2, 22, cfg.d_model)).astype(np.float32))
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    out = {}
+    for dev, params in (("cuda", pc), ("cpu", p)):
+        xd = x.to(dev)
+        y, st = mamba2.ssd_forward(cfg, params, xd[:, :21],
+                                   return_state=True)
+        h0 = st.h.clone()
+        y1, st1 = mamba2.ssd_decode_step(cfg, params, xd[:, 21:], st)
+        assert torch.equal(st.h, h0)
+        out[dev] = [t.cpu() for t in (y, st.h, st.conv, y1, st1.h,
+                                      st1.conv)]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)

@@ -234,11 +234,11 @@ def test_taylorseer_and_narrowed_plans_bill_less(models):
 
 
 def test_unported_families_raise():
-    hybrid = ModelConfig(name="m", family="hybrid", n_layers=2, d_model=8,
+    encdec = ModelConfig(name="m", family="encdec", n_layers=2, d_model=8,
                          n_heads=2, d_ff=16, vocab=32)
-    ssm = dataclasses.replace(hybrid, family="ssm")
-    for fn, cfg in ((flops.active_params, hybrid),
-                    (transformer.param_count, ssm),
-                    (flops.gemm_macs_per_model_eval, ssm)):
+    vlm = dataclasses.replace(encdec, family="vlm")
+    for fn, cfg in ((flops.active_params, encdec),
+                    (transformer.param_count, vlm),
+                    (flops.gemm_macs_per_model_eval, vlm)):
         with pytest.raises(NotImplementedError, match="Queue A item 12"):
             fn(cfg)

@@ -64,7 +64,7 @@ def test_config_matches_reference():
         16, 2048, 128, 8192, 50304)
     assert full.dtype == torch.bfloat16
     assert configs.get_config(ARCH, smoke=True).dtype == torch.float32
-    for arch in ("whisper-base", "hymba-1.5b", "mamba2-370m"):
+    for arch in ("whisper-base", "internvl2-76b"):
         with pytest.raises(NotImplementedError, match="Queue A item 12"):
             configs.get_config(arch)
 
@@ -220,9 +220,9 @@ def test_unported_paths_raise(setup):
     import dataclasses
     _, cfg, _, _ = setup
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        transformer.init_params(dataclasses.replace(cfg, family="hybrid"), 0)
+        transformer.init_params(dataclasses.replace(cfg, family="encdec"), 0)
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        transformer.init_params(dataclasses.replace(cfg, family="ssm"), 0)
+        transformer.init_params(dataclasses.replace(cfg, family="vlm"), 0)
     with pytest.raises(NotImplementedError, match="Queue A item 14"):
         transformer.forward(cfg, {}, None)
     params = transformer.init_params(cfg, 0)
