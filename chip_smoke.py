@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases device,build,sched
     python3 chip_smoke.py --phases device,build,baselines
     python3 chip_smoke.py --phases device,build,families
+    python3 chip_smoke.py --phases device,build,kernels,train
 
 Phases, each printing one JSON line with its wall time:
 
@@ -192,6 +193,26 @@ Phases, each printing one JSON line with its wall time:
                drift request each; then ``abft_matmul`` at the GEMM
                shapes they add and ``mha_flash`` at the UNet's two
                self-attention shapes, beside their bounds.
+12. train   -- training (``train.steps``, ``optim.adamw``,
+               ``checkpoint.manager``): one SMOKE arch per family
+               (olmo-1b, deepseek-moe-16b, mamba2-370m, hymba-1.5b,
+               internvl2-76b with ``vis_embeds``, whisper-base,
+               dit-xl-512, sd15-unet) takes 2 AdamW steps on the card and
+               on the CPU from the same params and batches: losses, grad
+               norms, gradients and params within the stated limits
+               (``_train_smoke``), attention launches and backward calls
+               exact. The train launcher runs on the card and resumes
+               from its checkpoint bit-equal. Then full-width olmo-1b and
+               whisper-base take 3 steps each at global batch 8 and
+               sequence 128 from the port's init: 16 and 12 attention
+               launches (6 at S = 1500) and as many backward calls a
+               step, finite losses, every param moved, the whole state
+               checkpointed after step 2 and restored bit-equal; ms per
+               step and peak memory. whisper-base then runs its prefill
+               (8-token prompts over 1500 frames, 12 launches) and 16
+               greedy decode steps. The ``kernels`` phase times the
+               attention kernel at whisper-base's encoder call, and its
+               backward beside SDPA's.
 
 Every DiT and olmo-1b result carries the perfmodel's attribution; each
 must bill a ledger whose ``ledger_total`` equals its ``energy_j`` bit for
@@ -220,7 +241,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "reference", "serve", "offload",
-          "sched", "ar", "lm", "moe", "ssm", "baselines", "families")
+          "sched", "ar", "lm", "moe", "ssm", "baselines", "families",
+          "train")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, int8 and bf16
 # tensor-core rates, float32 rate outside the tensor cores.
@@ -798,7 +820,11 @@ LM_ATTN = (
      1e-2),
     ("sd15-unet 16x16 self-attention", (2, 256, 20, 20, 64), False, 0, 0.0,
      1e-2),
+    ("whisper-base encoder self-attention", (8, 1500, 8, 8, 64), False, 0,
+     0.0, 3e-2),
 )
+# rows whose backward is timed too (the train path differentiates them)
+BWD_ROWS = ("whisper-base encoder self-attention",)
 UNET_REPS = 5           # the UNet rows: this many times --reps launches
 
 
@@ -840,6 +866,47 @@ def flex_softcap(torch, s: int, window: int, cap: float, dev):
         return compiled(q_, k_, v_, score_mod=score_mod,
                         block_mask=block_mask, enable_gqa=True)
     return call
+
+
+def _backward_times(torch, F, fk, q, k, v, causal: bool, reps: int):
+    """Device ms of one backward pass through ``mha_flash`` on the card
+    (``_Attention``'s: the plain ``full_attention`` recomputed from q, k, v
+    and differentiated) and through SDPA, each given the same output
+    gradient; the bound: 5 products of 2 B H S^2 D flops (S = Q K^T
+    recomputed, dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q) at the
+    bf16 rate, or q, k, v, o, dO read and dq, dk, dv written once."""
+    b, s, h, d = q.shape
+    g = torch.Generator(device=q.device)
+    g.manual_seed(7)
+    go = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
+    ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    n0 = fk.backward_calls
+    out = fk.mha_flash(*ins, causal=causal)
+    if out.grad_fn is None:
+        raise AssertionError("mha_flash on the card returned no grad_fn")
+
+    def bwd():
+        torch.autograd.grad(out, ins, go, retain_graph=True)
+    lib_ins = [t.detach().transpose(1, 2).requires_grad_(True)
+               for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_ins, is_causal=causal)
+    lib_go = go.transpose(1, 2)
+
+    def lib_bwd():
+        torch.autograd.grad(lib_out, lib_ins, lib_go, retain_graph=True)
+    ms = device_ms(bwd, [()], reps)
+    calls = fk.backward_calls - n0
+    lib_ms = device_ms(lib_bwd, [()], reps)
+    pairs = attn_pairs(s, causal, 0)
+    t_o = 10 * b * h * d * pairs / BF16_FLOPS_PER_S
+    t_b = 8 * b * s * h * d * q.element_size() / HBM_BYTES_PER_S
+    return dict(bwd_ms=ms, bwd_library_ms=lib_ms,
+                bwd_bound_ms=1e3 * max(t_o, t_b),
+                bwd_bound_by="operations" if t_o >= t_b else "bytes",
+                bwd_calls_timed=calls,
+                bwd_note="backward: the plain full_attention recomputed "
+                         "in f32 and differentiated (no backward kernel, "
+                         "as in the reference); library: SDPA's backward")
 
 
 def phase_kernels_lm(torch, reps: int):
@@ -930,6 +997,8 @@ def phase_kernels_lm(torch, reps: int):
                        library_ms=device_ms(sdpa, lib_ring, r),
                        library_kernels=kernel_names(sdpa, lib_ring[0]))
         row["tflops"] = tflops(flops, row["ms"])
+        if label in BWD_ROWS:
+            row.update(_backward_times(torch, F, fk, q, k, v, causal, r))
         rows.append(row)
         del ring, lib_ring, q, k, v, got, want
         torch.cuda.empty_cache()
@@ -2610,11 +2679,392 @@ def phase_families(torch, reps: int):
                      "the UNet's self-attention, library_ms bf16 SDPA")
 
 
-def kernel_summary(kernels_out, path_launches):
+# ------------------------------------------------------------- training
+# One arch per family, SMOKE, card against CPU; then olmo-1b (the train
+# launcher's default arch) and whisper-base at full width, at the
+# launcher's default global batch and sequence length.
+TRAIN_SMOKE_ARCHS = ("olmo-1b", "deepseek-moe-16b", "mamba2-370m",
+                     "hymba-1.5b", "internvl2-76b", "whisper-base",
+                     "dit-xl-512", "sd15-unet")
+TRAIN_FULL_ARCHS = ("olmo-1b", "whisper-base")
+TRAIN_SMOKE_STEPS, TRAIN_STEPS = 2, 3
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+WHISPER_PROMPT, WHISPER_DECODE = 8, 16
+# card against CPU over TRAIN_SMOKE_STEPS AdamW steps, f32: loss and grad
+# norm within TRAIN_LOSS_RTOL; each gradient leaf within TRAIN_GRAD_RTOL of
+# its largest magnitude plus 1e-6 of the largest gradient anywhere; params
+# within TRAIN_PARAM_RTOL of the leaf's largest magnitude plus, element by
+# element, what AdamW makes of the two sides' gradient difference.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_PARAM_RTOL = 1e-4, 1e-3, 1e-4
+
+
+def attention_layers(cfg) -> int:
+    """Attention-kernel launches of one teacher-forcing forward: one per
+    whole-sequence self-attention (cross-attention and the SSD blocks run
+    plain), and one backward call each."""
+    from repro_torch.models import unet
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "encdec":
+        return cfg.n_encoder_layers + cfg.n_layers
+    if cfg.family == "unet":
+        return len(unet.attention_sites(cfg))
+    return cfg.n_layers
+
+
+def _nudge_zero(torch, params, seed: int):
+    """Seeded small values for every all-zero weight of rank >= 2 (the
+    diffusion models' adaLN-Zero and output weights), so that every block
+    has a gradient."""
+    from repro_torch.tree import tree_map
+    g = torch.Generator()
+    g.manual_seed(seed)
+
+    def nudge(t):
+        if t.ndim >= 2 and not bool(t.any()):
+            return 0.05 * torch.randn(t.shape, generator=g)
+        return t
+    return tree_map(nudge, params)
+
+
+def _train_smoke(torch, arch: str, seed: int):
+    """SMOKE ``arch``: TRAIN_SMOKE_STEPS AdamW steps from one set of params
+    and batches on the CPU and on the card, each step in the two halves
+    ``make_train_step`` runs (``steps.value_and_grad``, then
+    ``optim.adamw.apply``), so that the gradient compared is the one
+    applied (the card's convolution and scatter backward passes are not
+    bit-reproducible from one run to the next). Loss and grad norm per
+    step within TRAIN_LOSS_RTOL; every
+    gradient leaf within TRAIN_GRAD_RTOL of its largest magnitude plus
+    1e-6 of the largest gradient anywhere (a gradient that is zero by
+    structure, as a SMOKE UNet ``temb_w`` ahead of a GroupNorm of one
+    channel a group, is roundoff on each side); every updated param within
+    TRAIN_PARAM_RTOL of the leaf's largest magnitude plus, element by
+    element and step by step, min(2, |g_card - g_cpu| / eps) lr: AdamW's
+    first steps divide a gradient by its own magnitude, so a gradient
+    below eps moves its param by up to lr on roundoff alone. Attention
+    launches and backward calls exact. cuDNN's TF32 is off for the card's
+    f32 convolutions, as in ``phase_reference``."""
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.optim import adamw as optim
+    from repro_torch.train import steps
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = configs.get_config(arch, smoke=True)
+    ocfg = optim.OptimConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    params = _nudge_zero(torch, steps.init_model_params(cfg, seed, "cpu"),
+                         seed)
+    dcfg = synthetic.for_model(cfg, 2, 16, seed=seed)
+    batches = [synthetic.batch_at(dcfg, i) for i in range(TRAIN_SMOKE_STEPS)]
+    if cfg.family == "vlm":
+        g = synthetic.generator(seed, 99)
+        for b in batches:
+            b["vis_embeds"] = 0.1 * torch.randn(
+                (2, cfg.vis_tokens, cfg.d_model), generator=g)
+    runs = {}
+    # f32 against f32: cuDNN would run the UNet's f32 convolutions in TF32
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev), params)
+            opt = optim.init(ocfg, p)
+            fk.launches = fk.backward_calls = 0
+            metrics, grads = [], []
+            for i, b in enumerate(batches):
+                loss, _, gr = steps.value_and_grad(
+                    cfg, p, {k: v.to(dev) for k, v in b.items()},
+                    synthetic.generator(seed, i))
+                p, opt, m = optim.apply(ocfg, opt, p, gr)
+                grads.append([t.cpu() for t in tree_leaves(gr)])
+                metrics.append((float(loss), float(m["grad_norm"])))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            runs[dev] = (p, metrics, grads, fk.launches, fk.backward_calls)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (cs, cm, cg, _, _), (gs, gm, gg, launched, bwd) = (runs["cpu"],
+                                                       runs["cuda"])
+    want = TRAIN_SMOKE_STEPS * attention_layers(cfg)
+    if not (launched == bwd == want):
+        raise AssertionError(f"train {arch} SMOKE: {launched} attention "
+                             f"launches and {bwd} backward calls, want "
+                             f"{want} each")
+    for (lc, nc), (lg, ng) in zip(cm, gm):
+        if not (math.isfinite(lg) and abs(lg - lc) <= TRAIN_LOSS_RTOL
+                * abs(lc) and abs(ng - nc) <= TRAIN_LOSS_RTOL * abs(nc)):
+            raise AssertionError(f"train {arch} SMOKE: card loss, grad "
+                                 f"norm {gm} against the CPU's {cm}")
+    worst_g = worst_p = 0.0
+    slack = [torch.zeros_like(t) for t in cg[0]]
+    for step, (gc_, gg_) in enumerate(zip(cg, gg)):
+        top = max(float(t.abs().max()) for t in gc_)
+        for i, (a, b) in enumerate(zip(gg_, gc_)):
+            diff = (a - b).abs()
+            lim = TRAIN_GRAD_RTOL * float(b.abs().max()) + 1e-6 * top
+            worst_g = max(worst_g, float(diff.max()) / lim)
+            if not float(diff.max()) <= lim:
+                raise AssertionError(f"train {arch} SMOKE step {step}: a "
+                                     f"gradient leaf {tuple(b.shape)} is "
+                                     f"{float(diff.max())} off the CPU's "
+                                     f"(limit {lim})")
+            slack[i] += ocfg.lr * torch.clamp(diff / ocfg.eps, max=2.0)
+    for pc, pg, sl in zip(tree_leaves(cs), tree_leaves(gs), slack):
+        err = (pg.cpu() - pc).abs()
+        lim = TRAIN_PARAM_RTOL * float(pc.abs().max()) + 1e-6 + sl
+        worst_p = max(worst_p, float((err / lim).max()))
+        if not bool((err <= lim).all()):
+            raise AssertionError(f"train {arch} SMOKE: a param leaf "
+                                 f"{tuple(pc.shape)} is {float(err.max())} "
+                                 "off the CPU's, beyond its limit")
+    return dict(arch=arch, steps=TRAIN_SMOKE_STEPS, loss_card=[m[0] for m
+                in gm], loss_cpu=[m[0] for m in cm],
+                grad_norm_card=[m[1] for m in gm],
+                grad_norm_cpu=[m[1] for m in cm],
+                worst_grad_err_over_limit=worst_g,
+                worst_param_err_over_limit=worst_p,
+                attention_launches=launched, backward_calls=bwd)
+
+
+def _train_cli_smoke(torch, root: Path):
+    """``python -m repro_torch.launch.train`` on the card (SMOKE olmo-1b):
+    6 steps saving every 2 into one ``--ckpt-dir``; with step 6's
+    checkpoint removed, a second run resumes from 4 and must end
+    bit-equal to the first."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch.launch import train as train_cli
+    from repro_torch.tree import tree_leaves
+    ck = root / "train_cli"
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = ["--arch", "olmo-1b", "--device", "cuda", "--steps", "6",
+            "--global-batch", "2", "--seq", "16", "--ckpt-every", "2",
+            "--log-every", "1", "--ckpt-dir", str(ck)]
+    logs = []
+    for run in range(2):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            state = train_cli.main(argv)
+        logs.append(buf.getvalue())
+        if run == 0:
+            first = state
+            shutil.rmtree(ck / "step_00000006")
+    shutil.rmtree(ck, ignore_errors=True)
+    equal = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+                for a, b in zip(tree_leaves(state), tree_leaves(first)))
+    if not ("[train] resumed from step 4" in logs[1] and equal
+            and "[ckpt] saved step 6" in logs[0]):
+        raise AssertionError(f"train launcher on the card: resume failed "
+                             f"(bit-equal {equal}): {logs}")
+    return dict(argv=argv, first_run=logs[0].splitlines(),
+                resumed_run=logs[1].splitlines(), resumed_bit_equal=equal)
+
+
+def _tree_sums(torch, tree):
+    from repro_torch.tree import tree_leaves
+    return [float(t.double().sum()) for t in tree_leaves(tree)]
+
+
+def _train_full(torch, arch: str, seed: int, root: Path, counters):
+    """Full-width ``arch``: TRAIN_STEPS AdamW steps from the port's init on
+    the card at global batch TRAIN_BATCH and sequence TRAIN_SEQ (the
+    launcher's defaults), each timed with a synchronize. Every loss is
+    finite and every param leaf moved; the state is checkpointed after
+    step 2 and restored, every leaf bit-equal, and step 3 runs from the
+    restored state. Returns its record and its launch counts (zeroed just
+    before the first step, read after the last)."""
+    import shutil
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.optim.adamw import OptimConfig
+    from repro_torch.train import steps
+    from repro_torch.tree import tree_leaves
+    cfg = configs.get_config(arch)
+    ocfg = OptimConfig(lr=3e-4, warmup_steps=max(TRAIN_STEPS // 20, 1),
+                       total_steps=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    state = steps.init_train_state(cfg, ocfg, seed, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves((state.params, state.opt.mu,
+                                            state.opt.nu)))
+    dcfg = synthetic.for_model(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed)
+    batches = [synthetic.batch_at(dcfg, i, device="cuda")
+               for i in range(TRAIN_STEPS)]
+    step_fn = steps.make_train_step(cfg, ocfg)
+    sums0 = _tree_sums(torch, state.params)
+    ck = root / f"train_{arch}"
+    shutil.rmtree(ck, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in counters.values():
+        mod.launches = 0
+    fk.backward_calls = 0
+    step_ms, losses, norms, ckpt = [], [], [], {}
+    for i, b in enumerate(batches):
+        if i == 2:                      # checkpoint after step 2, restore
+            mgr = CheckpointManager(str(ck), keep_last=1)
+            t0 = time.perf_counter()
+            mgr.save(2, state, extra={"data_step": 2})
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got_step, restored, _ = mgr.restore_latest(state)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            equal = got_step == 2 and all(
+                torch.equal(a, b_) if isinstance(a, torch.Tensor)
+                else a == b_ for a, b_ in zip(tree_leaves(restored),
+                                              tree_leaves(state)))
+            if not equal:
+                raise AssertionError(f"train {arch}: the restored state is "
+                                     "not bit-equal to the saved one")
+            ckpt = dict(step=2, leaves=len(tree_leaves(state)),
+                        bytes=state_bytes, save_s=save_s, restore_s=load_s,
+                        bit_equal=equal)
+            state = restored
+            shutil.rmtree(ck, ignore_errors=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    launches = {k: mod.launches for k, mod in counters.items()}
+    bwd = fk.backward_calls
+    peak = torch.cuda.max_memory_allocated()
+    want = TRAIN_STEPS * attention_layers(cfg)
+    sums1 = _tree_sums(torch, state.params)
+    unmoved = sum(a == b_ for a, b_ in zip(sums0, sums1))
+    if not (launches["flash_attention"] == bwd == want
+            and all(math.isfinite(x) for x in losses + norms)
+            and unmoved == 0 and sum(launches.values()) == want):
+        raise AssertionError(f"train {arch} full width: launches "
+                             f"{launches}, backward calls {bwd} (want "
+                             f"{want}), losses {losses}, {unmoved} leaves "
+                             "unmoved")
+    rec = dict(arch=arch, params=n_params, state_bytes=state_bytes,
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+               init_s=init_s, step_ms=step_ms, loss=losses,
+               grad_norm=norms, peak_mem_bytes=peak, checkpoint=ckpt,
+               attention_launches=launches["flash_attention"],
+               backward_calls=bwd, leaves_moved=len(sums1))
+    return rec, launches, bwd, state
+
+
+def _whisper_serve(torch, state, seed: int, counters):
+    """Full-width whisper-base after training: ``make_prefill_step`` on
+    WHISPER_PROMPT-token prompts over 1500 frames, then a decode cache from
+    ``encode`` and the prompt fed through ``make_decode_step`` one token at
+    a time (its last logits against the prefill's, bf16: within 5% of
+    their largest magnitude), then
+    WHISPER_DECODE greedy steps. Launches: 12 for the prefill (6 at
+    S = 1500), 6 for the cache's ``encode``, none in decode."""
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.models import encdec
+    from repro_torch.train import steps
+    cfg = configs.get_config("whisper-base")
+    params = state.params
+    dcfg = synthetic.for_model(cfg, TRAIN_BATCH, WHISPER_PROMPT,
+                               seed=seed + 1)
+    b = synthetic.batch_at(dcfg, 0, device="cuda")
+    prompt = b["tokens"][:, :WHISPER_PROMPT]
+    for mod in counters.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    logits = steps.make_prefill_step(cfg, WHISPER_PROMPT)(
+        params, {"frames": b["frames"], "tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    n_prefill = counters["flash_attention"].launches
+    with torch.no_grad():
+        memory = encdec.encode(cfg, params, b["frames"])
+        cache = encdec.init_decode_cache(cfg, params, memory,
+                                         WHISPER_PROMPT + WHISPER_DECODE)
+    n_encode = counters["flash_attention"].launches - n_prefill
+    decode = steps.make_decode_step(cfg)
+    for i in range(WHISPER_PROMPT):
+        step_logits, cache = decode(params, cache, prompt[:, i:i + 1])
+    gap = float((step_logits[:, 0] - logits[:, -1]).abs().max())
+    scale = float(logits[:, -1].abs().max())
+    tok = step_logits[:, -1].argmax(-1, keepdim=True)
+    out, finite = [], bool(torch.isfinite(step_logits).all())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(WHISPER_DECODE):
+        step_logits, cache = decode(params, cache, tok)
+        finite = finite and bool(torch.isfinite(step_logits).all())
+        tok = step_logits[:, -1].argmax(-1, keepdim=True)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / WHISPER_DECODE
+    launches = {k: mod.launches for k, mod in counters.items()}
+    want = 2 * cfg.n_encoder_layers + cfg.n_layers
+    if not (finite and bool(torch.isfinite(logits).all())
+            and gap <= 0.05 * scale
+            and n_prefill == cfg.n_encoder_layers + cfg.n_layers
+            and n_encode == cfg.n_encoder_layers
+            and launches["flash_attention"] == want
+            and sum(launches.values()) == want):
+        raise AssertionError(f"whisper-base serve steps: finite {finite}, "
+                             f"prefill/decode gap {gap}, launches "
+                             f"{launches} ({n_prefill} in the prefill)")
+    return dict(prompt=WHISPER_PROMPT, frames=cfg.encoder_seq,
+                decode_steps=WHISPER_DECODE, prefill_ms=prefill_ms,
+                decode_step_ms=decode_ms, prefill_launches=n_prefill,
+                encode_launches=n_encode, decode_launches=0,
+                prefill_vs_decode_max_abs_gap=gap, logits_max_abs=scale,
+                tokens=torch.cat(out, dim=1)[0].tolist()), launches
+
+
+def phase_train(torch, smi):
+    """The training path: SMOKE card against CPU for one arch per family
+    (``_train_smoke``), the train launcher on the card (``_train_cli_
+    smoke``), then full-width olmo-1b and whisper-base (``_train_full``),
+    whisper-base's prefill and decode after (``_whisper_serve``)."""
+    counters = _counters()
+    root = ROOT / "build"
+    smoke = []
+    for i, arch in enumerate(TRAIN_SMOKE_ARCHS):
+        smoke.append(_train_smoke(torch, arch, 30 + i))
+    cli = _train_cli_smoke(torch, root)
+    full, total, bwd_total, serve = [], {}, 0, None
+    for i, arch in enumerate(TRAIN_FULL_ARCHS):
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec, launches, bwd, state = _train_full(torch, arch, 40 + i, root,
+                                                counters)
+        _add_launches(total, launches)
+        bwd_total += bwd
+        if arch == "whisper-base":
+            serve, launches = _whisper_serve(torch, state, 40 + i, counters)
+            _add_launches(total, launches)
+            rec["serve"] = serve
+        full.append(rec)
+        del state
+    emit({"phase": "train", "part": "smoke", "card": smi, "archs": smoke,
+          "launcher": cli})
+    return dict(card=smi, full=full, launches=total,
+                backward_calls=bwd_total, energy=[],
+                note="step_ms: host wall per AdamW step ended by a "
+                     "synchronize (the first one includes warm-up); "
+                     "state_bytes: params and both moments, f32")
+
+
+def kernel_summary(kernels_out, path_launches, backward_calls):
     """One row per TPU kernel of the repo. ``launches`` sums the counts
     of the paths that ran (``launches_by_path``). ``mha_flash`` launches
     nothing of its own: its row carries the ``flash_attention`` launches
-    of the ar path, all made through it. The composites keep no count
+    of the ar, lm, moe, ssm and train paths, all made through it, and the
+    train path's backward calls (the plain version's gradient, recomputed;
+    ``backward_calls_by_path``). The composites keep no count
     (``launches`` null): each call's launches are counted under the
     kernels it calls."""
     (abft_rows, rb_rows, fl_rows, fi_rows, mha_rows, stat_row, drift_row,
@@ -2677,14 +3127,17 @@ def kernel_summary(kernels_out, path_launches):
                  "place; lm_shapes: the GQA models' calls",
                  mha["library_ms"],
                  counted="flash_attention",
-                 paths=("ar", "lm", "moe", "ssm"),
-                 note="the flash_attention launches of the ar, lm, moe "
-                      "and ssm paths, each made through mha_flash; not a "
-                      "kernel of its own"),
-             lm_shapes=[{k: r[k] for k in (
+                 paths=("ar", "lm", "moe", "ssm", "train"),
+                 note="the flash_attention launches of the ar, lm, moe, "
+                      "ssm and train paths, each made through mha_flash; "
+                      "not a kernel of its own"),
+             backward_calls=sum(backward_calls.values()) if backward_calls
+             else None, backward_calls_by_path=backward_calls,
+             lm_shapes=[{k: r.get(k) for k in (
                  "name", "shape", "window", "softcap", "max_abs_err", "ms",
                  "plain_ms", "bound_ms", "bound_by", "library_ms",
-                 "library_call")}
+                 "library_call", "bwd_ms", "bwd_bound_ms",
+                 "bwd_library_ms") if k in r}
                  for r in lm_rows]),
         row("fault_inject", csrc + "fault_inject.cu",
             "src/repro/kernels/fault_inject.py:24", fi, "bytes",
@@ -2729,6 +3182,7 @@ def main(argv=None) -> int:
     smi = nvidia_smi()
     kernels_out = None
     path_launches = {}
+    backward_calls = {}
     energy_recs = []
     for phase in PHASES:
         if phase not in phases:
@@ -2752,7 +3206,7 @@ def main(argv=None) -> int:
         elif phase == "reference":
             rec.update(phase_reference(torch))
         elif phase in ("serve", "offload", "sched", "ar", "lm", "moe",
-                       "ssm", "baselines", "families"):
+                       "ssm", "baselines", "families", "train"):
             out = (phase_serve(torch) if phase == "serve"
                    else phase_offload(torch, smi) if phase == "offload"
                    else phase_sched(torch, smi) if phase == "sched"
@@ -2761,6 +3215,7 @@ def main(argv=None) -> int:
                    else phase_moe(torch) if phase == "moe"
                    else phase_ssm(torch) if phase == "ssm"
                    else phase_baselines(torch) if phase == "baselines"
+                   else phase_train(torch, smi) if phase == "train"
                    else phase_families(torch, args.reps))
             path_launches[phase] = out["launches"]
             if phase == "serve":
@@ -2770,6 +3225,8 @@ def main(argv=None) -> int:
                 path_launches["offload+steady"] = out["steady_launches"]
             if phase == "sched":
                 path_launches["sched+auto"] = out["auto_launches"]
+            if phase == "train":
+                backward_calls["train"] = out["backward_calls"]
             energy_recs += out.pop("energy")
             rec.update(out)
         rec["wall_s"] = time.perf_counter() - t0
@@ -2780,7 +3237,8 @@ def main(argv=None) -> int:
         emit({"energy": energy_recs})
     print(smi, flush=True)
     if kernels_out is not None:
-        emit({"kernels": kernel_summary(kernels_out, path_launches)})
+        emit({"kernels": kernel_summary(kernels_out, path_launches,
+                                        backward_calls)})
     if phases != list(PHASES):
         emit({"partial": phases})      # a subset proves nothing end to end
         return 0

@@ -1,11 +1,11 @@
 """Architecture registry of the port: ``get_config(arch, smoke=False)``.
 
-``dit-xl-512``, ``pixart-alpha`` and ``sd15-unet`` (diffusion),
-``olmo-1b``, ``gemma2-9b``, ``gemma3-27b`` and ``glm4-9b``
-(autoregressive, dense), ``deepseek-moe-16b`` and ``kimi-k2-1t-a32b``
-(autoregressive, MoE), ``mamba2-370m`` (SSM) and ``hymba-1.5b``
-(hybrid) are ported; any other arch the JAX registry
-knows raises, naming the ROADMAP queue item that ports it.
+Every arch of the JAX registry: ``dit-xl-512``, ``pixart-alpha`` and
+``sd15-unet`` (diffusion), ``olmo-1b``, ``gemma2-9b``, ``gemma3-27b`` and
+``glm4-9b`` (dense), ``deepseek-moe-16b`` and ``kimi-k2-1t-a32b`` (MoE),
+``mamba2-370m`` (SSM), ``hymba-1.5b`` (hybrid), ``whisper-base``
+(enc-dec) and ``internvl2-76b`` (VLM). The last two are reached through
+training (``train.steps``), as in the reference, which serves neither.
 """
 from __future__ import annotations
 
@@ -26,23 +26,15 @@ _MODULES: Dict[str, str] = {
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "mamba2-370m": "mamba2_370m",
     "hymba-1.5b": "hymba_1p5b",
-}
-
-# Archs of the JAX registry that a later slice ports (ROADMAP Queue A).
-_NOT_YET_PORTED: Dict[str, str] = {
-    "whisper-base": "Queue A item 12.4 (enc-dec and VLM)",
-    "internvl2-76b": "Queue A item 12.4 (enc-dec and VLM)",
+    "whisper-base": "whisper_base",
+    "internvl2-76b": "internvl2_76b",
 }
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     name = arch.replace("_", "-")
-    if name in _NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not yet ported to repro_torch; see ROADMAP "
-            f"{_NOT_YET_PORTED[name]}")
     if name not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; ported: {sorted(_MODULES)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.SMOKE if smoke else mod.FULL
 

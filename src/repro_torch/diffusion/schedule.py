@@ -25,6 +25,15 @@ class DdpmSchedule:
         alphas_cum = np.cumprod(1.0 - betas)
         return DdpmSchedule(betas, alphas_cum, num_steps)
 
+    def q_sample(self, x0: torch.Tensor, t: torch.Tensor,
+                 eps: torch.Tensor) -> torch.Tensor:
+        """Forward noising: x_t = sqrt(a_t) x0 + sqrt(1 - a_t) eps, in f32.
+        t: (B,) integer timesteps on any device."""
+        a = torch.from_numpy(self.alphas_cum).to(x0.device)[t.long()]
+        sh = (-1,) + (1,) * (x0.ndim - 1)
+        return (torch.sqrt(a).reshape(sh) * x0
+                + torch.sqrt(1.0 - a).reshape(sh) * eps)
+
     def ddim_step(self, x_t: torch.Tensor, eps_pred: torch.Tensor, t: int,
                   t_prev: int) -> torch.Tensor:
         """Deterministic DDIM update from step t to t_prev (eta=0), in f32,

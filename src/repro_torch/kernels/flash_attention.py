@@ -33,6 +33,17 @@ tolerance, and the f32 kernel within 2e-5. The wrappers take it for CPU
 tensors only; a CUDA tensor launches the kernel or raises. ``launches``
 counts kernel launches, those made through ``mha_flash`` (the wrapper the
 DiT block and the LM prefill call) included.
+
+Training differentiates through both wrappers. On the card, where an
+input requires grad and grad mode is on, the launch runs inside
+``_Attention``, a ``torch.autograd.Function``: its forward is the same
+launch, and its backward recomputes the plain ``full_attention`` from
+the saved q, k and v and differentiates it (``backward_calls`` counts
+those). The reference has no backward kernel either: its training
+differentiates plain ``jnp`` attention. So the card's gradient is the
+plain version's at the kernel's inputs, while its forward rounds P to
+bf16 (ROADMAP Queue C 3). On the CPU the wrappers are ``full_attention``,
+which autograd differentiates as it is.
 """
 from __future__ import annotations
 
@@ -45,6 +56,7 @@ from repro_torch.models.attention import full_attention
 
 MAX_D = 256
 launches = 0
+backward_calls = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
@@ -132,13 +144,49 @@ def _launch(q, k, v, causal, window=0, softcap=0.0):
     return o
 
 
+class _Attention(torch.autograd.Function):
+    """The kernel launch with the plain version's gradient (see the module
+    docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, softcap)
+        return _launch(q, k, v, causal, window, softcap)
+
+    @staticmethod
+    def backward(ctx, grad_o):
+        global backward_calls
+        causal, window, softcap = ctx.args
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        with torch.enable_grad():
+            o = full_attention(*inputs, causal=causal, window=window,
+                               attn_softcap=softcap)
+            grads = torch.autograd.grad(
+                o, [t for t in inputs if t.requires_grad], grad_o)
+        backward_calls += 1
+        it = iter(grads)
+        return tuple(next(it) if t.requires_grad else None
+                     for t in inputs) + (None, None, None)
+
+
+def _attend(q, k, v, causal, window=0, softcap=0.0):
+    """Launch on CUDA tensors; through ``_Attention`` when autograd must
+    see the call."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v, causal, window, softcap)
+    return _launch(q, k, v, causal, window, softcap)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> torch.Tensor:
     """q, k, v: (BH, S, D) -> (BH, S, D) in the input dtype."""
     _check(q, k, v, 3)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
-    return _launch(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
+    return _attend(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
                    causal).squeeze(2)
 
 
@@ -153,4 +201,4 @@ def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return full_attention(q, k, v, causal=causal, window=window,
                               attn_softcap=softcap)
-    return _launch(q, k, v, causal, window, softcap)
+    return _attend(q, k, v, causal, window, softcap)

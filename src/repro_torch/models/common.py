@@ -1,8 +1,11 @@
 """Shared model machinery: the model config, norms, RoPE, activations, inits.
 
 Counterpart of ``repro.models.common``, reduced to what the DiT, PixArt,
-UNet and the dense, MoE, SSM and hybrid LM paths use. Parameters are plain nested dicts of
-tensors, as in the reference.
+UNet, the decoder LMs (dense, MoE, SSM, hybrid, VLM) and the enc-dec model
+use. Parameters are plain nested dicts of tensors, as in the reference.
+The reference's ``remat`` and ``scan_layers`` fields are left out: the
+port runs its layers in a Python loop and keeps every activation for the
+backward pass (no per-layer recompute).
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ Params = Dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dit | unet | dense | moe | ssm | hybrid
+    family: str      # dit | unet | dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int = 0
@@ -33,7 +36,7 @@ class ModelConfig:
     window: int = 1024               # sliding-window size for 'local' layers
     logit_softcap: float = 0.0       # gemma2-style final-logit softcap
     attn_softcap: float = 0.0        # gemma2-style attention-logit softcap
-    norm: str = "rmsnorm"            # rmsnorm | nonparam_ln
+    norm: str = "rmsnorm"            # rmsnorm | layernorm | nonparam_ln
     act: str = "silu"                # silu | gelu
     tie_embeddings: bool = True
     rope_theta: float = 10000.0
@@ -49,6 +52,12 @@ class ModelConfig:
     ssm_chunk: int = 256
     ssm_conv_width: int = 4
     ssm_groups: int = 1
+    # --- enc-dec (whisper) ---
+    n_encoder_layers: int = 0
+    encoder_seq: int = 0             # stub frame count (whisper: 1500)
+    cross_attention: bool = False
+    # --- VLM ---
+    vis_tokens: int = 0              # stub patch-embedding count
     # --- DiT / UNet (diffusion) ---
     latent_size: int = 0             # spatial latent (e.g. 64 for 512px f8)
     latent_channels: int = 4
@@ -155,15 +164,23 @@ def apply_norm(cfg: ModelConfig, p: Optional[Params],
                x: torch.Tensor) -> torch.Tensor:
     if cfg.norm == "rmsnorm":
         return rmsnorm(x, None if p is None else p.get("scale"))
+    if cfg.norm == "layernorm":
+        return layernorm(x, None if p is None else p.get("scale"),
+                         None if p is None else p.get("bias"))
     if cfg.norm == "nonparam_ln":   # OLMo: non-parametric LayerNorm
         return layernorm(x)
-    raise ValueError(f"norm {cfg.norm!r}; ported: rmsnorm, nonparam_ln")
+    raise ValueError(f"norm {cfg.norm!r}")
 
 
 def norm_params(cfg: ModelConfig, device="cpu") -> Params:
     if cfg.norm == "rmsnorm":
         return {"scale": torch.zeros((cfg.d_model,), dtype=cfg.param_dtype,
                                      device=device)}
+    if cfg.norm == "layernorm":
+        return {"scale": torch.ones((cfg.d_model,), dtype=cfg.param_dtype,
+                                    device=device),
+                "bias": torch.zeros((cfg.d_model,), dtype=cfg.param_dtype,
+                                    device=device)}
     return {}  # nonparam_ln
 
 

@@ -1,22 +1,24 @@
-"""Decoder-only LM, dense, MoE, SSM and hybrid families: prefill and
-token-by-token decode.
+"""Decoder-only LM, dense, MoE, SSM, hybrid and VLM families: the
+teacher-forcing forward, prefill and token-by-token decode.
 
-Counterpart of ``repro.models.transformer``, reduced to the dense, MoE,
-SSM and hybrid families: olmo-1b; gemma2-9b, gemma3-27b and glm4-9b with
-GQA, per-layer sliding windows (``cfg.layer_windows()``), the attention
-softcap and the logit softcap; deepseek-moe-16b and kimi-k2 with the MoE
-FFN (``models.moe``) in place of the dense MLP; mamba2-370m, whose layers
-are SSD blocks alone (``models.mamba2``), and hymba-1.5b, whose layers run
-attention and an SSD block side by side and mix their normalized outputs.
-Params are nested dicts like the reference's, except that ``layers`` is a
-list with one dict per layer (the reference stacks them on a leading L
-axis for ``lax.scan``); ``params_from_jax`` converts.
+Counterpart of ``repro.models.transformer``: olmo-1b; gemma2-9b,
+gemma3-27b and glm4-9b with GQA, per-layer sliding windows
+(``cfg.layer_windows()``), the attention softcap and the logit softcap;
+deepseek-moe-16b and kimi-k2 with the MoE FFN (``models.moe``) in place of
+the dense MLP; mamba2-370m, whose layers are SSD blocks alone
+(``models.mamba2``), and hymba-1.5b, whose layers run attention and an SSD
+block side by side and mix their normalized outputs; internvl2-76b, a
+dense backbone with an untied ``lm_head`` whose stream starts with
+``vis_embeds``, the stub patch embeddings. Params are nested dicts like
+the reference's, except that ``layers`` is a list with one dict per layer
+(the reference stacks them on a leading L axis for ``lax.scan``);
+``params_from_jax`` converts.
 
 The reference casts every f32 weight to the activation dtype on every call
 (``_proj``), and statistical ABFT sums every weight over its output axis
-on every call. ``prepare`` does both once: ``Weights`` holds each
-projection as a ``Proj`` (the cast weight and its two per-row sums, from
-the same ops on the same cast weight, so bit-identical), the cast
+on every call. ``prepare`` does both once for serving: ``Weights`` holds
+each projection as a ``Proj`` (the cast weight and its two per-row sums,
+from the same ops on the same cast weight, so bit-identical), the cast
 embedding, and the MoE router and experts and the SSD blocks' ``in_proj``
 and ``out_proj`` cast (they are unprotected, so they carry no sums). The
 SSD blocks' small leaves (``A_log``, ``D``, ``dt_bias``, the conv weight
@@ -24,22 +26,27 @@ and bias, the norm scale) keep their dtype: the reference reads the conv
 weight and norm scale in f32 from its f32 masters. ``init_weights`` draws
 the same weights as ``init_params`` and prepares each one as it is drawn,
 so serving never holds the f32 masters: at full width it needs the
-activation-dtype bytes alone. The model functions take raw params or
-``Weights``.
+activation-dtype bytes alone. ``prefill`` and the decode steps take raw
+params or ``Weights``.
 
-Prefill self-attention runs the attention kernel (``kernels.
-flash_attention.mha_flash``, causal, with the layer's window and the
-softcap); decode attention is plain PyTorch
+``forward``, the training pass, takes the raw f32 params only and casts
+each weight where it is used, as the reference does, so autograd carries
+every gradient to the f32 master (a ``Weights`` copy would stop it at
+the cast; training needs no weight sums).
+
+Self-attention over a whole sequence (``forward`` and prefill) runs the
+attention kernel (``kernels.flash_attention.mha_flash``, causal, with the
+layer's window and the softcap), which autograd differentiates through
+the plain version; decode attention is plain PyTorch
 (``models.attention.decode_attention``), as the reference's is an einsum.
-On the CPU the prefill's attention is the reference's ``attention_any``,
-which chunks past 4096 tokens. The KV cache is written in place (the
-reference returns a new cache); the SSM state is not: each step returns
-new ``SsmState`` tensors, as the reference does. ``Cache.pos`` is a host
-int, so a decode step never waits for the card.
+On the CPU it is the reference's ``attention_any``, which chunks past
+4096 tokens. The KV cache is written in place (the reference returns a
+new cache); the SSM state is not: each step returns new ``SsmState``
+tensors, as the reference does. ``Cache.pos`` is a host int, so a decode
+step never waits for the card.
 
-Enc-dec and VLM layers, the mixed/ring decode, ``DriftDecode`` and the
-training ``forward`` are not yet ported (ROADMAP Queue A items 12 and
-14).
+The mixed/ring decode and ``DriftDecode`` are not yet ported (ROADMAP
+Queue A item 12, which holds item 11's leftovers).
 """
 from __future__ import annotations
 
@@ -58,15 +65,14 @@ from repro_torch.models.common import (ModelConfig, Params, activation,
                                        embed_init, norm_params, rmsnorm,
                                        softcap)
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def _check_cfg(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not yet ported to "
-            "repro_torch; only the dense, MoE, SSM and hybrid LMs are "
-            "(ROADMAP Queue A item 12.4)")
+        raise ValueError(f"{cfg.name}: models.transformer takes the "
+                         f"{', '.join(FAMILIES)} families, got "
+                         f"{cfg.family!r}")
 
 
 # ============================================================ parameters
@@ -266,9 +272,11 @@ def _layer_ssm(cache: Cache, i: int) -> Optional[mamba2.SsmState]:
 
 
 # ====================================================== layer primitives
-def _proj(ctx, x: torch.Tensor, p: Proj, name: str, rclass: int):
+def _proj(ctx, x: torch.Tensor, p, name: str, rclass: int):
+    """``p`` is a ``Proj`` or, in ``forward``, the raw master weight, cast
+    here as the reference casts it."""
     if ctx is None:
-        return x @ p.w
+        return x @ (p.w if isinstance(p, Proj) else p.to(x.dtype))
     return ctx.matmul(x, p, name=name, rclass=rclass)
 
 
@@ -276,9 +284,9 @@ def _attn_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                 window: int, positions: torch.Tensor, mode: str, cache_kv,
                 cache_pos: int = 0, ctx=None, rclass: int = dvfs.CLASS_BODY
                 ) -> torch.Tensor:
-    """Self-attention sub-block, mode 'prefill' or 'decode'; writes this
-    layer's K and V into ``cache_kv`` in place. ``window`` is the layer's
-    (0: global)."""
+    """Self-attention sub-block, mode 'full' (no cache), 'prefill' or
+    'decode'; the last two write this layer's K and V into ``cache_kv`` in
+    place. ``window`` is the layer's (0: global)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
     q = _proj(ctx, x, p["wq"], "attn.q", rclass).reshape(b, s, h, hd)
@@ -286,10 +294,11 @@ def _attn_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     v = _proj(ctx, x, p["wv"], "attn.v", rclass).reshape(b, s, hkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    ck, cv = cache_kv
-    if mode == "prefill":
-        ck[:, :s] = k.to(ck.dtype)
-        cv[:, :s] = v.to(cv.dtype)
+    if mode in ("full", "prefill"):
+        if mode == "prefill":
+            ck, cv = cache_kv
+            ck[:, :s] = k.to(ck.dtype)
+            cv[:, :s] = v.to(cv.dtype)
         if q.device.type == "cpu":    # chunked past 4096 tokens
             o = attention.attention_any(q, k, v, causal=True, window=window,
                                         attn_softcap=cfg.attn_softcap)
@@ -297,13 +306,14 @@ def _attn_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
             o = mha_flash(q, k, v, causal=True, window=window,
                           softcap=cfg.attn_softcap)
     elif mode == "decode":
+        ck, cv = cache_kv
         ck[:, cache_pos:cache_pos + 1] = k.to(ck.dtype)
         cv[:, cache_pos:cache_pos + 1] = v.to(cv.dtype)
         o = attention.decode_attention(q, ck, cv, pos=cache_pos,
                                        window=window,
                                        attn_softcap=cfg.attn_softcap)
     else:
-        raise ValueError(f"attention mode {mode!r}; ported: prefill, decode")
+        raise ValueError(f"attention mode {mode!r}")
     o = o.reshape(b, s, h * hd)
     return _proj(ctx, o, p["wo"], "attn.o", rclass)
 
@@ -319,24 +329,26 @@ def _mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor, ctx=None,
 def _ssd(cfg: ModelConfig, p: Params, h_in: torch.Tensor, mode: str,
          ssm_state: Optional[mamba2.SsmState]):
     """The SSD block (unprotected: no ctx, as the reference): the whole
-    prompt from a zero state in prefill, one recurrence step in decode.
-    Returns its output and the new state."""
+    sequence from a zero state in 'full' and 'prefill', one recurrence
+    step in decode. Returns its output and the new state (None in
+    'full')."""
     if mode == "decode":
         return mamba2.ssd_decode_step(cfg, p, h_in, ssm_state)
-    return mamba2.ssd_forward(cfg, p, h_in, return_state=True)
+    return mamba2.ssd_forward(cfg, p, h_in, return_state=mode == "prefill")
 
 
 def _layer(cfg: ModelConfig, p: Params, x: torch.Tensor, *, window: int,
            positions: torch.Tensor, mode: str, cache_kv, cache_pos: int = 0,
            ssm_state: Optional[mamba2.SsmState] = None, ctx=None,
            rclass: int = dvfs.CLASS_BODY
-           ) -> Tuple[torch.Tensor, Optional[mamba2.SsmState]]:
-    """One dense, MoE, SSM or hybrid layer; returns (x, new SSM state or
-    None)."""
+           ) -> Tuple[torch.Tensor, Optional[mamba2.SsmState],
+                      Optional[torch.Tensor]]:
+    """One dense, MoE, SSM, hybrid or VLM layer; returns (x, new SSM state
+    or None, the MoE aux loss or None)."""
     h_in = apply_norm(cfg, p["ln1"], x)
     if cfg.family == "ssm":
         y, new_ssm = _ssd(cfg, p["ssm"], h_in, mode, ssm_state)
-        return x + y, new_ssm
+        return x + y, new_ssm, None
     attn_out = _attn_block(cfg, p["attn"], h_in, window=window,
                            positions=positions, mode=mode, cache_kv=cache_kv,
                            cache_pos=cache_pos, ctx=ctx, rclass=rclass)
@@ -351,38 +363,51 @@ def _layer(cfg: ModelConfig, p: Params, x: torch.Tensor, *, window: int,
         x = x + attn_out
     h2 = apply_norm(cfg, p["ln2"], x)
     if cfg.family == "moe":       # unprotected: no ctx, as the reference
-        y2, _ = moe.moe_ffn(cfg, p["moe"], h2.reshape(-1, h2.shape[-1]))
-        return x + y2.reshape(h2.shape), new_ssm
-    return x + _mlp_block(cfg, p["mlp"], h2, ctx=ctx, rclass=rclass), new_ssm
+        y2, aux = moe.moe_ffn(cfg, p["moe"], h2.reshape(-1, h2.shape[-1]))
+        return x + y2.reshape(h2.shape), new_ssm, aux
+    return (x + _mlp_block(cfg, p["mlp"], h2, ctx=ctx, rclass=rclass),
+            new_ssm, None)
 
 
-def _embed(cfg: ModelConfig, w: Weights, tokens: torch.Tensor
-           ) -> torch.Tensor:
-    x = w.embed[tokens]
-    return x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype,
-                            device=x.device)
+def _embed(cfg: ModelConfig, w: Weights, tokens: torch.Tensor,
+           vis_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The scaled token embeddings (the gathered rows cast, as the
+    reference casts the table and gathers), after the ``vis_embeds``
+    prefix (B, vis_tokens, d) when one is given."""
+    x = w.embed[tokens].to(cfg.dtype)
+    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype,
+                         device=x.device)
+    if vis_embeds is not None:
+        x = torch.cat([vis_embeds.to(cfg.dtype), x], dim=1)
+    return x
 
 
 def _unembed(cfg: ModelConfig, w: Weights, x: torch.Tensor) -> torch.Tensor:
-    logits = x @ (w.embed.T if w.lm_head is None else w.lm_head.w)
+    if w.lm_head is None:
+        head = w.embed.T
+    else:
+        head = w.lm_head.w if isinstance(w.lm_head, Proj) else w.lm_head
+    logits = x @ head.to(x.dtype)
     return softcap(logits.float(), cfg.logit_softcap)
 
 
 # ================================================================ serving
-def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int,
+            vis_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Cache]:
-    """Process a prompt (B, S); returns (logits (B, S, V) f32, primed
-    cache). Runs clean, with no execution context."""
+    """Process a prompt (B, S), after the ``vis_embeds`` prefix for the
+    VLM; returns (logits (B, S, V) f32, primed cache). Runs clean, with
+    no execution context."""
     w = prepare(cfg, params)
-    x = _embed(cfg, w, tokens)
+    x = _embed(cfg, w, tokens, vis_embeds)
     b, s, _ = x.shape
     # the SSD blocks start from a zero state: no SSM state to allocate
     cache = Cache(*_kv_cache(cfg, b, max_seq, cfg.dtype, x.device), None, 0)
     positions = torch.arange(s, device=x.device)
     states = []
     for i, (lp, win) in enumerate(zip(w.layers, cfg.layer_windows())):
-        x, st = _layer(cfg, lp, x, window=win, positions=positions,
-                       mode="prefill", cache_kv=_layer_kv(cache, i))
+        x, st, _ = _layer(cfg, lp, x, window=win, positions=positions,
+                          mode="prefill", cache_kv=_layer_kv(cache, i))
         states.append(st)
     x = apply_norm(cfg, w.final_norm, x)
     ssm = tuple(states) if _has_ssm(cfg) else None
@@ -398,10 +423,11 @@ def _decode(cfg: ModelConfig, w: Weights, cache: Cache,
     for i, (lp, win) in enumerate(zip(w.layers, cfg.layer_windows())):
         ctx = None if ctx_factory is None else ctx_factory(i)
         rclass = dvfs.CLASS_FIRST_BLOCK if i < 1 else dvfs.CLASS_BODY
-        x, st = _layer(cfg, lp, x, window=win, positions=positions,
-                       mode="decode", cache_kv=_layer_kv(cache, i),
-                       cache_pos=cache.pos, ssm_state=_layer_ssm(cache, i),
-                       ctx=ctx, rclass=rclass)
+        x, st, _ = _layer(cfg, lp, x, window=win, positions=positions,
+                          mode="decode", cache_kv=_layer_kv(cache, i),
+                          cache_pos=cache.pos,
+                          ssm_state=_layer_ssm(cache, i), ctx=ctx,
+                          rclass=rclass)
         ctxs.append(ctx)
         states.append(st)
     x = apply_norm(cfg, w.final_norm, x)
@@ -435,10 +461,31 @@ def decode_step_stats(cfg: ModelConfig, params, cache: Cache,
     return logits, cache, stats
 
 
-def forward(cfg: ModelConfig, params, tokens: torch.Tensor):
-    raise NotImplementedError(
-        "the teacher-forcing forward is not yet ported to repro_torch "
-        "(ROADMAP Queue A item 14, training)")
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            vis_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training (teacher-forcing) pass over tokens (B, S), after the
+    ``vis_embeds`` prefix for the VLM: causal self-attention over the
+    whole stream with no cache. Takes the raw params (see the module
+    docstring). Returns (logits (B, S', V) f32, the f32 aux loss: the mean
+    over layers of the MoE load-balance loss, 0 for the other families)."""
+    if isinstance(params, Weights):
+        raise TypeError("forward takes the raw params, not Weights: "
+                        "gradients must reach the f32 masters")
+    _check_cfg(cfg)
+    # the raw params in ``Weights``' places, nothing cast or summed
+    w = Weights(params["embed"], params["layers"], params["final_norm"],
+                params.get("lm_head"))
+    x = _embed(cfg, w, tokens, vis_embeds)
+    positions = torch.arange(x.shape[1], device=x.device)
+    auxs = []
+    for lp, win in zip(w.layers, cfg.layer_windows()):
+        x, _, aux = _layer(cfg, lp, x, window=win, positions=positions,
+                           mode="full", cache_kv=None)
+        auxs.append(torch.zeros((), device=x.device) if aux is None
+                    else aux)
+    x = apply_norm(cfg, w.final_norm, x)
+    return _unembed(cfg, w, x), torch.stack(auxs).mean()
 
 
 def decode_step_mixed(cfg: ModelConfig, params, cache, tokens):
@@ -450,8 +497,8 @@ def decode_step_mixed(cfg: ModelConfig, params, cache, tokens):
 def param_count(cfg: ModelConfig) -> int:
     """Analytical parameter count, the reference's formula (the SSD
     blocks' projections; not their conv, ``A_log``, ``D``, ``dt_bias`` or
-    norm scale)."""
-    _check_cfg(cfg)
+    norm scale). Like the reference's, it prices any other family as
+    dense: an enc-dec config by its decoder's layers and embedding."""
     d, h, hkv, hd, f, v = (cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd,
                            cfg.d_ff, cfg.vocab)
     per_layer = 0

@@ -13,6 +13,8 @@ from repro_torch.serving.request import (PRIORITY_RANK, REQUEST_OPS,
                                          REQUEST_PRIORITIES,
                                          GenerationRequest, PreviewEvent,
                                          RequestQueue, RequestResult)
+from repro_torch.serving.servable import (UNSUPPORTED_FAMILIES,
+                                          UnsupportedArchError)
 from repro_torch.serving.scheduler import (Admission, DeadlineScheduler,
                                            PriorityMicroBatcher,
                                            SchedulerConfig, SchedulerStats)
@@ -32,5 +34,6 @@ __all__ = ["Admission", "CompiledSamplerCache", "DeadlineScheduler",
            "PRIORITY_RANK", "PreviewEvent", "PriorityMicroBatcher",
            "REQUEST_OPS", "REQUEST_PRIORITIES", "RequestQueue",
            "RequestResult", "SamplerKey", "SchedulerConfig",
-           "SchedulerStats", "TelemetryHTTPServer", "aggregate_metrics",
+           "SchedulerStats", "TelemetryHTTPServer", "UNSUPPORTED_FAMILIES",
+           "UnsupportedArchError", "aggregate_metrics",
            "dominates", "pareto_front", "quality_proxy", "serve_telemetry"]

@@ -479,18 +479,34 @@ SERVABLE_BY_FAMILY = {
 PARADIGM_BY_FAMILY: Dict[str, str] = {
     fam: cls.paradigm for fam, cls in SERVABLE_BY_FAMILY.items()}
 
+# family -> reason it cannot be served (the reference's words).
+UNSUPPORTED_FAMILIES: Dict[str, str] = {
+    "encdec": "encoder-decoder models need an audio/encoder input the "
+              "request schema has no fields for (use launch/train.py)",
+    "vlm": "vision-language models need image inputs the request schema "
+           "has no fields for (use launch/train.py)",
+}
+
+
+class UnsupportedArchError(ValueError):
+    """Raised at submit time for archs no ServableModel family covers."""
+
 
 def servable_class(arch: str):
-    """The servable class of an arch's family (raises for archs not yet
-    ported)."""
+    """The servable class of an arch's family; raises
+    ``UnsupportedArchError`` with the registry's reason, as the
+    reference's ``paradigm_for`` does, for a family no servable covers."""
     family = configs.get_config(arch).family
     if family not in SERVABLE_BY_FAMILY:
-        raise NotImplementedError(
-            f"arch {arch!r}: family {family!r} has no servable in "
-            "repro_torch yet (ROADMAP Queue A item 12.4)")
+        reason = UNSUPPORTED_FAMILIES.get(
+            family, f"family {family!r} is not in the ServableModel "
+                    "registry (add it to servable.PARADIGM_BY_FAMILY or "
+                    "servable.UNSUPPORTED_FAMILIES)")
+        raise UnsupportedArchError(f"arch {arch!r}: {reason}")
     return SERVABLE_BY_FAMILY[family]
 
 
 def paradigm_for(arch: str) -> str:
-    """Serving paradigm of an arch (raises for archs not yet ported)."""
+    """Serving paradigm of an arch (raises ``UnsupportedArchError`` for
+    the unsupported families)."""
     return servable_class(arch).paradigm

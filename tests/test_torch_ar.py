@@ -25,6 +25,7 @@ from repro.kernels import ops as jops
 from repro.kernels import stat_abft as jstat
 from repro.serving import DriftServeEngine as JaxEngine
 from repro.serving import ar as jar
+from repro.serving.servable import UNSUPPORTED_FAMILIES as JAX_UNSUPPORTED
 from repro_torch import configs
 from repro_torch.core import dvfs, fault
 from repro_torch.kernels import abft_matmul as tak
@@ -36,7 +37,7 @@ from repro_torch.launch import serve
 from repro_torch.models import transformer
 from repro_torch.perfmodel import energy
 from repro_torch.serving import DriftServeEngine
-from repro_torch.serving import ar
+from repro_torch.serving import UnsupportedArchError, ar
 
 from test_torch_core import JaxReplayFlipSource, jax_replay_factory
 from test_torch_transformer import ARCH, lm_jax_params
@@ -482,19 +483,23 @@ def test_engine_matches_jax_engine(lm_setup, jax_engine_run):
 
 
 def test_engine_serves_both_paradigms_and_rejects_unported():
-    """One engine holds both servables; modes outside a paradigm, and
-    archs and families not yet ported, raise naming the ROADMAP item. The
-    diffusion paradigm takes every mode, the Fig 12 baselines included
+    """One engine holds both servables; modes outside a paradigm raise,
+    and the enc-dec and VLM archs raise ``UnsupportedArchError`` with the
+    reference's reason, as the reference's engine does. The diffusion
+    paradigm takes every mode, the Fig 12 baselines included
     (stat_abft there is the tile-recompute baseline)."""
     eng = DriftServeEngine(device="cpu")
     assert eng.servable_for(ARCH).paradigm == "autoregressive"
     assert eng.servable.paradigm == "diffusion"
     with pytest.raises(ValueError, match="autoregressive serving"):
         eng.submit(arch=ARCH, mode="drift")
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        eng.submit(arch="whisper-base", mode="stat_abft")
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        eng.submit(arch="internvl2-76b", mode="stat_abft")
+    for arch in ("whisper-base", "internvl2-76b"):
+        family = jconfigs.get_config(arch).family
+        with pytest.raises(UnsupportedArchError) as err:
+            eng.submit(arch=arch, mode="stat_abft")
+        assert str(err.value) == \
+            f"arch {arch!r}: {JAX_UNSUPPORTED[family]}"
+        assert isinstance(err.value, ValueError)
     assert len(eng.queue) == 0
     eng.submit(steps=2, mode="stat_abft", op="undervolt", seed=0)
     eng.submit(arch=ARCH, steps=3, mode="faulty", op="undervolt", seed=0)

@@ -63,8 +63,11 @@ def test_config_matches_reference():
     assert (full.n_layers, full.d_model, full.hd, full.tokens) == (
         28, 1152, 72, 1024)
     assert full.dtype == torch.bfloat16 and full.param_dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        configs.get_config("whisper-base")
+    for arch in ("whisper-base", "internvl2-76b"):
+        got, want = configs.get_config(arch), jconfigs.get_config(arch)
+        for f in dataclasses.fields(got):
+            if f.name not in ("dtype", "param_dtype"):
+                assert getattr(got, f.name) == getattr(want, f.name), f.name
 
 
 def test_forward_float_matches_jax_f32(setup):

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, the
+"""The port's CUDA kernels against their plain PyTorch versions (the
+attention kernel's gradients, which training takes, included), the
 checkpoint-offload store's side-stream copies into pinned memory, a
 drain through the telemetry front end's ``/events`` with offload on, the
 bf16-only LM weights (``transformer.init_weights``), the MoE routing and
@@ -647,3 +648,86 @@ def test_ssd_on_card_matches_cpu(cuda, arch):
                                       st1.conv)]
     for got, want in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,s,dtype,tol", [(2, 1500, torch.bfloat16, 3e-2),
+                                           (1, 1000, torch.bfloat16, 3e-2),
+                                           (1, 1000, torch.float32, 2e-5)])
+def test_flash_partial_last_tile_matches_plain_on_card(cuda, b, s, dtype,
+                                                       tol, causal):
+    """whisper-base's encoder length, 1500 (and 1000): many whole tiles,
+    then a partial last one, at 8 heads of 64; bf16 on views of one
+    fused projection within 3e-2, f32 within 2e-5; one launch, a finite
+    output."""
+    rng = np.random.default_rng(s + int(causal))
+    q, k, v = _gqa_qkv(rng, b, s, 8, 8, 64, dtype,
+                       fused=dtype == torch.bfloat16, q_scale=1.0,
+                       device=cuda)
+    n0 = tfk.launches
+    got = tfk.mha_flash(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tfk.launches == n0 + 1 and bool(torch.isfinite(got).all())
+    want = full_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,window,softcap", [(4, 4, 0, 0.0),
+                                                  (8, 2, 0, 0.0),
+                                                  (8, 4, 5, 0.0),
+                                                  (8, 4, 0, 20.0),
+                                                  (16, 16, 7, 30.0)])
+def test_mha_flash_gradients_on_card(cuda, dtype, h, hkv, window, softcap):
+    """Gradients through the card's ``mha_flash`` (causal; GQA, a window,
+    a softcap): the output carries a ``grad_fn``, one backward call is
+    counted, and q, k and v (each a view of one fused projection, which
+    requires grad) get the gradients of the plain ``full_attention`` on
+    the same inputs within 1e-6 (f32) and 1e-2 (bf16): the backward is
+    that plain version, recomputed."""
+    rng = np.random.default_rng(h * 100 + hkv * 10 + window)
+    s, d = 37, 64
+    x0 = torch.from_numpy(rng.standard_normal(
+        (2, s, h + 2 * hkv, d)).astype(np.float32)).to(cuda, dtype)
+    go = torch.from_numpy(rng.standard_normal(
+        (2, s, h, d)).astype(np.float32)).to(cuda, dtype)
+    grads = []
+    for fn in (tfk.mha_flash, None):
+        x = x0.clone().requires_grad_(True)
+        q, k, v = x[:, :, :h], x[:, :, h:h + hkv], x[:, :, h + hkv:]
+        if fn is None:
+            o = full_attention(q, k, v, causal=True, window=window,
+                               attn_softcap=softcap)
+        else:
+            n0, b0 = tfk.launches, tfk.backward_calls
+            o = fn(q, k, v, causal=True, window=window, softcap=softcap)
+            assert o.grad_fn is not None and tfk.launches == n0 + 1
+        o.backward(go)
+        if fn is not None:
+            assert tfk.backward_calls == b0 + 1
+        grads.append(x.grad.float())
+    tol = 1e-6 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(grads[0], grads[1], atol=tol, rtol=tol)
+    assert float(grads[0].abs().max()) > 0
+
+
+@pytest.mark.gpu
+def test_flash_attention_no_grad_launch_keeps_no_graph(cuda):
+    """Under ``torch.no_grad`` (serving) and on inputs that need no
+    gradient, the launch is the bare kernel: no ``grad_fn``; the
+    ``(BH, S, D)`` entry point differentiates too."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (3, 40, 32)).astype(np.float32)).to(cuda) for _ in range(3))
+    assert tfk.flash_attention(q, k, v, causal=True).grad_fn is None
+    qg = q.clone().requires_grad_(True)
+    with torch.no_grad():
+        assert tfk.flash_attention(qg, k, v).grad_fn is None
+    o = tfk.flash_attention(qg, k, v, causal=True)
+    assert o.grad_fn is not None
+    o.sum().backward()
+    ref = q.clone().requires_grad_(True)
+    tfk.flash_attention_plain(ref, k, v, causal=True).sum().backward()
+    torch.testing.assert_close(qg.grad, ref.grad, atol=1e-6, rtol=1e-6)

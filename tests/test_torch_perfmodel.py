@@ -19,6 +19,7 @@ from repro.configs import shapes as jshapes
 from repro.core import dvfs as jdvfs
 from repro.models import dit as jdit
 from repro.models import transformer as jtf
+from repro.models.common import ModelConfig as JModelConfig
 from repro.perfmodel import dram as jdram
 from repro.perfmodel import energy as jenergy
 from repro.perfmodel import flops as jflops
@@ -234,11 +235,32 @@ def test_taylorseer_and_narrowed_plans_bill_less(models):
 
 
 def test_unported_families_raise():
+    """The enc-dec and VLM families get the reference's numbers (``==``),
+    at full width, at SMOKE and on a small hand-made config: the
+    reference prices both as dense LMs."""
     encdec = ModelConfig(name="m", family="encdec", n_layers=2, d_model=8,
                          n_heads=2, d_ff=16, vocab=32)
-    vlm = dataclasses.replace(encdec, family="vlm")
-    for fn, cfg in ((flops.active_params, encdec),
-                    (transformer.param_count, vlm),
-                    (flops.gemm_macs_per_model_eval, vlm)):
-        with pytest.raises(NotImplementedError, match="Queue A item 12"):
-            fn(cfg)
+    jencdec = JModelConfig(name="m", family="encdec", n_layers=2, d_model=8,
+                           n_heads=2, d_ff=16, vocab=32)
+    pairs = [(encdec, jencdec),
+             (dataclasses.replace(encdec, family="vlm"),
+              dataclasses.replace(jencdec, family="vlm"))]
+    for arch in ("whisper-base", "internvl2-76b"):
+        for smoke in (False, True):
+            pairs.append((configs.get_config(arch, smoke=smoke),
+                          jconfigs.get_config(arch, smoke=smoke)))
+    for cfg, jcfg in pairs:
+        assert transformer.param_count(cfg) == jtf.param_count(jcfg)
+        assert flops.active_params(cfg) == jflops.active_params(jcfg)
+        for batch in (1, 2):
+            assert flops.gemm_macs_per_model_eval(cfg, batch) == \
+                jflops.gemm_macs_per_model_eval(jcfg, batch)
+            assert energy.activation_bytes(cfg, batch) == \
+                jenergy.activation_bytes(jcfg, batch)
+            assert energy.dram_bytes_per_eval(cfg, batch) == \
+                jenergy.dram_bytes_per_eval(jcfg, batch)
+    for arch in ("whisper-base", "internvl2-76b"):
+        cfg, jcfg = configs.get_config(arch), jconfigs.get_config(arch)
+        for cell in shapes.cells_for(arch):
+            assert flops.cell_flops(cfg, shapes.get_shape(cell)) == \
+                jflops.cell_flops(jcfg, jshapes.get_shape(cell)), cell
