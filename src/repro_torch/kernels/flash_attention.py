@@ -34,10 +34,10 @@ tensors only; a CUDA tensor launches the kernel or raises. ``launches``
 counts kernel launches, those made through ``mha_flash`` (the wrapper the
 DiT block and the LM prefill call) included.
 
-Training differentiates through both wrappers. On the card, where an
-input requires grad and grad mode is on, the launch runs inside
-``_Attention``, a ``torch.autograd.Function``: its forward is the same
-launch, and its backward recomputes the plain ``full_attention`` from
+Training differentiates through both wrappers. On the card every launch
+runs inside ``_Attention``, a ``torch.autograd.Function``, which records
+a graph only where grad mode is on and an input requires grad: its
+forward is the launch, and its backward recomputes the plain ``full_attention`` from
 the saved q, k and v and differentiates it (``backward_calls`` counts
 those). The reference has no backward kernel either: its training
 differentiates plain ``jnp`` attention. So the card's gradient is the
@@ -171,23 +171,14 @@ class _Attention(torch.autograd.Function):
                      for t in inputs) + (None, None, None)
 
 
-def _attend(q, k, v, causal, window=0, softcap=0.0):
-    """Launch on CUDA tensors; through ``_Attention`` when autograd must
-    see the call."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return _Attention.apply(q, k, v, causal, window, softcap)
-    return _launch(q, k, v, causal, window, softcap)
-
-
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> torch.Tensor:
     """q, k, v: (BH, S, D) -> (BH, S, D) in the input dtype."""
     _check(q, k, v, 3)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
-    return _attend(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
-                   causal).squeeze(2)
+    return _Attention.apply(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
+                            causal, 0, 0.0).squeeze(2)
 
 
 def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -201,4 +192,4 @@ def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return full_attention(q, k, v, causal=causal, window=window,
                               attn_softcap=softcap)
-    return _attend(q, k, v, causal, window, softcap)
+    return _Attention.apply(q, k, v, causal, window, softcap)

@@ -24,28 +24,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import repack as repack_lib
 from repro_torch.perfmodel import dram as dram_lib
 from repro_torch.perfmodel.hw import PAPER_ACCEL
-
-
-def tree_map(fn: Callable, tree):
-    """``fn`` over the leaves of a nesting of dicts, tuples and lists."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
-def tree_leaves(tree) -> List:
-    out: List = []
-    tree_map(out.append, tree)
-    return out
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)

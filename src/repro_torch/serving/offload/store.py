@@ -67,6 +67,7 @@ import torch
 
 from repro_torch.core.rollback import DEFAULT_INTERVAL
 from repro_torch.serving.offload import layout as layout_lib
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,7 +229,7 @@ class OffloadStore:
 
     def _start(self, step: int, stores) -> _Flight:
         cfg = self.cfg
-        leaves = layout_lib.tree_leaves(stores)
+        leaves = tree_leaves(stores)
         dev = leaves[0].device
         cuda = dev.type == "cuda"
         if cuda:
@@ -259,9 +260,8 @@ class OffloadStore:
                 ev[3].record(self._side)
         else:
             packed = copy_all(non_blocking=False)
-        it = iter(packed)
-        tree = layout_lib.tree_map(lambda _: next(it), stores)
-        return _Flight(step=step, packed=tree, host_set=back,
+        return _Flight(step=step, packed=tree_unflatten(stores, packed),
+                       host_set=back,
                        nbytes=layout_lib.store_nbytes(packed),
                        staged=staged if cuda else None,
                        events=tuple(ev) if cuda else None)

@@ -11,6 +11,7 @@ no JAX, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 import dataclasses
+import shutil
 
 import numpy as np
 import pytest
@@ -24,10 +25,11 @@ from repro_torch.kernels import flash_attention as tfk
 from repro_torch.kernels import ops
 from repro_torch.kernels import rollback_correct as trk
 from repro_torch.kernels import stat_abft
+from repro_torch.launch import train as train_cli
 from repro_torch.models import mamba2, moe, transformer
 from repro_torch.models.attention import full_attention
 from repro_torch.serving.offload import OffloadConfig, OffloadStore
-from repro_torch.serving.offload.layout import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _int8(rng, shape, extreme=False):
@@ -652,15 +654,21 @@ def test_ssd_on_card_matches_cpu(cuda, arch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("b,s,dtype,tol", [(2, 1500, torch.bfloat16, 3e-2),
-                                           (1, 1000, torch.bfloat16, 3e-2),
+@pytest.mark.parametrize("b,s,dtype,tol", [(2, 1500, torch.bfloat16, 3e-3),
+                                           (1, 1000, torch.bfloat16, 3e-3),
                                            (1, 1000, torch.float32, 2e-5)])
 def test_flash_partial_last_tile_matches_plain_on_card(cuda, b, s, dtype,
                                                        tol, causal):
     """whisper-base's encoder length, 1500 (and 1000): many whole tiles,
-    then a partial last one, at 8 heads of 64; bf16 on views of one
-    fused projection within 3e-2, f32 within 2e-5; one launch, a finite
-    output."""
+    then a partial last one, at 8 heads of 64; one launch, a finite
+    output. bf16 on views of one fused projection within 3e-3 absolute
+    (3x the 0.00098 the encoder's call reads on an H100) plus one bf16
+    ulp relative (2^-7: both sides round their output to bf16, and a
+    causal row's first outputs average a few values of size ~1); f32
+    within 2e-5.
+    The limit tells the plain version apart from the same call with the
+    partial tile's keys (28 and 40 of the bf16 kernel's 64-key tiles)
+    dropped, so a kernel that lost or mis-masked them fails."""
     rng = np.random.default_rng(s + int(causal))
     q, k, v = _gqa_qkv(rng, b, s, 8, 8, 64, dtype,
                        fused=dtype == torch.bfloat16, q_scale=1.0,
@@ -670,7 +678,13 @@ def test_flash_partial_last_tile_matches_plain_on_card(cuda, b, s, dtype,
     torch.cuda.synchronize()
     assert tfk.launches == n0 + 1 and bool(torch.isfinite(got).all())
     want = full_attention(q, k, v, causal=causal)
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else tol
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=rtol)
+    keep = s - s % 64
+    dropped = full_attention(q, k[:, :keep], v[:, :keep], causal=causal)
+    assert not torch.allclose(dropped.float(), want.float(), atol=tol,
+                              rtol=rtol)
 
 
 @pytest.mark.gpu
@@ -716,7 +730,7 @@ def test_mha_flash_gradients_on_card(cuda, dtype, h, hkv, window, softcap):
 @pytest.mark.gpu
 def test_flash_attention_no_grad_launch_keeps_no_graph(cuda):
     """Under ``torch.no_grad`` (serving) and on inputs that need no
-    gradient, the launch is the bare kernel: no ``grad_fn``; the
+    gradient, the launch records no graph: no ``grad_fn``; the
     ``(BH, S, D)`` entry point differentiates too."""
     rng = np.random.default_rng(9)
     q, k, v = (torch.from_numpy(rng.standard_normal(
@@ -731,3 +745,26 @@ def test_flash_attention_no_grad_launch_keeps_no_graph(cuda):
     ref = q.clone().requires_grad_(True)
     tfk.flash_attention_plain(ref, k, v, causal=True).sum().backward()
     torch.testing.assert_close(qg.grad, ref.grad, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.gpu
+def test_train_launcher_resumes_on_card(cuda, tmp_path, capsys):
+    """``python -m repro_torch.launch.train`` on the card (SMOKE olmo-1b):
+    6 steps saving at 2, 4 and 6 into one ``--ckpt-dir``; with step 6's
+    checkpoint removed, a second run resumes from 4 and ends bit-equal to
+    the first, its params on the card."""
+    ck = tmp_path / "ck"
+    argv = ["--arch", "olmo-1b", "--device", "cuda", "--steps", "6",
+            "--global-batch", "2", "--seq", "16", "--ckpt-every", "2",
+            "--log-every", "1", "--ckpt-dir", str(ck)]
+    straight = train_cli.main(argv)
+    assert "[ckpt] saved step 6" in capsys.readouterr().out
+    shutil.rmtree(ck / "step_00000006")
+    resumed = train_cli.main(argv)
+    assert "[train] resumed from step 4" in capsys.readouterr().out
+    assert resumed.step == straight.step == 6
+    assert all(t.device.type == "cuda"
+               for t in tree_leaves(resumed.params))
+    for a, b in zip(tree_leaves(resumed), tree_leaves(straight)):
+        assert (a == b) if not isinstance(a, torch.Tensor) \
+            else torch.equal(a, b)

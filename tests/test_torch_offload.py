@@ -42,6 +42,7 @@ from repro_torch.serving import (DriftServeEngine, EngineTelemetry,
                                  OffloadConfig, OffloadPlanner, OffloadStore,
                                  PreviewEvent)
 from repro_torch.serving.offload import layout, pareto_frontier
+from repro_torch.tree import tree_leaves, tree_map
 
 from test_torch_core import JaxReplayFlipSource, jax_replay_factory
 from test_torch_dit import perturbed_jax_params
@@ -181,16 +182,16 @@ def test_store_restores_a_snapshot_not_the_live_buffer(async_commit,
                                      .astype(np.float32))},
               {"w1": torch.from_numpy(rng.standard_normal((3, 64, 33))
                                       .astype(np.float32))})
-    want = layout.tree_map(torch.clone, stores)
+    want = tree_map(torch.clone, stores)
     s = OffloadStore(OffloadConfig(async_commit=async_commit,
                                    repacked=repacked, tile_m=8, tile_n=8))
     s.begin_batch(interval=1, batch_index=0)
     s.on_window(1, _carry(stores))
-    layout.tree_map(lambda t: t.mul_(-3.0), stores)   # the next refresh
+    tree_map(lambda t: t.mul_(-3.0), stores)   # the next refresh
     sets = [list(h) for h in s._host_sets]
     assert s.finish_batch().commits == 1
-    for got, ref in zip(layout.tree_leaves(s.restore()),
-                        layout.tree_leaves(want)):
+    for got, ref in zip(tree_leaves(s.restore()),
+                        tree_leaves(want)):
         assert got.shape == ref.shape and torch.equal(got, ref)
     assert s.stats.restores == 1 and s.stats.waits == 0
     s.begin_batch(interval=1, batch_index=1)
@@ -241,8 +242,8 @@ def test_restore_matches_live_store_after_sample_stream():
     assert windows == [2, 3] and isinstance(events[-1], SampleOutput)
     assert [e.step for e in events[:-1]] == [2]
     assert store.finish_batch().commits == 2 and store.committed_step == 2
-    live = layout.tree_leaves(carries[-1][1])
-    restored = layout.tree_leaves(store.restore())
+    live = tree_leaves(carries[-1][1])
+    restored = tree_leaves(store.restore())
     assert len(live) == len(restored) == 10
     for a, b in zip(live, restored):
         assert torch.equal(a, b)

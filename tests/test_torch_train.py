@@ -317,7 +317,9 @@ def test_attention_autograd_carries_plain_gradients(monkeypatch):
     """``_Attention`` (the card's differentiable launch), its launch
     replaced by the plain version on the CPU: the output carries a
     ``grad_fn``, each backward counts once, and q, k and v get the plain
-    version's gradients exactly (GQA 4/2 heads, window 3, softcap 5)."""
+    version's gradients exactly (GQA 4/2 heads, window 3, softcap 5);
+    under ``no_grad``, ``inference_mode`` or on inputs that need no
+    gradient it records no graph (serving calls it so)."""
     monkeypatch.setattr(fk, "_launch", lambda q, k, v, c, w=0, s=0.0:
                         full_attention(q, k, v, causal=c, window=w,
                                        attn_softcap=s))
@@ -328,7 +330,7 @@ def test_attention_autograd_carries_plain_gradients(monkeypatch):
         np.float32))
     leaves = [t.clone().requires_grad_(True) for t in qkv]
     n0 = fk.backward_calls
-    out = fk._attend(*leaves, True, 3, 5.0)
+    out = fk._Attention.apply(*leaves, True, 3, 5.0)
     assert out.grad_fn is not None
     out.backward(go)
     assert fk.backward_calls == n0 + 1
@@ -337,8 +339,13 @@ def test_attention_autograd_carries_plain_gradients(monkeypatch):
     for a, b in zip(leaves, ref):
         assert torch.equal(a.grad, b.grad)
     k_only = [qkv[0], qkv[1].clone().requires_grad_(True), qkv[2]]
-    fk._attend(*k_only, True).sum().backward()
+    fk._Attention.apply(*k_only, True, 0, 0.0).sum().backward()
     assert k_only[1].grad is not None and qkv[0].grad is None
+    with torch.no_grad():
+        assert fk._Attention.apply(*leaves, True, 0, 0.0).grad_fn is None
+    with torch.inference_mode():
+        assert fk._Attention.apply(*qkv, True, 0, 0.0).grad_fn is None
+    assert fk._Attention.apply(*qkv, True, 0, 0.0).grad_fn is None
 
 
 # ------------------------------------------------------------ checkpoints
