@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases device,build,baselines
     python3 chip_smoke.py --phases device,build,families
     python3 chip_smoke.py --phases device,build,kernels,train
+    python3 chip_smoke.py --phases device,build,sharded
 
 Phases, each printing one JSON line with its wall time:
 
@@ -83,7 +84,11 @@ Phases, each printing one JSON line with its wall time:
                prefill (two SSD chunks of 8), one attention launch an
                attention layer, logits within 1e-4; the MoE rows record
                the smallest gap between a token's k-th and (k+1)-th
-               router probability on the card.
+               router probability on the card. Then SMOKE
+               ``DriftDecode`` (olmo-1b, deepseek-moe-16b, hymba-1.5b)
+               card against CPU with CPU-drawn masks, 4 steps at BER
+               1e-2: greedy tokens, detected rows, corrected elements
+               and flagged tiles equal, logits within 1e-4.
 5. serve    -- ``repro_torch.launch.serve.main`` drives a full-width
                DiT-XL/2-512 engine (28 layers, random seeded weights): 2
                requests in drift/undervolt, then the same seeds in faulty
@@ -141,7 +146,12 @@ Phases, each printing one JSON line with its wall time:
                (15 faulted layers x 7 GEMMs) per faulted decode step, 16
                attention launches per prefill. stat_abft must detect, roll
                back and match the clean decode token for token. Then the
-               time per decode step and a profiled request.
+               time per decode step and a profiled request. Then 16
+               ``DriftDecode`` steps on the same weights (8-token
+               prompts, the undervolt BER table, refresh interval 4):
+               exactly 112 ``abft_matmul`` and 112 ``rollback_correct``
+               launches a step (7 GEMMs x 16 layers at M = 2), a
+               (16, 2, n_out) store, finite logits, ms per step.
 9. lm       -- the same for full-width gemma2-9b (42 layers, d 3584, 16
                heads of 256 over 8 KV heads, windows of 4096 on alternate
                layers, softcaps; 9.24 B parameters, 18.5 GB of bf16
@@ -157,7 +167,12 @@ Phases, each printing one JSON line with its wall time:
                56.6 GB): 427 fault_inject launches per faulted step, 62
                attentions per prefill; then glm4-9b (40 layers, d 4096,
                32 heads of 128 over 2; 9.40 B parameters, 18.8 GB): 273
-               and 40.
+               and 40. gemma3-27b's weights also decode a 1040-token
+               prompt (past its window of 1024) 16 steps through
+               ``decode_step`` and ``decode_step_mixed`` (its rings):
+               the logits held to each other within
+               ``MIXED_LOGITS_LIMIT`` (0: bit-equal), which a ring
+               written one slot off must exceed; ms per step of each.
 9b. moe     -- full-width deepseek-moe-16b (28 layers, d 2048, 16 heads
                of 128, 2 shared + 64 routed experts of 1408, top-6; 16.9
                B parameters, 33.8 GB in bf16) the same way, after every
@@ -195,6 +210,17 @@ Phases, each printing one JSON line with its wall time:
                drift request each; then ``abft_matmul`` at the GEMM
                shapes they add and ``mha_flash`` at the UNet's two
                self-attention shapes, beside their bounds.
+11b. sharded -- the serve phase's 2 full-width DiT requests (its seeded
+               weights, drift at undervolt, 10 steps) in one process,
+               then on a (data 2, model 1) and a (data 1, model 2) mesh
+               of 2 spawned ranks sharing cuda:0 over gloo
+               (``serving.sharded``): every rank's latents (on int32
+               views), detection heatmaps, corrected counts, monitor
+               state, billed joules and launch counts equal the one
+               process's; per rank the wall, the peak memory and the
+               collectives a batch. Then the SMOKE ``--sharded`` CLI
+               under ``python -m torch.distributed.run`` (2 ranks) exits
+               0 and prints the mesh line once.
 12. train   -- training (``train.steps``, ``optim.adamw``,
                ``checkpoint.manager``): one SMOKE arch per family
                (olmo-1b, deepseek-moe-16b, mamba2-370m, hymba-1.5b,
@@ -237,6 +263,7 @@ import argparse
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -245,7 +272,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "reference", "serve", "offload",
           "sched", "ar", "lm", "moe", "ssm", "baselines", "families",
-          "train")
+          "sharded", "train")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, int8 and bf16
 # tensor-core rates, float32 rate outside the tensor cores.
@@ -269,11 +296,19 @@ MOE_ARCHS = ("deepseek-moe-16b", "kimi-k2-1t-a32b")
 SSM_ARCHS = (("mamba2-370m", 26), ("hymba-1.5b", 27))
 AR_STEPS = 16
 AR_WINDOW = 4
+# tokens of the profiled request of each LM (its trace, up to ~450k
+# kernels at 16 tokens, is processed on the host after the run)
+PROFILE_AR_STEPS = 8
 TS_ARGS = ["--taylorseer", "--precision", "int8-body4"]
 TS_KNOBS = dict(taylorseer=True, precision="int8-body4")
 TS_STEPS_SMOKE, TS_EVALS_SMOKE = 7, 3       # computes steps 0, 3, 6
 BASELINE_MODES = ("thundervolt", "approx_abft", "dmr", "stat_abft")
 FAMILY_ARCHS = ("pixart-alpha", "sd15-unet")
+# decode_step_mixed vs decode_step, gemma3-27b at full width, bf16: the
+# largest |logit| difference over 16 steps past the window. 0: the rings
+# are read oldest first, so the sums run in decode_step's order and the
+# logits are bit-equal (measured); a ring one slot off must exceed it.
+MIXED_LOGITS_LIMIT = 0.0
 OFFLOAD_INTERVAL = 2        # refresh interval and stream window
 STEADY_BATCHES = 3          # batches after an offload engine's first
 TIMERS = set()          # which timer produced the kernel times
@@ -421,14 +456,120 @@ def path_gemms(cfg, bucket: int):
             ("final", m, d, pad(pdim), 1, (m, pdim))]
 
 
+def decode_gemms(cfg, batch: int):
+    """(name, M, K, N, launches per layer and step, unpadded (M, N)) of a
+    ``DriftDecode`` step's protected projections: M = batch, padded to one
+    32-row tile."""
+    mp = -(-batch // 32) * 32
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.hd
+    kvd = cfg.n_kv_heads * cfg.hd
+    rows = [("attn.q", mp, d, hd, 1, (batch, hd)),
+            ("attn.k/v", mp, d, kvd, 2, (batch, kvd)),
+            ("attn.o", mp, hd, d, 1, (batch, d)),
+            ("mlp.gate/up", mp, d, f, 2, (batch, f)),
+            ("mlp.down", mp, f, d, 1, (batch, d))]
+    if hd == kvd:                                   # q, k, v alike
+        rows[:2] = [("attn.q/k/v", mp, d, hd, 3, (batch, hd))]
+    return rows
+
+
+def _abft_rb_rows(torch, g, src, site, name, mkn, valid, reps):
+    """``abft_matmul`` and ``rollback_correct`` at one GEMM shape, held
+    bit-equal to their plain versions and timed; (abft row, rollback
+    row). Inputs outside ``valid`` are zero, as the path pads them."""
+    from repro_torch.core.abft import _exceeds
+    from repro_torch.kernels import abft_matmul as ak
+    from repro_torch.kernels import rollback_correct as rk
+    dev = torch.device("cuda")
+    m, k, n = mkn
+    vm, vn = valid
+    aq = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    bq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                       dtype=torch.int8)
+    flips = src(site, (m, n), 3e-3)
+    flips[vm // 2, vn // 3] = -2 ** 31              # one bit-31 flip
+    aq[vm:] = 0
+    bq[:, vn:] = 0
+    flips[vm:] = 0
+    flips[:, vn:] = 0
+    got = ak.abft_matmul(aq, bq, flips)
+    want = ak.abft_matmul_plain(aq, bq, flips)
+    torch.cuda.synchronize()
+    for label, a, b in zip(("c", "act_row", "exp_row", "act_col",
+                            "exp_col"), got, want):
+        if not torch.equal(a, b):
+            bad = int((a != b).sum())
+            raise AssertionError(f"abft_matmul {name} ({m}x{k}x{n}): "
+                                 f"{label} differs in {bad} elements")
+    mt, nt = m // 32, n // 32
+    bytes_ = m * k + k * n + 4 * m * n + 4 * m * n + 8 * m * nt + 8 * mt * n
+    ops = 2 * m * n * k + 2 * m * k * nt + 2 * mt * k * n
+    t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    ring = ring_of((aq, bq, flips), bytes_)
+    try:
+        int_mm = device_ms(torch._int_mm, [r[:2] for r in ring], reps)
+    except RuntimeError:                           # shape it does not take
+        int_mm = None
+    a_row = dict(name=name, m=m, k=k, n=n, valid=list(valid),
+                 max_abs_err=max_abs_err(got, want), ring=len(ring),
+                 ms=device_ms(ak.abft_matmul, ring, reps, "abft_matmul"),
+                 wall_ms=time_ms(ak.abft_matmul, ring, reps),
+                 plain_ms=device_ms(ak.abft_matmul_plain, ring,
+                                    max(1, reps // 4)),
+                 bound_ms=1e3 * max(t_b, t_o),
+                 bound_by="bytes" if t_b >= t_o else "operations",
+                 int_mm_ms=int_mm,
+                 flagged_rows=int(_exceeds(got[1] - got[2],
+                                           THRESHOLD).sum()))
+    a_row.update(tops=2 * m * n * k / (a_row["ms"] * 1e-3) / 1e12,
+                 int_mm_ratio=a_row["ms"] / int_mm if int_mm else None)
+    del ring
+
+    rd = got[1] - got[2]
+    cd = got[3] - got[4]
+    c = got[0].float() * 1e-4
+    ckpt = torch.randn((m, n), generator=g, device=dev)
+    ckpt[vm:] = 0
+    ckpt[:, vn:] = 0
+    err = 0.0
+    for union in (True, False):
+        a = rk.rollback_correct(c, ckpt, rd, cd, THRESHOLD, union=union,
+                                valid=valid)
+        b = rk.rollback_correct_plain(c, ckpt, rd, cd, THRESHOLD,
+                                      union=union, valid=valid)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(a, b))
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise AssertionError(f"rollback_correct {name} union={union}"
+                                 " differs from its plain version")
+    # Per element one f32 read (ckpt where masked, else c) and one f32
+    # write; the row and column differences; the per-tile count.
+    rbytes = 8 * m * n + 4 * m * nt + 4 * mt * n + 4 * mt * nt
+    ring = ring_of((c, ckpt, rd, cd), rbytes)
+
+    def rb(c_, ck_, rd_, cd_):
+        return rk.rollback_correct(c_, ck_, rd_, cd_, THRESHOLD, valid=valid)
+
+    def rb_plain(c_, ck_, rd_, cd_):
+        return rk.rollback_correct_plain(c_, ck_, rd_, cd_, THRESHOLD,
+                                         valid=valid)
+    r_row = dict(name=name, m=m, n=n, valid=list(valid), max_abs_err=err,
+                 ring=len(ring),
+                 ms=device_ms(rb, ring, reps, "rollback_correct"),
+                 wall_ms=time_ms(rb, ring, reps),
+                 plain_ms=device_ms(rb_plain, ring, reps),
+                 bound_ms=1e3 * rbytes / HBM_BYTES_PER_S, bound_by="bytes",
+                 masked_elems=int(a[1].sum()))
+    del ring
+    return a_row, r_row
+
+
 # ---------------------------------------------------------------- phases
 def phase_kernels(torch, reps: int):
     from repro_torch.configs import get_config
     from repro_torch.core import fault
-    from repro_torch.core.abft import _exceeds
-    from repro_torch.kernels import abft_matmul as ak
     from repro_torch.kernels import flash_attention as fk
-    from repro_torch.kernels import rollback_correct as rk
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -439,83 +580,11 @@ def phase_kernels(torch, reps: int):
     abft_rows, rb_rows = [], []
     for i, (name, m, k, n, per_eval, valid) in enumerate(
             path_gemms(cfg, BUCKET)):
-        aq = torch.randint(-127, 128, (m, k), generator=g, device=dev,
-                           dtype=torch.int8)
-        bq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
-                           dtype=torch.int8)
-        flips = src(fault.FaultSite(0, i, name), (m, n), 3e-3)
-        flips[m // 2, n // 3] = -2 ** 31            # one bit-31 flip
-        got = ak.abft_matmul(aq, bq, flips)
-        want = ak.abft_matmul_plain(aq, bq, flips)
-        torch.cuda.synchronize()
-        for label, a, b in zip(("c", "act_row", "exp_row", "act_col",
-                                "exp_col"), got, want):
-            if not torch.equal(a, b):
-                bad = int((a != b).sum())
-                raise AssertionError(f"abft_matmul {name} ({m}x{k}x{n}): "
-                                     f"{label} differs in {bad} elements")
-        mt, nt = m // 32, n // 32
-        bytes_ = m * k + k * n + 4 * m * n + 4 * m * n + 8 * m * nt \
-            + 8 * mt * n
-        ops = 2 * m * n * k + 2 * m * k * nt + 2 * mt * k * n
-        t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
-        ring = ring_of((aq, bq, flips), bytes_)
-        try:
-            int_mm = device_ms(torch._int_mm, [r[:2] for r in ring], reps)
-        except RuntimeError:                       # shape it does not take
-            int_mm = None
-        row = dict(name=name, m=m, k=k, n=n, per_eval=per_eval,
-                   max_abs_err=max_abs_err(got, want), ring=len(ring),
-                   ms=device_ms(ak.abft_matmul, ring, reps, "abft_matmul"),
-                   wall_ms=time_ms(ak.abft_matmul, ring, reps),
-                   plain_ms=device_ms(ak.abft_matmul_plain, ring,
-                                      max(1, reps // 4)),
-                   bound_ms=1e3 * max(t_b, t_o),
-                   bound_by="bytes" if t_b >= t_o else "operations",
-                   int_mm_ms=int_mm,
-                   flagged_rows=int(_exceeds(got[1] - got[2],
-                                             THRESHOLD).sum()))
-        row.update(tops=2 * m * n * k / (row["ms"] * 1e-3) / 1e12,
-                   int_mm_ratio=row["ms"] / int_mm if int_mm else None)
-        abft_rows.append(row)
-        del ring
-
-        rd = got[1] - got[2]
-        cd = got[3] - got[4]
-        c = got[0].float() * 1e-4
-        ckpt = torch.randn((m, n), generator=g, device=dev)
-        err = 0.0
-        for union in (True, False):
-            a = rk.rollback_correct(c, ckpt, rd, cd, THRESHOLD, union=union,
-                                    valid=valid)
-            b = rk.rollback_correct_plain(c, ckpt, rd, cd, THRESHOLD,
-                                          union=union, valid=valid)
-            torch.cuda.synchronize()
-            err = max(err, max_abs_err(a, b))
-            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
-                raise AssertionError(f"rollback_correct {name} union={union}"
-                                     " differs from its plain version")
-        # Per element one f32 read (ckpt where masked, else c) and one f32
-        # write; the row and column differences; the per-tile count.
-        rbytes = 8 * m * n + 4 * m * nt + 4 * mt * n + 4 * mt * nt
-        ring = ring_of((c, ckpt, rd, cd), rbytes)
-
-        def rb(c_, ck_, rd_, cd_, valid=valid):
-            return rk.rollback_correct(c_, ck_, rd_, cd_, THRESHOLD,
-                                       valid=valid)
-
-        def rb_plain(c_, ck_, rd_, cd_, valid=valid):
-            return rk.rollback_correct_plain(c_, ck_, rd_, cd_, THRESHOLD,
-                                             valid=valid)
-        rb_rows.append(dict(
-            name=name, m=m, n=n, per_eval=per_eval, max_abs_err=err,
-            ring=len(ring),
-            ms=device_ms(rb, ring, reps, "rollback_correct"),
-            wall_ms=time_ms(rb, ring, reps),
-            plain_ms=device_ms(rb_plain, ring, reps),
-            bound_ms=1e3 * rbytes / HBM_BYTES_PER_S, bound_by="bytes",
-            masked_elems=int(a[1].sum())))
-        del ring
+        a_row, r_row = _abft_rb_rows(torch, g, src,
+                                     fault.FaultSite(0, i, name), name,
+                                     (m, k, n), valid, reps)
+        abft_rows.append(dict(a_row, per_eval=per_eval))
+        rb_rows.append(dict(r_row, per_eval=per_eval))
     emit({"phase": "kernels", "kernel": "abft_matmul", "bit_equal": True,
           "shapes": abft_rows,
           "note": "int_mm_ms is torch._int_mm, the bare int8 product: a "
@@ -797,7 +866,24 @@ def phase_kernels_ar(torch, reps: int):
           **drift_row,
           "note": "ms is every kernel of the composite (quantize, pads, "
                   "dequantize included); kernel_ms its two CUDA kernels"})
-    return fi_rows, mha_rows, stat_row, drift_row
+
+    # DriftDecode's projections: 2 valid rows in one 32-row tile.
+    dd_abft, dd_rb = [], []
+    for i, (name, m, k, n, per_layer, valid) in enumerate(
+            decode_gemms(cfg, BUCKET)):
+        a_row, r_row = _abft_rb_rows(torch, g, src,
+                                     fault.FaultSite(3, i, name), name,
+                                     (m, k, n), valid, reps)
+        dd_abft.append(dict(a_row, per_layer=per_layer))
+        dd_rb.append(dict(r_row, per_layer=per_layer))
+    for kernel, rows in (("abft_matmul", dd_abft),
+                         ("rollback_correct", dd_rb)):
+        emit({"phase": "kernels", "kernel": kernel, "bit_equal": True,
+              "path": "ar+drift", "shapes": rows,
+              "note": f"DriftDecode's {AR_ARCH} projections at bucket "
+                      f"{BUCKET}: valid rows {BUCKET} of a 32-row tile, "
+                      "the rest zero as the path pads them"})
+    return fi_rows, mha_rows, stat_row, drift_row, (dd_abft, dd_rb)
 
 
 # The GQA language models' attention calls: (label, (B, S, H, Hkv, D),
@@ -1206,7 +1292,8 @@ def phase_reference(torch):
                 gqa=_reference_lm(torch, engine, GQA_ARCHS),
                 moe=_reference_lm(torch, engine, MOE_ARCHS),
                 ssm=_reference_lm(torch, engine,
-                                  [a for a, _ in SSM_ARCHS]))
+                                  [a for a, _ in SSM_ARCHS]),
+                drift_decode=_reference_drift_decode(torch))
 
 
 def _reference_lm(torch, engine, archs):
@@ -2157,14 +2244,16 @@ def _serve_archs(torch, archs, path):
     """``_serve_ar`` for each (arch, seed) in turn, each after every
     earlier engine is freed. The phase's launches are the archs' summed;
     each arch's own are in its record."""
-    runs, total = [], {}
+    runs, total, extra = [], {}, {}
     for arch, seed in archs:
         gc.collect()
         torch.cuda.empty_cache()
         runs.append(_serve_ar(torch, arch, seed, path))
         _add_launches(total, runs[-1]["launches"])
+        extra.update(runs[-1].pop("extra_launches", {}))
     energy = [e for r in runs for e in r.pop("energy")]
-    return dict(launches=total, archs=runs, energy=energy)
+    return dict(launches=total, archs=runs, energy=energy,
+                extra_launches=extra)
 
 
 def phase_moe(torch):
@@ -2314,6 +2403,10 @@ def _serve_ar(torch, arch, seed, path):
                clean_tokens=clean.tolist(), builds=eng.cache.builds,
                step_ms=_ar_step_ms(torch, eng, arch, cfg),
                breakdown=_profile_ar(torch, eng, argv))
+    if arch in DECODE_PATHS:
+        key, path_name, fn = DECODE_PATHS[arch]
+        out[key], launches = fn(torch, eng, arch, cfg)
+        out["extra_launches"] = {path_name: launches}
     if cfg.family in ("ssm", "hybrid"):
         out["ssm"] = dict(heads=cfg.ssm_heads, head_dim=cfg.ssm_head_dim,
                           state=cfg.ssm_state, chunk=cfg.ssm_chunk)
@@ -2367,11 +2460,15 @@ def _ar_step_ms(torch, eng, arch, cfg):
 
 
 def _profile_ar(torch, eng, argv):
-    """Device time by kernel over one more stat_abft request (its
-    primary pass, replays and clean reference)."""
+    """Device time by kernel over one more stat_abft request of
+    PROFILE_AR_STEPS tokens (its primary pass, replays and clean
+    reference); ``profile_s`` is the whole measurement, the trace's
+    processing included."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
-    argv = argv + ["--mode", "stat_abft", "--requests", "1", "--seed", "100"]
+    argv = argv + ["--mode", "stat_abft", "--requests", "1", "--seed", "100",
+                   "--steps", str(PROFILE_AR_STEPS)]
+    t_all = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         (res,) = serve.main(argv, engine=eng)
@@ -2386,9 +2483,10 @@ def _profile_ar(torch, eng, argv):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     fi = sum(r[0] for r in rows if "fault_inject" in r[1]) / 1e6
-    return dict(what="1 stat_abft request at bucket 2, 16 tokens: prefill, "
-                     "15 faulted steps, 15 replayed, plus its clean "
-                     "reference", wall_s=wall, device_busy_s=busy,
+    return dict(what=f"1 stat_abft request at bucket 2, {PROFILE_AR_STEPS} "
+                     "tokens: prefill, its faulted steps and replays, plus "
+                     "its clean reference", wall_s=wall,
+                profile_s=time.perf_counter() - t_all, device_busy_s=busy,
                 token_match_vs_clean=res.token_match_vs_clean,
                 ar_detections=res.ar_detections,
                 ar_rollbacks=res.ar_rollbacks,
@@ -3053,6 +3151,457 @@ def phase_train(torch, smi):
                      "state_bytes: params and both moments, f32")
 
 
+# ----------------------------------------------- decode paths (slice 13)
+def _recording_contexts(transformer):
+    """Patch ``transformer.ExecContext`` with a subclass that keeps every
+    context a ``DriftDecode`` step builds; returns (list, restore)."""
+    ctxs = []
+    base = transformer.ExecContext
+
+    class Recording(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            ctxs.append(self)
+    transformer.ExecContext = Recording
+
+    def restore():
+        transformer.ExecContext = base
+    return ctxs, restore
+
+
+def _ctx_counts(ctxs, tile_bytes: int = 32 * 32 * 4):
+    """(detected rows, corrected elements, flagged tiles) summed over the
+    contexts: a drift GEMM's DRAM cost is one repacked tile a flag."""
+    det = sum(int(c.stats["detected_row_errors"]) for c in ctxs)
+    corr = sum(int(c.stats["corrected_elems"]) for c in ctxs)
+    tiles = sum(int(round(float(c.stats["extra_dram_bytes"]) / tile_bytes))
+                for c in ctxs)
+    return det, corr, tiles
+
+
+def _drift_decode(torch, eng, arch, cfg):
+    """``DriftDecode`` on the engine's full-width weights: 2 prompts of 8
+    tokens, then AR_STEPS protected decode steps at the undervolt BER
+    table (steps below ``nominal_steps`` and layer 0 at BER 0), refresh
+    interval AR_WINDOW, greedy tokens. Every protected projection runs
+    through ``abft_matmul`` and ``rollback_correct`` at M = 2 padded to
+    one 32-row tile: exactly 7 x 16 launches of each a step for olmo-1b
+    (``phase_kernels_ar`` holds both kernels bit-equal at these shapes).
+    Counters zeroed just before the prefill and read after the last
+    step; ms per step (synchronized)."""
+    from repro_torch.core import dvfs, fault
+    from repro_torch.core.exec_ctx import DriftSystemConfig
+    from repro_torch.core.rollback import RollbackConfig
+    from repro_torch.models import transformer
+    from repro_torch.serving import ar
+
+    (_, weights), = eng.servable_for(arch)._weights.values()
+    counters = _counters()
+    tokens = ar.prompt_tokens(cfg, [0, 1], eng.device)
+    table = dvfs.fine_grained_schedule(
+        AR_STEPS, dvfs.UNDERVOLT, nominal_steps=eng.nominal_steps).ber_table
+    dcfg = DriftSystemConfig(mode="drift",
+                             rollback=RollbackConfig(interval=AR_WINDOW))
+    src = fault.PhiloxFlipSource(7, 0, eng.device)
+    store = transformer.drift_store_spec(cfg, BUCKET, eng.device)
+    ctxs, restore = _recording_contexts(transformer)
+    for mod in counters.values():
+        mod.launches = 0
+    try:
+        logits, cache = transformer.prefill(cfg, weights, tokens,
+                                            tokens.shape[1] + AR_STEPS)
+        tok = logits[:, -1:].argmax(-1)
+        prefill_launches = {k: m.launches for k, m in counters.items()}
+        per_step, times, counts = [], [], []
+        for step in range(AR_STEPS):
+            before = {k: m.launches for k, m in counters.items()}
+            ctxs.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache, store = transformer.decode_step(
+                cfg, weights, cache, tok, transformer.DriftDecode(
+                    dcfg, src, table[step], store, step))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            per_step.append({k: m.launches - before[k]
+                             for k, m in counters.items()})
+            counts.append(_ctx_counts(ctxs))
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{arch} DriftDecode step {step}: "
+                                     "non-finite logits")
+            tok = logits[:, -1:].argmax(-1)
+    finally:
+        restore()
+    launches = {k: m.launches for k, m in counters.items()}
+    gemms = cfg.n_layers * {"moe": 4, "ssm": 0}.get(cfg.family, 7)
+    want_step = {"abft_matmul": gemms, "rollback_correct": gemms,
+                 "flash_attention": 0, "fault_inject": 0}
+    if any(s != want_step for s in per_step) or prefill_launches != {
+            "abft_matmul": 0, "rollback_correct": 0,
+            "flash_attention": cfg.n_layers, "fault_inject": 0}:
+        raise AssertionError(f"{arch} DriftDecode launches: prefill "
+                             f"{prefill_launches}, steps {per_step}")
+    shapes = {k: tuple(v.shape) for k, v in store.items()}
+    if (len(store) != 7 or any(s[:2] != (cfg.n_layers, BUCKET)
+                               for s in shapes.values())
+            or not all(bool(torch.isfinite(v).all())
+                       for v in store.values())):
+        raise AssertionError(f"{arch} DriftDecode store {shapes}")
+    if not sum(c[1] for c in counts) > 0:
+        raise AssertionError(f"{arch} DriftDecode corrected nothing at "
+                             "undervolt")
+    steady = times[eng.nominal_steps:]
+    return dict(steps=AR_STEPS, window=AR_WINDOW, bucket=BUCKET,
+                prompt=int(tokens.shape[1]), launches_per_step=want_step,
+                store_shapes=shapes, step_ms=times,
+                step_ms_mean_faulted=sum(steady) / len(steady),
+                detected_corrected_tiles=counts,
+                note="step_ms: host wall per DriftDecode step ended by a "
+                     "synchronize; faulted: steps >= nominal_steps"), \
+        launches
+
+
+def _mixed_decode(torch, eng, arch, cfg):
+    """gemma3-27b's windowed decode on the engine's full-width weights: a
+    prompt of window + 16 = 1040 tokens (every local layer's ring
+    wrapped), then AR_STEPS steps of ``decode_step`` on the full cache and
+    of ``decode_step_mixed`` on the ring layout, fed the same seeded
+    tokens; logits held to each other within MIXED_LOGITS_LIMIT (bf16),
+    a limit a ring written one slot off (position p in slot (p + 1) % W,
+    so each step evicts a key inside the window and keeps one outside)
+    must exceed. Beside the largest difference, the mean one and the
+    share of logits that differ. ms per step of each (synchronized).
+    Counters zeroed before the prefill: its attention launches, and none
+    in decode."""
+    from repro_torch.models import transformer
+
+    (_, weights), = eng.servable_for(arch)._weights.values()
+    dev = eng.device
+    counters = _counters()
+    s = cfg.window + 16
+    g = torch.Generator(device=dev)
+    g.manual_seed(31)
+    prompts = torch.randint(0, cfg.vocab, (BUCKET, s), generator=g,
+                            device=dev)
+    toks = torch.randint(0, cfg.vocab, (AR_STEPS, BUCKET, 1), generator=g,
+                         device=dev)
+    for mod in counters.values():
+        mod.launches = 0
+    logits, full = transformer.prefill(cfg, weights, prompts, s + AR_STEPS)
+    del logits
+    prefill_launches = {k: m.launches for k, m in counters.items()}
+    mixed = transformer.mixed_from_full(cfg, full)
+    # a cache of its own (decode writes in place), its rings one slot off
+    off = mixed._replace(k_local=torch.roll(mixed.k_local, 1, dims=2),
+                         v_local=torch.roll(mixed.v_local, 1, dims=2),
+                         k_global=mixed.k_global.clone(),
+                         v_global=mixed.v_global.clone())
+    torch.cuda.synchronize()
+    full_ms, mixed_ms, errs = [], [], []
+    off_errs, off_mean, off_share = [], [], []
+    for t in toks:
+        t0 = time.perf_counter()
+        lf, full, _ = transformer.decode_step(cfg, weights, full, t)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lm, mixed = transformer.decode_step_mixed(cfg, weights, mixed, t)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        lo, off = transformer.decode_step_mixed(cfg, weights, off, t)
+        full_ms.append(1e3 * (t1 - t0))
+        mixed_ms.append(1e3 * (t2 - t1))
+        errs.append(float((lm - lf).abs().max()))
+        gap = (lo - lf).abs()
+        off_errs.append(float(gap.max()))
+        off_mean.append(float(gap.mean()))
+        off_share.append(float((gap > 0).float().mean()))
+        if not (bool(torch.isfinite(lf).all())
+                and bool(torch.isfinite(lm).all())):
+            raise AssertionError(f"{arch} decode logits not finite")
+    launches = {k: m.launches for k, m in counters.items()}
+    rec = dict(prompt=s, window=cfg.window, steps=AR_STEPS, bucket=BUCKET,
+               limit=MIXED_LOGITS_LIMIT, max_abs_err=errs,
+               one_slot_off_max_abs_err=off_errs,
+               one_slot_off_mean_abs_err=off_mean,
+               one_slot_off_share_differing=off_share,
+               logits_absmax=float(lf.abs().max()),
+               decode_step_ms=full_ms, decode_step_mixed_ms=mixed_ms,
+               decode_step_ms_mean=sum(full_ms[1:]) / (len(full_ms) - 1),
+               decode_step_mixed_ms_mean=sum(mixed_ms[1:])
+               / (len(mixed_ms) - 1),
+               note="ms: host wall per step ended by a synchronize; the "
+                    "means leave out the first step")
+    emit({"phase": "lm", "part": "mixed_decode", **rec})
+    want = {"abft_matmul": 0, "rollback_correct": 0,
+            "flash_attention": cfg.n_layers, "fault_inject": 0}
+    if prefill_launches != want or launches != want:
+        raise AssertionError(f"{arch} mixed decode launches: prefill "
+                             f"{prefill_launches}, total {launches}")
+    if not max(errs) <= MIXED_LOGITS_LIMIT < max(off_errs):
+        raise AssertionError(
+            f"{arch} decode_step_mixed vs decode_step: max err {max(errs)}, "
+            f"one slot off {max(off_errs)}, limit {MIXED_LOGITS_LIMIT}")
+    return rec, launches
+
+
+def _reference_drift_decode(torch):
+    """SMOKE ``DriftDecode`` on the card and the CPU for a dense, an MoE
+    and a hybrid arch: the same params and prompts, masks drawn on the
+    CPU for both, 4 steps at BER 1e-2 (layer 0 at 0), refresh interval 2.
+    Per step the argmax tokens and the detected rows, corrected elements
+    and flagged tiles equal, logits within 1e-4 (the other LM rows'
+    limit), and the store's shape (L, 2, n_out)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import fault
+    from repro_torch.core.exec_ctx import DriftSystemConfig
+    from repro_torch.core.rollback import RollbackConfig
+    from repro_torch.models import transformer
+    from repro_torch.serving.ar import prompt_tokens
+
+    row = np.array([0.0, 1e-2, 1e-2], np.float32)
+    dcfg = DriftSystemConfig(mode="drift",
+                             rollback=RollbackConfig(interval=2))
+    rows = []
+    for arch in ("olmo-1b", "deepseek-moe-16b", "hymba-1.5b"):
+        cfg = get_config(arch, smoke=True)
+        params = transformer.init_params(cfg, 8)
+        prompts = prompt_tokens(cfg, [0, 1])
+        out = {}
+        for device in ("cuda", "cpu"):
+            w = transformer.prepare(cfg, _to(params, device))
+            src = fault.PhiloxFlipSource(5, 0, "cpu")
+            store = transformer.drift_store_spec(cfg, 2, device)
+            logits, cache = transformer.prefill(cfg, w, prompts.to(device),
+                                                prompts.shape[1] + 4)
+            tok = logits[:, -1:].argmax(-1)
+            ctxs, restore = _recording_contexts(transformer)
+            steps = []
+            try:
+                for step in range(4):
+                    ctxs.clear()
+                    logits, cache, store = transformer.decode_step(
+                        cfg, w, cache, tok, transformer.DriftDecode(
+                            dcfg, src, row, store, step))
+                    tok = logits[:, -1:].argmax(-1)
+                    steps.append((logits.cpu(), tok.cpu(),
+                                  _ctx_counts(ctxs)))
+            finally:
+                restore()
+            out[device] = (steps, {k: tuple(v.shape)
+                                   for k, v in store.items()})
+        err = max(float((a[0] - b[0]).abs().max())
+                  for a, b in zip(out["cuda"][0], out["cpu"][0]))
+        same = all(torch.equal(a[1], b[1]) and a[2] == b[2]
+                   for a, b in zip(out["cuda"][0], out["cpu"][0]))
+        counts = [s[2] for s in out["cpu"][0]]
+        if not (same and err <= 1e-4 and out["cuda"][1] == out["cpu"][1]
+                and sum(c[2] for c in counts) > 0):
+            raise AssertionError(f"{arch} SMOKE DriftDecode card vs CPU: "
+                                 f"tokens/counts equal {same}, logits max "
+                                 f"err {err}, counts {counts}")
+        rows.append(dict(arch=arch, family=cfg.family, logits_max_abs_err=err,
+                         detected_corrected_tiles=counts,
+                         store_shapes=out["cpu"][1]))
+    return rows
+
+
+# arch -> (record key, path name, driver) of the decode paths its
+# full-width engine also runs in ``_serve_ar``
+DECODE_PATHS = {"olmo-1b": ("drift_decode", "ar+drift", _drift_decode),
+                "gemma3-27b": ("mixed_decode", "lm+mixed", _mixed_decode)}
+
+
+# ------------------------------------------------------ sharded serving
+SHARDED_ARGV = ["--arch", ARCH, "--no-smoke", "--batch", str(BUCKET),
+                "--steps", str(SERVE_STEPS), "--requests", "2", "--op",
+                "undervolt", "--mode", "drift", "--device", "cuda"]
+SHARDED_WORLD = 2
+SHARDED_JOIN_S = 600
+
+
+def _sharded_view(torch, eng, results):
+    """What the sharded engine must reproduce bit for bit."""
+    mon = eng.monitor
+    return dict(
+        results=[dict(request_id=r.request_id, latents=r.latents.cpu(),
+                      corrected=r.batch_corrected_elems,
+                      heatmap=r.detect_heatmap,
+                      monitor=(r.monitor_ber, r.monitor_op_index),
+                      energy_j=r.energy_j, breakdown=r.energy_breakdown,
+                      psnr=r.psnr_vs_clean_db, evals=r.n_model_evals)
+                 for r in results],
+        monitor=(int(mon.n_updates), int(mon.op_index),
+                 float(mon.ema_ber)))
+
+
+def _sharded_rank(rank: int, world: int, model_parallel: int,
+                  tmp: str) -> None:
+    """One rank of the sharded phase (a spawned process): the serve
+    phase's full-width DiT request pair on a ShardedDriftServeEngine,
+    ranks sharing cuda:0 over gloo; saves what it served and measured."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve
+    from repro_torch.models import dit
+    from repro_torch.serving.sharded import ShardedDriftServeEngine
+
+    torch.cuda.set_device(0)
+    mesh = mesh_lib.make_serving_mesh(
+        model_parallel, device="cuda", init_method=f"file://{tmp}/rdzv",
+        rank=rank, world_size=world, timeout_s=SHARDED_JOIN_S)
+    dev = torch.device("cuda")
+    cfg = get_config(ARCH)
+    eng = ShardedDriftServeEngine(mesh=mesh, arch=ARCH, smoke=False,
+                                  bucket=BUCKET, device="cuda")
+    eng.set_params(ARCH, False,
+                   _perturb(torch, dit.init_params(cfg, 11, dev), cfg, 12,
+                            dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters = _counters()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    mesh.collectives = 0
+    res, launches, wall = _serve_counted(torch, serve, eng, SHARDED_ARGV,
+                                         counters)
+    rec = _sharded_view(torch, eng, res)
+    rec.update(rank=rank, mesh=dict(mesh.shape), backend=mesh.backend,
+               launches=launches, wall_s=wall, held_bytes=held,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               collectives_per_batch=mesh.collectives / eng.stats.batches,
+               batches=eng.stats.batches)
+    torch.save(rec, f"{tmp}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def _equal_view(torch, got, want) -> bool:
+    if got["monitor"] != want["monitor"]:
+        return False
+    for a, b in zip(got["results"], want["results"], strict=True):
+        if not (torch.equal(a["latents"].view(torch.int32),
+                            b["latents"].view(torch.int32))
+                and all(a[k] == b[k] for k in a if k != "latents")):
+            return False
+    return True
+
+
+def phase_sharded(torch, smi):
+    """Serving across ranks (``serving.sharded``): the serve phase's 2
+    full-width DiT-XL/2-512 requests (bucket 2, 10 steps, drift at
+    undervolt, its seeded weights) in one process, then on a (data 2,
+    model 1) and a (data 1, model 2) mesh of 2 spawned ranks that share
+    cuda:0 over gloo (NCCL refuses two ranks on one card). Every rank's
+    latents, heatmap of detections, corrected counts, monitor state and
+    billed joules equal the single process's (latents on their int32
+    views), and so do its launch counts, zeroed just before and read just
+    after each run. Per rank: wall, peak memory over the run and the
+    collectives a batch. Then the SMOKE CLI ``--sharded`` under ``python
+    -m torch.distributed.run`` (2 ranks, cuda:0) must exit 0 and print
+    the mesh line."""
+    import shutil
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import dit
+    from repro_torch.serving import DriftServeEngine
+
+    dev = torch.device("cuda")
+    cfg = get_config(ARCH)
+    counters = _counters()
+    eng = DriftServeEngine(arch=ARCH, smoke=False, bucket=BUCKET,
+                           device="cuda")
+    eng.set_params(ARCH, False,
+                   _perturb(torch, dit.init_params(cfg, 11, dev), cfg, 12,
+                            dev))
+    torch.cuda.reset_peak_memory_stats()
+    res, single_launches, single_wall = _serve_counted(
+        torch, serve, eng, SHARDED_ARGV, counters)
+    single = _sharded_view(torch, eng, res)
+    single_peak = torch.cuda.max_memory_allocated()
+    del eng, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    root = ROOT / "build" / "sharded"
+    shutil.rmtree(root, ignore_errors=True)
+    ctx = mp.get_context("spawn")
+    meshes, total = {}, {}
+    for mp_ in (1, SHARDED_WORLD):
+        tmp = root / f"model{mp_}"
+        tmp.mkdir(parents=True)
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_sharded_rank,
+                             args=(r, SHARDED_WORLD, mp_, str(tmp)))
+                 for r in range(SHARDED_WORLD)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(SHARDED_JOIN_S)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * SHARDED_WORLD:
+            raise AssertionError(f"sharded ranks (model {mp_}) exited "
+                                 f"{codes}")
+        recs = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                for r in range(SHARDED_WORLD)]
+        for rec in recs:
+            if not _equal_view(torch, rec, single):
+                raise AssertionError(f"sharded rank {rec['rank']} on "
+                                     f"{rec['mesh']} differs from one "
+                                     "process")
+            if rec["launches"] != single_launches:
+                raise AssertionError(f"sharded rank {rec['rank']} launches "
+                                     f"{rec['launches']} != "
+                                     f"{single_launches}")
+            _add_launches(total, rec["launches"])
+        name = "data{data}_model{model}".format(**recs[0]["mesh"])
+        meshes[name] = dict(
+            command_s=time.perf_counter() - t0, backend=recs[0]["backend"],
+            ranks=[{k: r[k] for k in ("rank", "wall_s", "held_bytes",
+                                      "peak_mem_bytes",
+                                      "collectives_per_batch", "batches",
+                                      "launches")} for r in recs])
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(SHARDED_WORLD), "-m",
+         "repro_torch.launch.serve", "--sharded", "--steps", "3",
+         "--device", "cuda"], capture_output=True, text=True,
+        timeout=SHARDED_JOIN_S, env=env, cwd=ROOT)
+    mesh_line = "[serve] mesh {'data': 2, 'model': 1} backend gloo"
+    if cli.returncode != 0 or cli.stdout.count(mesh_line) != 1:
+        raise AssertionError(f"sharded CLI exited {cli.returncode}:\n"
+                             f"{cli.stdout[-2000:]}\n{cli.stderr[-2000:]}")
+    return dict(arch=ARCH, bucket=BUCKET, steps=SERVE_STEPS,
+                world=SHARDED_WORLD, card=smi,
+                single=dict(wall_s=single_wall, peak_mem_bytes=single_peak,
+                            launches=single_launches,
+                            corrected=[r["corrected"]
+                                       for r in single["results"]],
+                            monitor=single["monitor"]),
+                meshes=meshes, launches=total,
+                cli=dict(wall_s=time.perf_counter() - t0,
+                         mesh_line=mesh_line),
+                energy=[],
+                note="wall_s: host wall of one serve.main run (drift and "
+                     "its clean reference) ended by a synchronize; "
+                     "peak_mem_bytes: max_memory_allocated over that run "
+                     "in the rank's process; launches: the rank's own "
+                     "counters; the phase's launches sum every rank of "
+                     "both meshes")
+
+
 def kernel_summary(kernels_out, path_launches, backward_calls):
     """One row per TPU kernel of the repo. ``launches`` sums the counts
     of the paths that ran (``launches_by_path``). ``mha_flash`` launches
@@ -3063,7 +3612,7 @@ def kernel_summary(kernels_out, path_launches, backward_calls):
     (``launches`` null): each call's launches are counted under the
     kernels it calls."""
     (abft_rows, rb_rows, fl_rows, fi_rows, mha_rows, stat_row, drift_row,
-     lm_rows) = kernels_out
+     (dd_abft, dd_rb), lm_rows) = kernels_out
 
     def launches(name, paths=None):
         by = {p: c[name] for p, c in path_launches.items()
@@ -3099,17 +3648,25 @@ def kernel_summary(kernels_out, path_launches, backward_calls):
     csrc = "src/repro_torch/kernels/csrc/"
     fl, mha = fl_rows["bfloat16"], mha_rows["bfloat16"]
     fi = mix(fi_rows, "per_step")
+
+    def decode_shapes(rows):
+        return [{k: r[k] for k in ("name", "m", "k", "n", "valid",
+                                   "per_layer", "max_abs_err", "ms",
+                                   "plain_ms", "bound_ms", "bound_by")
+                 if k in r} for r in rows]
     return [
-        row("abft_matmul", csrc + "abft_matmul.cu",
-            "src/repro/kernels/abft_matmul.py:79",
-            mix(abft_rows, "per_eval"), "bytes",
-            "mean per launch over one DiT-XL evaluation's 172 GEMMs at "
-            "bucket 2", None),
-        row("rollback_correct", csrc + "rollback_correct.cu",
-            "src/repro/kernels/rollback_correct.py:34",
-            mix(rb_rows, "per_eval"), "bytes",
-            "mean per launch over one DiT-XL evaluation's 172 GEMMs at "
-            "bucket 2", None),
+        dict(row("abft_matmul", csrc + "abft_matmul.cu",
+                 "src/repro/kernels/abft_matmul.py:79",
+                 mix(abft_rows, "per_eval"), "bytes",
+                 "mean per launch over one DiT-XL evaluation's 172 GEMMs "
+                 "at bucket 2; decode_shapes: DriftDecode's", None),
+             decode_shapes=decode_shapes(dd_abft)),
+        dict(row("rollback_correct", csrc + "rollback_correct.cu",
+                 "src/repro/kernels/rollback_correct.py:34",
+                 mix(rb_rows, "per_eval"), "bytes",
+                 "mean per launch over one DiT-XL evaluation's 172 GEMMs "
+                 "at bucket 2; decode_shapes: DriftDecode's", None),
+             decode_shapes=decode_shapes(dd_rb)),
         row("flash_attention", csrc + "flash_attention.cu",
             "src/repro/kernels/flash_attention.py:71", fl, fl["bound_by"],
             "one launch through mha_flash on the DiT's (2, 1024, 16, 72) "
@@ -3122,10 +3679,11 @@ def kernel_summary(kernels_out, path_launches, backward_calls):
                  "place; lm_shapes: the GQA models' calls",
                  mha["library_ms"],
                  counted="flash_attention",
-                 paths=("ar", "lm", "moe", "ssm", "train"),
-                 note="the flash_attention launches of the ar, lm, moe, "
-                      "ssm and train paths, each made through mha_flash; "
-                      "not a kernel of its own"),
+                 paths=("ar", "ar+drift", "lm", "lm+mixed", "moe", "ssm",
+                        "train"),
+                 note="the flash_attention launches of the ar, ar+drift, "
+                      "lm, lm+mixed, moe, ssm and train paths, each made "
+                      "through mha_flash; not a kernel of its own"),
              backward_calls=sum(backward_calls.values()) if backward_calls
              else None, backward_calls_by_path=backward_calls,
              lm_shapes=[{k: r.get(k) for k in (
@@ -3201,7 +3759,7 @@ def main(argv=None) -> int:
         elif phase == "reference":
             rec.update(phase_reference(torch))
         elif phase in ("serve", "offload", "sched", "ar", "lm", "moe",
-                       "ssm", "baselines", "families", "train"):
+                       "ssm", "baselines", "families", "sharded", "train"):
             out = (phase_serve(torch) if phase == "serve"
                    else phase_offload(torch, smi) if phase == "offload"
                    else phase_sched(torch, smi) if phase == "sched"
@@ -3210,9 +3768,11 @@ def main(argv=None) -> int:
                    else phase_moe(torch) if phase == "moe"
                    else phase_ssm(torch) if phase == "ssm"
                    else phase_baselines(torch) if phase == "baselines"
+                   else phase_sharded(torch, smi) if phase == "sharded"
                    else phase_train(torch, smi) if phase == "train"
                    else phase_families(torch, args.reps))
             path_launches[phase] = out["launches"]
+            path_launches.update(out.pop("extra_launches", {}))
             if phase == "serve":
                 path_launches["serve+taylorseer"] = \
                     out["taylorseer_launches"]

@@ -31,6 +31,18 @@ activation-sized copy per GEMM); the other modes write none. Statistics
 stay on the device, so the step loop never waits for the card; the
 recovery costs ``extra_compute_flops`` and ``extra_dram_bytes`` are
 float32 sums in the reference's order.
+
+Under the sharded engine's policy, when a batch's rows are spread over
+the data group (``distributed.constraints``), a GEMM whose rows are whole
+32-row tiles runs on this rank's rows with the whole batch's activation
+scale (the data group's max |x|) and its rows of the whole batch's flip
+mask, so each of its tiles is the single-device engine's. Any other GEMM
+(the timestep GEMMs at M = batch, text GEMMs at M = batch x tokens, and
+every GEMM of the two baselines that correct by whole-matrix column
+sums) runs on the data group's gathered rows, each rank keeping its
+own; its counts are the whole batch's, so the group's first rank alone
+keeps them, and its checkpoint buffers hold the whole batch's rows
+(``constraints.store_rows``).
 """
 from __future__ import annotations
 
@@ -44,11 +56,15 @@ import torch.nn.functional as F
 from repro_torch.core import abft as abft_lib
 from repro_torch.core import baselines, fault, quant, rollback
 from repro_torch.core.dvfs import CLASS_BODY, N_CLASSES
+from repro_torch.distributed import constraints
 from repro_torch.kernels.abft_matmul import TILE, abft_matmul
 from repro_torch.kernels.rollback_correct import rollback_correct
 
 MODES = ("float_clean", "clean", "faulty", "drift",
          "thundervolt", "approx_abft", "dmr", "stat_abft")
+# Baselines whose correction reads whole-matrix column sums: on a sharded
+# batch they run on the data group's gathered rows.
+WHOLE_COLUMN_MODES = ("thundervolt", "approx_abft")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,23 +154,46 @@ class ExecContext:
             return x @ w
 
         lead = x.shape[:-1]
-        k, n = x.shape[-1], w.shape[-1]
-        x2 = x.reshape(-1, k)
+        n = w.shape[-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        if constraints.batch_sharded() and (
+                x2.shape[0] % TILE or self.cfg.mode in WHOLE_COLUMN_MODES):
+            y = constraints.own_rows(self._matmul2d(
+                constraints.gather_rows(x2), w, name, rclass,
+                local=False, count=constraints.is_data_leader()))
+        else:
+            y = self._matmul2d(x2, w, name, rclass, local=True, count=True)
+        return y.reshape(*lead, n).to(x.dtype)
+
+    def _matmul2d(self, x2: torch.Tensor, w: torch.Tensor, name: str,
+                  rclass: int, local: bool, count: bool) -> torch.Tensor:
+        """``matmul`` on 2-D rows. ``local``: the rows are this rank's
+        share of the batch (the activation scale and the flip mask are the
+        whole batch's); ``count``: the statistics are bumped."""
+        k, n = x2.shape[-1], w.shape[-1]
         m = x2.shape[0]
         mp, np_ = _round_up(m, TILE), _round_up(n, TILE)
 
-        xq = quant.quantize(x2, axis=None)
+        amax = None
+        rows, lo = m, 0
+        if local and constraints.batch_sharded():
+            amax = constraints.data_amax(x2.abs().amax())
+            rows, lo = constraints.global_rows(m)
+        xq = quant.quantize(x2, axis=None, amax=amax)
         wq = quant.quantize(w, axis=1)
         ber = (float(self.ber_by_class[int(rclass)])
                if self.cfg.mode != "clean" else 0.0)
-        flips = _pad2(self._flips(name, (m, n), ber, x.device), mp, np_)
+        flips = self._flips(name, (rows, n), ber, x2.device)
+        if rows != m:
+            flips = flips[lo:lo + m]
+        flips = _pad2(flips, mp, np_)
         # The kernel zero-fills a ragged last K slab, so K needs no padding.
         c, act_row, exp_row, act_col, exp_col = abft_matmul(
             _pad2(xq.q, mp, k), _pad2(wq.q, k, np_), flips)
         w_scale = wq.scale.reshape(1, -1)
         y = quant.dequantize_matmul(c[:m, :n], xq.scale, w_scale)
         if self.cfg.mode in ("clean", "faulty"):
-            return y.reshape(*lead, n).to(x.dtype)
+            return y
 
         # ABFT detection on the kernel's per-tile checksums: summed over
         # the N tiles, the per-tile row differences are the full-row
@@ -163,9 +202,10 @@ class ExecContext:
         row_diff = abft_lib.wrap_i32(act_row.long() - exp_row.long())
         col_diff = abft_lib.wrap_i32(act_col.long() - exp_col.long())
         full_row = abft_lib.wrap_i32(row_diff.long().sum(1))[:m]
-        self._bump("detected_row_errors",
-                   abft_lib._exceeds(full_row, abft_cfg.threshold).sum())
-        self._bump("gemm_words", m * n)
+        if count:
+            self._bump("detected_row_errors",
+                       abft_lib._exceeds(full_row, abft_cfg.threshold).sum())
+            self._bump("gemm_words", m * n)
 
         mode = self.cfg.mode
         if mode == "drift":
@@ -207,10 +247,11 @@ class ExecContext:
                     y_clean, y, abft_lib.tile_flags(row_diff, col_diff,
                                                     abft_cfg),
                     tile_elems=abft_cfg.tile_m * abft_cfg.tile_n, k_dim=k)
-        self._bump("corrected_elems", cost.corrected_elems)
-        self._bump("extra_compute_flops", cost.extra_compute_flops)
-        self._bump("extra_dram_bytes", cost.extra_dram_bytes)
-        return y.reshape(*lead, n).to(x.dtype)
+        if count:
+            self._bump("corrected_elems", cost.corrected_elems)
+            self._bump("extra_compute_flops", cost.extra_compute_flops)
+            self._bump("extra_dram_bytes", cost.extra_dram_bytes)
+        return y
 
     def bmm(self, a: torch.Tensor, b: torch.Tensor, *, name: str,
             rclass: int = CLASS_BODY) -> torch.Tensor:

@@ -27,14 +27,17 @@ class QTensor:
     scale: torch.Tensor  # f32, broadcastable against q
 
 
-def quantize(x: torch.Tensor, axis: Optional[int] = None) -> QTensor:
+def quantize(x: torch.Tensor, axis: Optional[int] = None,
+             amax: Optional[torch.Tensor] = None) -> QTensor:
     """Symmetric int8 quantization.
 
-    axis=None  -> per-tensor scale (0-d).
+    axis=None  -> per-tensor scale (0-d); ``amax`` overrides the tensor's
+                  own max |x| (a data-parallel rank passes the batch's).
     axis=k     -> per-channel scales along ``k`` (scale keeps dim k).
     """
     if axis is None:
-        amax = x.abs().amax()
+        if amax is None:
+            amax = x.abs().amax()
     else:
         reduce_dims = tuple(i for i in range(x.ndim) if i != axis % x.ndim)
         amax = x.abs().amax(dim=reduce_dims, keepdim=True)
@@ -105,13 +108,15 @@ def get_plan(name: str) -> PrecisionPlan:
     return plan
 
 
-def fake_quant(x: torch.Tensor, bits: int) -> torch.Tensor:
+def fake_quant(x: torch.Tensor, bits: int,
+               amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Symmetric fake quantization to ``bits`` (quantize-dequantize) on a
     ``2**(bits-1) - 1``-level grid with a per-tensor scale, in ``x``'s
     dtype, by the same ops as :func:`quantize` (an all-zero ``x`` takes
-    the 1e-8 floor)."""
+    the 1e-8 floor); ``amax`` overrides the tensor's own max |x|."""
     levels = float(2 ** (int(bits) - 1) - 1)
-    amax = x.abs().amax()
+    if amax is None:
+        amax = x.abs().amax()
     scale = torch.clamp_min(amax, 1e-8) / levels
     return torch.clamp(torch.round(x / scale), -levels, levels) * scale
 

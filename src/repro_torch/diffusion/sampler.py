@@ -57,6 +57,7 @@ from repro_torch.core import quant as quant_lib
 from repro_torch.core.exec_ctx import DriftSystemConfig, ExecContext
 from repro_torch.diffusion import schedule as sched_lib
 from repro_torch.diffusion import taylorseer as ts_lib
+from repro_torch.distributed import constraints
 from repro_torch.models import dit as dit_lib
 from repro_torch.models import unet as unet_lib
 from repro_torch.models.common import ModelConfig
@@ -167,7 +168,9 @@ def sample_stream(model_cfg: ModelConfig, params,
               else {} if unet else ({}, {}))
     mon = monitor0 if monitor0 is not None else \
         dvfs_lib.ber_monitor_init(device)
-    n_words = max(int(np.prod(latents0.shape)), 1)
+    # the whole batch's words, also when this rank holds some of its rows
+    n_words = max(constraints.global_rows(b)[0]
+                  * int(np.prod(latents0.shape[1:])), 1)
     zero = torch.zeros((), dtype=torch.int64, device=device)
     zero_rows = torch.zeros((detection_rows(model_cfg),), dtype=torch.int64,
                             device=device)
@@ -222,12 +225,20 @@ def sample_stream(model_cfg: ModelConfig, params,
                     if ts_cfg.enabled:
                         taylor = ts_lib.update_on_compute(taylor, eps)
                     nevals += 1
+                    if constraints.batch_sharded():
+                        # the whole batch's counts, before the monitor
+                        packed = constraints.data_sum(
+                            torch.cat([corr.reshape(1), det_blocks]))
+                        corr, det_blocks = packed[0], packed[1:]
+                        detected = det_blocks.sum()
                 else:
                     eps = ts_lib.forecast(taylor, i % ts_cfg.interval,
                                           ts_cfg.interval, ts_cfg.order)
                     corr, detected, det_blocks = zero, zero, zero_rows
                 if plan.narrowed and i >= plan.protect_steps:
-                    eps = quant_lib.fake_quant(eps, plan.body_bits)
+                    eps = quant_lib.fake_quant(
+                        eps, plan.body_bits,
+                        amax=constraints.data_amax(eps.abs().amax()))
                 mon = dvfs_lib.ber_monitor_update(
                     mon, detected, n_words, scfg.abft.threshold_bit,
                     cfg.monitor_target_ber)

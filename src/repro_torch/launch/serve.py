@@ -44,12 +44,23 @@ seconds, with the energy saving and speedup. Like the engine line's
 virtual ``clock``, these are the modeled paper accelerator's numbers,
 not measurements of the GPU the port runs on.
 
-Its flags are ``repro.launch.serve``'s but for ``--sharded`` and
-``--model-parallel`` (ROADMAP Queue A 13), plus ``--device``
-(default "cuda"; without a GPU the engine raises). ``--smoke/--no-smoke``
-is a real switch (default on, like the reference CLI); ``--no-smoke``
-serves the full-width model. ``main(argv, engine=...)`` serves
-through an injected engine, whose bucket, device and params then win.
+``--sharded`` serves on a (data, model) mesh of ``torch.distributed``
+ranks (``serving.sharded``; ``--model-parallel`` sets the model-axis
+width), one process per rank::
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.serve --sharded \
+        --device cpu --steps 3
+
+Rank 0 prints the mesh line (``[serve] mesh {'data': 2, 'model': 1}``
+and the backend) and the results; every rank computes them. With one
+rank ``--sharded`` serves on the plain engine.
+
+Its flags are ``repro.launch.serve``'s plus ``--device`` (default
+"cuda"; without a GPU the engine raises). ``--smoke/--no-smoke`` is a
+real switch (default on, like the reference CLI); ``--no-smoke`` serves
+the full-width model. ``main(argv, engine=...)`` serves through an
+injected engine, whose bucket, device and params then win.
 """
 from __future__ import annotations
 
@@ -58,6 +69,8 @@ import contextlib
 import os
 import time
 from typing import Optional, Sequence
+
+import torch.distributed as dist
 
 from repro_torch.core import dvfs as dvfs_lib
 from repro_torch.core.quant import PRECISION_PLANS
@@ -68,6 +81,7 @@ from repro_torch.serving import (DeadlineScheduler, DriftServeEngine,
 from repro_torch.serving.request import (REQUEST_OPS, REQUEST_PRIORITIES,
                                          PreviewEvent)
 from repro_torch.serving.servable import paradigm_for
+from repro_torch.serving.sharded import ShardedDriftServeEngine, make_engine
 from repro_torch.serving.trace import write_chrome_trace
 
 OP_LADDER_HELP = " -> ".join(p.name for p in dvfs_lib.OP_LADDER)
@@ -176,6 +190,11 @@ def build_parser() -> argparse.ArgumentParser:
                     metavar="Q",
                     help="minimum quality proxy in (0, 1]; frontier "
                          "admission picks the fastest point at or above it")
+    ap.add_argument("--sharded", action="store_true",
+                    help="shard each micro-batch across the local device "
+                         "mesh (single device: plain engine)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="mesh model-axis width for --sharded")
     ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
                     help="serve the telemetry HTTP front end (/metrics, "
                          "/healthz, /slo, SSE /events, /trace/<id>) on "
@@ -197,29 +216,46 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def build_engine(args) -> DriftServeEngine:
+    common = dict(arch=args.arch, smoke=args.smoke, bucket=args.batch,
+                  base_seed=args.seed, device=args.device,
+                  telemetry=EngineTelemetry(enabled=not args.no_telemetry),
+                  offload=OffloadConfig() if args.offload else None)
+    if args.sharded:
+        return make_engine(model_parallel=args.model_parallel, **common)
+    if args.model_parallel != 1:
+        raise SystemExit("--model-parallel requires --sharded")
+    return DriftServeEngine(**common)
+
+
 def main(argv: Optional[Sequence[str]] = None,
          engine: Optional[DriftServeEngine] = None) -> list:
     args = build_parser().parse_args(argv)
-    eng = engine if engine is not None else DriftServeEngine(
-        arch=args.arch, smoke=args.smoke, bucket=args.batch,
-        base_seed=args.seed, device=args.device,
-        offload=OffloadConfig() if args.offload else None,
-        telemetry=EngineTelemetry(enabled=not args.no_telemetry))
+    eng = engine if engine is not None else build_engine(args)
+    # every rank of a sharded engine serves; rank 0 alone reports
+    rank0 = not isinstance(eng, ShardedDriftServeEngine) or eng.mesh.rank == 0
+    if isinstance(eng, ShardedDriftServeEngine) and rank0:
+        print(f"[serve] mesh {dict(eng.mesh.shape)} backend "
+              f"{eng.mesh.backend}")
     server = None
     if args.metrics_port is not None:
         server = serve_telemetry(eng, port=args.metrics_port)
-        print(f"[serve] telemetry at {server.url} "
-              f"(/metrics /healthz /slo /events /trace/<id>)")
+        if rank0:
+            print(f"[serve] telemetry at {server.url} "
+                  f"(/metrics /healthz /slo /events /trace/<id>)")
     try:
-        return _drive(args, eng, server)
+        return _drive(args, eng, server, rank0)
     finally:
         # main() is also called in-process: never leak the bound port or
         # the server thread when the drain raises
         if server is not None:
             server.close()
+        if engine is None and isinstance(eng, ShardedDriftServeEngine):
+            dist.destroy_process_group()
 
 
-def _drive(args, eng, server) -> list:
+def _drive(args, eng, server, rank0: bool = True) -> list:
+    say = print if rank0 else (lambda *_a, **_kw: None)
     mode = args.mode or default_mode_for(args.arch)
     bucket = eng.batcher.bucket
     n_requests = args.requests or bucket
@@ -253,8 +289,8 @@ def _drive(args, eng, server) -> list:
                           f"{'on' if adm.taylorseer else 'off'}, quality "
                           f"{adm.quality:.3f}, {adm.projected_energy_j:.4f}J "
                           "projected (modeled)")
-            print(f"[admission] req {adm.request_id}: {adm.action} ({knobs})"
-                  + (f" -- {adm.reason}" if adm.reason else ""))
+            say(f"[admission] req {adm.request_id}: {adm.action} ({knobs})"
+                + (f" -- {adm.reason}" if adm.reason else ""))
         t0 = time.perf_counter()
         previews = 0
         if args.stream:
@@ -262,8 +298,8 @@ def _drive(args, eng, server) -> list:
             for ev in eng.run_stream(args.stream):
                 if isinstance(ev, PreviewEvent):
                     previews += 1
-                    print(f"  [preview] req {ev.request_id} step "
-                          f"{ev.step}/{ev.total_steps}")
+                    say(f"  [preview] req {ev.request_id} step "
+                        f"{ev.step}/{ev.total_steps}")
                 else:
                     results.append(ev)
             results.sort(key=lambda r: r.request_id)
@@ -271,69 +307,69 @@ def _drive(args, eng, server) -> list:
             results = eng.run()
         wall = time.perf_counter() - t0
 
-    print(f"[serve] {args.arch} smoke={args.smoke} mode={mode} "
-          f"op={args.op} steps={args.steps} taylorseer={args.taylorseer} "
-          f"precision={args.precision} requests={n_requests} "
-          f"bucket={bucket} device={eng.device} wall={wall:.2f}s"
-          + (f" previews={previews}" if args.stream else ""))
+    say(f"[serve] {args.arch} smoke={args.smoke} mode={mode} "
+        f"op={args.op} steps={args.steps} taylorseer={args.taylorseer} "
+        f"precision={args.precision} requests={n_requests} "
+        f"bucket={bucket} device={eng.device} wall={wall:.2f}s"
+        + (f" previews={previews}" if args.stream else ""))
     for r in results:
         head = (f"  req {r.request_id} (batch {r.batch_index}, op {r.op}, "
                 f"{r.priority}): ")
         miss = "  DEADLINE MISSED" if r.deadline_missed else ""
         if r.tokens is not None:
-            print(head + f"tokens {list(r.tokens)}  match-vs-clean "
-                  f"{r.token_match_vs_clean:.3f}  abft-detections "
-                  f"{r.ar_detections}  kv-rollbacks {r.ar_rollbacks}  "
-                  f"evals {r.n_model_evals}{miss}")
+            say(head + f"tokens {list(r.tokens)}  match-vs-clean "
+                f"{r.token_match_vs_clean:.3f}  abft-detections "
+                f"{r.ar_detections}  kv-rollbacks {r.ar_rollbacks}  "
+                f"evals {r.n_model_evals}{miss}")
         else:
-            print(head + f"lpips-proxy {r.lpips_vs_clean:.4f}  "
-                  f"psnr {r.psnr_vs_clean_db:.2f} dB  "
-                  f"corrected(batch) {r.batch_corrected_elems}  "
-                  f"evals {r.n_model_evals}{miss}")
-        print(f"    perfmodel/request (modeled accelerator): baseline "
-              f"{r.baseline_energy_j:.4f}J/{r.baseline_latency_s:.4f}s -> "
-              f"{r.energy_j:.4f}J/{r.latency_s:.4f}s "
-              f"({100 * (1 - r.energy_j / r.baseline_energy_j):.1f}% energy, "
-              f"{r.baseline_latency_s / r.latency_s:.2f}x speed)")
-    print(f"  engine: {eng.cache.builds} sampler builds, {eng.cache.hits} "
-          f"cache hits, {eng.stats.batches} batches, "
-          f"{eng.stats.padded_slots} padded slots; monitor "
-          f"ber={float(eng.monitor.ema_ber):.2e} "
-          f"ladder={int(eng.monitor.op_index)}; modeled clock "
-          f"{eng.clock_s:.4f}s, {eng.stats.deadline_misses} deadline misses")
+            say(head + f"lpips-proxy {r.lpips_vs_clean:.4f}  "
+                f"psnr {r.psnr_vs_clean_db:.2f} dB  "
+                f"corrected(batch) {r.batch_corrected_elems}  "
+                f"evals {r.n_model_evals}{miss}")
+        say(f"    perfmodel/request (modeled accelerator): baseline "
+            f"{r.baseline_energy_j:.4f}J/{r.baseline_latency_s:.4f}s -> "
+            f"{r.energy_j:.4f}J/{r.latency_s:.4f}s "
+            f"({100 * (1 - r.energy_j / r.baseline_energy_j):.1f}% energy, "
+            f"{r.baseline_latency_s / r.latency_s:.2f}x speed)")
+    say(f"  engine: {eng.cache.builds} sampler builds, {eng.cache.hits} "
+        f"cache hits, {eng.stats.batches} batches, "
+        f"{eng.stats.padded_slots} padded slots; monitor "
+        f"ber={float(eng.monitor.ema_ber):.2e} "
+        f"ladder={int(eng.monitor.op_index)}; modeled clock "
+        f"{eng.clock_s:.4f}s, {eng.stats.deadline_misses} deadline misses")
     if eng.offload_store is not None:
         ost = eng.offload_store.stats
-        print(f"  offload: {ost.commits} commits "
-              f"({ost.bytes_offloaded / 1e6:.2f} MB tile-contiguous), "
-              f"{ost.skipped} spike-skipped, {ost.restores} restores; "
-              f"last committed step {eng.offload_store.committed_step}")
+        say(f"  offload: {ost.commits} commits "
+            f"({ost.bytes_offloaded / 1e6:.2f} MB tile-contiguous), "
+            f"{ost.skipped} spike-skipped, {ost.restores} restores; "
+            f"last committed step {eng.offload_store.committed_step}")
     if sched is not None:
         s = sched.stats
-        print(f"  scheduler: {s.admitted}/{s.submitted} admitted "
-              f"({s.rejected} rejected, {s.escalated_op} op-escalated, "
-              f"{s.trimmed_steps} step-trimmed, {s.frontier_selected} "
-              f"frontier-selected, {s.projected_misses} projected misses)")
+        say(f"  scheduler: {s.admitted}/{s.submitted} admitted "
+            f"({s.rejected} rejected, {s.escalated_op} op-escalated, "
+            f"{s.trimmed_steps} step-trimmed, {s.frontier_selected} "
+            f"frontier-selected, {s.projected_misses} projected misses)")
     tele = eng.telemetry
     if tele.enabled:
         ctrl = tele.controller
-        print(f"  telemetry: {tele.estimator.total_observations} latency "
-              f"observations over {len(tele.estimator)} configs; guardband "
-              f"floor {ctrl.guard_index if ctrl else 0} "
-              f"({ctrl.guard_op_name() if ctrl else 'n/a'})")
+        say(f"  telemetry: {tele.estimator.total_observations} latency "
+            f"observations over {len(tele.estimator)} configs; guardband "
+            f"floor {ctrl.guard_index if ctrl else 0} "
+            f"({ctrl.guard_op_name() if ctrl else 'n/a'})")
         if tele.ledger.batches:
             top = sorted(tele.ledger.shares().items(),
                          key=lambda kv: -kv[1])[:3]
             burning = tele.slo.breached_objectives()
-            print(f"  energy (modeled): "
-                  f"{tele.ledger.energy_per_request_j():.4f} J/request ("
-                  + ", ".join(f"{c} {s:.0%}" for c, s in top)
-                  + "); slo breached: "
-                  + (", ".join(burning) if burning else "none"))
-    if args.trace_dir is not None:
+            say(f"  energy (modeled): "
+                f"{tele.ledger.energy_per_request_j():.4f} J/request ("
+                + ", ".join(f"{c} {s:.0%}" for c, s in top)
+                + "); slo breached: "
+                + (", ".join(burning) if burning else "none"))
+    if args.trace_dir is not None and rank0:
         os.makedirs(args.trace_dir, exist_ok=True)
         path = os.path.join(args.trace_dir, "flight.json")
         write_chrome_trace(path, eng.tracer.spans())
-        print(f"  trace: {len(eng.tracer)} spans -> {path}")
+        say(f"  trace: {len(eng.tracer)} spans -> {path}")
     return results
 
 

@@ -13,13 +13,15 @@ Counterpart of ``repro.models.attention``:
   ``full_attention`` otherwise, as the reference dispatches. The LM
   prefill calls ``attention_any`` on the CPU only (so it chunks past the
   threshold there); on the card every prefill runs the attention kernel.
-* ``decode_attention``, one query token against a KV cache. The reference
-  computes it as an einsum, not in a Pallas kernel (``attention.py:119``),
-  and so does the port, in plain PyTorch.
+* ``decode_attention``, one query token against a KV cache, and
+  ``decode_attention_ring``, one query token against a window-sized ring
+  buffer (the local layers of ``transformer.decode_step_mixed``). The
+  reference computes both as einsums, not in a Pallas kernel
+  (``attention.py:119`` and ``:151``), and so does the port, in plain
+  PyTorch.
 
 GQA never repeats KV heads: queries are reshaped to (B, S, Hkv, G, D) and
-contracted group-wise, as in the reference. The ring-buffer decode waits
-for the mixed decode (ROADMAP Queue A item 12).
+contracted group-wise, as in the reference.
 """
 from __future__ import annotations
 
@@ -164,3 +166,32 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).float(), v.float())
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def decode_attention_ring(q: torch.Tensor, k_ring: torch.Tensor,
+                          v_ring: torch.Tensor, *, pos: int,
+                          attn_softcap: float = 0.0) -> torch.Tensor:
+    """One query token against a window-sized ring buffer.
+
+    q: (B, 1, H, D); k_ring, v_ring: (B, W, Hkv, D), where slot ``s``
+    holds the KV of the latest position ``p`` with ``p % W == s``; ``pos``
+    is the position of the current token (a host int). Every resident
+    entry lies inside the window, so the only mask is the fill level:
+    slots ``> pos`` are empty until the ring first wraps (``pos >= W``).
+    The softcap comes before that mask, as in the reference.
+
+    The empty slots are not read (the reference masks them to
+    probability 0). The slots are read oldest first (the reference reads
+    them in slot order) into a contiguous window that ``decode_attention``
+    takes whole, so the windowed decode gives ``decode_step``'s logits
+    bit for bit.
+    """
+    w = k_ring.shape[1]
+    if pos < w:
+        k, v = k_ring[:, :pos + 1], v_ring[:, :pos + 1]
+    else:               # slot (pos + 1) % W holds the oldest position
+        s = (pos + 1) % w
+        k = torch.cat([k_ring[:, s:], k_ring[:, :s]], dim=1)
+        v = torch.cat([v_ring[:, s:], v_ring[:, :s]], dim=1)
+    return decode_attention(q, k, v, pos=k.shape[1] - 1,
+                            attn_softcap=attn_softcap)

@@ -22,6 +22,13 @@ neither the Pallas kernel nor its port takes, so it runs the plain
 Parameters are a nested dict like the reference's, except that ``blocks``
 is a list with one dict per layer (the reference stacks them on a leading
 L axis for ``lax.scan``); ``params_from_jax`` converts.
+
+On the sharded engine (``distributed.constraints``) the weights rest as
+shards: ``forward`` gathers the top-level ones once and each block's at
+the block boundary. The adaLN modulations (M = batch, a float GEMM whose
+library kernel depends on the row count) run on the data group's
+gathered conditioning rows; without a mesh policy none of this adds an
+op.
 """
 from __future__ import annotations
 
@@ -35,6 +42,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import dvfs
 from repro_torch.core.exec_ctx import DriftSystemConfig, ExecContext
+from repro_torch.distributed import constraints
+from repro_torch.kernels.abft_matmul import TILE
 from repro_torch.kernels.flash_attention import mha_flash
 from repro_torch.models.attention import full_attention
 from repro_torch.models.common import (ModelConfig, Params, dense_init,
@@ -162,8 +171,10 @@ def _proj(ctx: Optional[ExecContext], x, w, name, rclass):
 
 def _adaln(c: torch.Tensor, w, b, dtype) -> torch.Tensor:
     """Plain, unprotected adaLN modulation: SiLU in f32, then a matmul in
-    the activation dtype."""
-    return F.silu(c.float()).to(dtype) @ w.to(dtype) + b.to(dtype)
+    the activation dtype. ``c`` holds the data group's rows (the batch's
+    own without a sharded batch); this rank's rows come back."""
+    return constraints.own_rows(
+        F.silu(c.float()).to(dtype) @ w.to(dtype) + b.to(dtype))
 
 
 # ---------------------------------------------------------------- blocks
@@ -173,6 +184,7 @@ def dit_block(cfg: ModelConfig, p: Params, x: torch.Tensor, c: torch.Tensor,
               rclass: int = dvfs.CLASS_BODY) -> torch.Tensor:
     b, t, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
+    # c: the data group's conditioning rows (see ``forward``)
     mod = _adaln(c, p["adaln_w"], p["adaln_b"], x.dtype)
     s1, sc1, g1, s2, sc2, g2 = torch.chunk(mod, 6, dim=-1)
 
@@ -247,6 +259,8 @@ def forward(cfg: ModelConfig, params: Params, latents: torch.Tensor,
     _check_cfg(cfg)
     b, hh, ww, _ = latents.shape
     stats: Dict[str, torch.Tensor] = {}
+    params = dict(params, **constraints.gather(
+        {k: v for k, v in params.items() if k != "blocks"}))
 
     ectx = None
     if drift is not None:
@@ -276,11 +290,13 @@ def forward(cfg: ModelConfig, params: Params, latents: torch.Tensor,
         c = temb + text_proj.mean(dim=1)
     else:
         c = temb + params["class_embed"].to(dt)[cond]
+    c = constraints.gather_rows(c)      # the adaLN GEMMs' rows
 
     corrected: List[torch.Tensor] = []
     detected: List[torch.Tensor] = []
     ctxs: List[ExecContext] = []
     for i, p_i in enumerate(params["blocks"]):
+        p_i = constraints.gather(p_i)
         bctx = None
         if drift is not None:
             rcl = dvfs.CLASS_FIRST_BLOCK if i < 1 else dvfs.CLASS_BODY
@@ -336,12 +352,14 @@ def drift_store_spec(cfg: ModelConfig, batch: int, device="cpu"
     _check_cfg(cfg)
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.hd
     L = cfg.n_layers
-    bt = batch * cfg.tokens
-    btext = batch * cfg.cond_tokens
+    # a sharded batch's GEMMs of ragged tiles hold the whole batch's rows
+    bt = constraints.store_rows(batch * cfg.tokens, TILE)
+    btext = constraints.store_rows(batch * cfg.cond_tokens, TILE)
+    bc = constraints.store_rows(batch, TILE)
 
     def z(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
-    embed = {"patch": z(bt, d), "t.w1": z(batch, d), "t.w2": z(batch, d),
+    embed = {"patch": z(bt, d), "t.w1": z(bc, d), "t.w2": z(bc, d),
              "final": z(bt, cfg.patch_dim)}
     block = {"attn.q": z(L, bt, hd), "attn.k": z(L, bt, hd),
              "attn.v": z(L, bt, hd), "attn.o": z(L, bt, d),

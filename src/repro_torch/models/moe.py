@@ -20,8 +20,8 @@ The combine adds each token's k contributions in assignment order onto
 zeros, as the reference's scatter-add does, but as k dense adds: an
 ``index_add_`` on the card adds with atomics, in no fixed order, and a
 decode must give the same tokens on every replay. The reference's
-sharding constraints are dropped: the port has no mesh yet (ROADMAP
-Queue A item 13).
+sharding constraints have no counterpart here: the sharded engine runs
+a language model's bucket whole on every rank (``serving.sharded``).
 
 The expert FFNs are unprotected, as in the reference: no GEMM here goes
 through an execution context, so serving injects and detects on the

@@ -45,8 +45,21 @@ new cache); the SSM state is not: each step returns new ``SsmState``
 tensors, as the reference does. ``Cache.pos`` is a host int, so a decode
 step never waits for the card.
 
-The mixed/ring decode and ``DriftDecode`` are not yet ported (ROADMAP
-Queue A item 12, which holds item 11's leftovers).
+``decode_step(..., drift=DriftDecode(...))`` runs every protected
+projection of each layer through a fresh ``ExecContext`` (the ABFT and
+rollback kernels in ``drift`` mode) with that layer's slice of a stacked
+``(L, B, n_out)`` checkpoint store (``drift_store_spec``), refreshed in
+place. ``decode_step_mixed`` is the reference's windowed decode for the
+local/global families: local layers keep a window-sized ring buffer
+(``MixedCache``, ``decode_attention_ring``), global layers the full
+cache; its projections are plain float matmuls, unprotected, as in the
+reference.
+
+On the sharded engine the prepared weights rest as shards
+(``distributed.sharding.shard_tree``); the serving paths gather the
+embedding, final norm and head once per call and each layer's weights at
+its boundary (``distributed.constraints.gather``), a no-op without a
+mesh policy.
 """
 from __future__ import annotations
 
@@ -57,6 +70,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import dvfs
+from repro_torch.core.exec_ctx import DriftSystemConfig, ExecContext
+from repro_torch.distributed import constraints
 from repro_torch.kernels.flash_attention import mha_flash
 from repro_torch.kernels.stat_abft import weight_sums
 from repro_torch.models import attention, mamba2, moe
@@ -220,6 +235,16 @@ def prepare(cfg: ModelConfig, params) -> Weights:
                    head)
 
 
+def _gathered(w: Weights) -> Weights:
+    """``w`` with its top-level shards gathered (the layers' are
+    gathered at each layer); ``w`` itself without a mesh policy."""
+    if constraints.get_policy() is None:
+        return w
+    return Weights(constraints.gather(w.embed), w.layers,
+                   constraints.gather(w.final_norm),
+                   constraints.gather(w.lm_head))
+
+
 def init_weights(cfg: ModelConfig, seed: int, device="cpu") -> Weights:
     """``prepare(cfg, init_params(cfg, seed, device))``, bit for bit, with
     no f32 master kept: each weight is drawn as ``init_params`` draws it,
@@ -277,6 +302,8 @@ def _proj(ctx, x: torch.Tensor, p, name: str, rclass: int):
     here as the reference casts it."""
     if ctx is None:
         return x @ (p.w if isinstance(p, Proj) else p.to(x.dtype))
+    if isinstance(ctx, ExecContext):    # DriftDecode: the cast weight
+        p = p.w if isinstance(p, Proj) else p.to(x.dtype)
     return ctx.matmul(x, p, name=name, rclass=rclass)
 
 
@@ -398,7 +425,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int,
     """Process a prompt (B, S), after the ``vis_embeds`` prefix for the
     VLM; returns (logits (B, S, V) f32, primed cache). Runs clean, with
     no execution context."""
-    w = prepare(cfg, params)
+    w = _gathered(prepare(cfg, params))
     x = _embed(cfg, w, tokens, vis_embeds)
     b, s, _ = x.shape
     # the SSD blocks start from a zero state: no SSM state to allocate
@@ -406,8 +433,9 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int,
     positions = torch.arange(s, device=x.device)
     states = []
     for i, (lp, win) in enumerate(zip(w.layers, cfg.layer_windows())):
-        x, st, _ = _layer(cfg, lp, x, window=win, positions=positions,
-                          mode="prefill", cache_kv=_layer_kv(cache, i))
+        x, st, _ = _layer(cfg, constraints.gather(lp), x, window=win,
+                          positions=positions, mode="prefill",
+                          cache_kv=_layer_kv(cache, i))
         states.append(st)
     x = apply_norm(cfg, w.final_norm, x)
     ssm = tuple(states) if _has_ssm(cfg) else None
@@ -416,6 +444,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int,
 
 def _decode(cfg: ModelConfig, w: Weights, cache: Cache,
             tokens: torch.Tensor, ctx_factory: Optional[Callable]):
+    w = _gathered(w)
     x = _embed(cfg, w, tokens)
     positions = torch.full((1,), cache.pos, dtype=torch.int64,
                            device=x.device)
@@ -423,8 +452,9 @@ def _decode(cfg: ModelConfig, w: Weights, cache: Cache,
     for i, (lp, win) in enumerate(zip(w.layers, cfg.layer_windows())):
         ctx = None if ctx_factory is None else ctx_factory(i)
         rclass = dvfs.CLASS_FIRST_BLOCK if i < 1 else dvfs.CLASS_BODY
-        x, st, _ = _layer(cfg, lp, x, window=win, positions=positions,
-                          mode="decode", cache_kv=_layer_kv(cache, i),
+        x, st, _ = _layer(cfg, constraints.gather(lp), x, window=win,
+                          positions=positions, mode="decode",
+                          cache_kv=_layer_kv(cache, i),
                           cache_pos=cache.pos,
                           ssm_state=_layer_ssm(cache, i), ctx=ctx,
                           rclass=rclass)
@@ -436,14 +466,47 @@ def _decode(cfg: ModelConfig, w: Weights, cache: Cache,
             cache._replace(ssm=ssm, pos=cache.pos + 1), ctxs)
 
 
+@dataclasses.dataclass(frozen=True)
+class DriftDecode:
+    """The inputs of one DRIFT-protected decode step.
+
+    In place of the reference's JAX key it carries a flip source (as
+    ``serving.ar`` builds one); each layer's context draws at scope = the
+    layer index, as the reference folds ``layer_idx`` into its key.
+    ``store`` is the stacked ``(L, B, n_out)`` f32 checkpoint store
+    (``drift_store_spec``), refreshed in place."""
+    cfg: DriftSystemConfig
+    flip_source: Any
+    ber_by_class: np.ndarray       # (N_CLASSES,)
+    store: Dict[str, torch.Tensor]
+    step: int                      # decode step (refresh and have_ckpt)
+
+
+def _drift_ctx_factory(drift: DriftDecode) -> Callable:
+    def make(i: int) -> ExecContext:
+        return ExecContext(drift.cfg, flip_source=drift.flip_source,
+                           step=drift.step, scope=i,
+                           ber_by_class=drift.ber_by_class,
+                           state_in={k: v[i] for k, v in drift.store.items()},
+                           have_ckpt=drift.step > 0)
+    return make
+
+
 def decode_step(cfg: ModelConfig, params, cache: Cache,
-                tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache, None]:
-    """One clean decode step. tokens: (B, 1). Returns (logits, cache,
-    None); the DRIFT-protected decode (``DriftDecode``) is not yet
-    ported (ROADMAP Queue A item 12)."""
+                tokens: torch.Tensor, drift: Optional[DriftDecode] = None
+                ) -> Tuple[torch.Tensor, Cache,
+                           Optional[Dict[str, torch.Tensor]]]:
+    """One decode step. tokens: (B, 1). Returns (logits, cache, store):
+    store is None without ``drift``; with it, the checkpoint store the
+    layers' contexts refreshed (``drift.store`` itself, written in
+    place; empty for the SSM family, whose layers run no protected GEMM,
+    as the reference's stacked ``state_out`` is)."""
+    factory = None if drift is None else _drift_ctx_factory(drift)
     logits, cache, _ = _decode(cfg, prepare(cfg, params), cache, tokens,
-                               None)
-    return logits, cache, None
+                               factory)
+    if drift is None:
+        return logits, cache, None
+    return logits, cache, ({} if cfg.family == "ssm" else drift.store)
 
 
 def decode_step_stats(cfg: ModelConfig, params, cache: Cache,
@@ -488,10 +551,140 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     return _unembed(cfg, w, x), torch.stack(auxs).mean()
 
 
-def decode_step_mixed(cfg: ModelConfig, params, cache, tokens):
-    raise NotImplementedError(
-        "the windowed (ring-buffer) decode is not yet ported to repro_torch "
-        "(ROADMAP Queue A item 12, local/global families)")
+# ================================================== windowed decode
+class MixedCache(NamedTuple):
+    """The windowed decode's cache: local layers' ring buffers and global
+    layers' full caches, each written in place."""
+    k_local: torch.Tensor    # (n_local, B, W, Hkv, hd)
+    v_local: torch.Tensor
+    k_global: torch.Tensor   # (n_global, B, S, Hkv, hd)
+    v_global: torch.Tensor
+    pos: int                 # next write position (host int)
+
+
+def mixed_layout(cfg: ModelConfig):
+    """(cycle kinds, n_cycles, tail kinds, local layer indices, global
+    layer indices), as the reference's."""
+    kinds = cfg.layer_kinds()
+    cycle = len(cfg.attn_pattern)
+    n_cycles = cfg.n_layers // cycle
+    tail = kinds[n_cycles * cycle:]
+    local_idx = [i for i, k in enumerate(kinds) if k == "local"]
+    global_idx = [i for i, k in enumerate(kinds) if k == "global"]
+    return (cfg.attn_pattern, n_cycles, tail, local_idx, global_idx)
+
+
+def supports_mixed_decode(cfg: ModelConfig) -> bool:
+    kinds = cfg.layer_kinds()
+    return (cfg.family == "dense" and "local" in kinds and cfg.window > 0
+            and not cfg.global_layer_indices)
+
+
+def init_mixed_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                     dtype=torch.bfloat16, device="cpu") -> MixedCache:
+    _, _, _, local_idx, global_idx = mixed_layout(cfg)
+    shape_l = (len(local_idx), batch, cfg.window, cfg.kv_heads, cfg.hd)
+    shape_g = (len(global_idx), batch, max_seq, cfg.kv_heads, cfg.hd)
+
+    def z(shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return MixedCache(z(shape_l), z(shape_l), z(shape_g), z(shape_g), 0)
+
+
+def mixed_from_full(cfg: ModelConfig, cache: Cache) -> MixedCache:
+    """A full prefill cache in the windowed layout: position ``p`` lands
+    in ring slot ``p % W`` (the last W positions before ``cache.pos``,
+    clipped to the cache, rolled into place)."""
+    _, _, _, local_idx, global_idx = mixed_layout(cfg)
+    w, pos, s = cfg.window, cache.pos, cache.k.shape[2]
+    start = min(max(pos - w, 0), s - w)
+
+    def ring(full):   # (B, S, Hkv, hd) -> (B, W, Hkv, hd)
+        # entry i holds position start + i -> slot (start + i) % W
+        return torch.roll(full[:, start:start + w], start % w, dims=1)
+
+    def stack(src, idx, fn):
+        if not idx:
+            return src.new_zeros((0,))
+        return torch.stack([fn(src[i]) for i in idx])
+    return MixedCache(stack(cache.k, local_idx, ring),
+                      stack(cache.v, local_idx, ring),
+                      stack(cache.k, global_idx, lambda t: t),
+                      stack(cache.v, global_idx, lambda t: t), pos)
+
+
+def _mixed_layer(cfg: ModelConfig, p, x: torch.Tensor, *, kind: str,
+                 positions: torch.Tensor, pos: int, kv) -> torch.Tensor:
+    """One decode layer of a static local/global kind: plain float
+    projections (no ``ctx``, as the reference), K and V written into the
+    ring slot ``pos % W`` (local) or slot ``pos`` (global) in place."""
+    h_in = apply_norm(cfg, p["ln1"], x)
+    b, s, _ = x.shape
+    hh, hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+    ap = p["attn"]
+    q = _proj(None, h_in, ap["wq"], "attn.q", 0).reshape(b, s, hh, hd)
+    k = _proj(None, h_in, ap["wk"], "attn.k", 0).reshape(b, s, hkv, hd)
+    v = _proj(None, h_in, ap["wv"], "attn.v", 0).reshape(b, s, hkv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    ck, cv = kv
+    slot = pos % cfg.window if kind == "local" else pos
+    ck[:, slot:slot + 1] = k.to(ck.dtype)
+    cv[:, slot:slot + 1] = v.to(cv.dtype)
+    if kind == "local":
+        o = attention.decode_attention_ring(q, ck, cv, pos=pos,
+                                            attn_softcap=cfg.attn_softcap)
+    else:
+        o = attention.decode_attention(q, ck, cv, pos=pos, window=0,
+                                       attn_softcap=cfg.attn_softcap)
+    x = x + _proj(None, o.reshape(b, s, hh * hd), ap["wo"], "attn.o", 0)
+    h2 = apply_norm(cfg, p["ln2"], x)
+    return x + _mlp_block(cfg, p["mlp"], h2)
+
+
+def decode_step_mixed(cfg: ModelConfig, params, cache: MixedCache,
+                      tokens: torch.Tensor
+                      ) -> Tuple[torch.Tensor, MixedCache]:
+    """Windowed decode: ring buffers for the local layers. The reference
+    scans one pattern cycle per step and unrolls the leftover tail (62 =
+    10 x 6 + 2 layers for gemma3-27b); the port loops over the layers in
+    order, each with its static kind and the cache it reads (the local
+    caches in local-layer order, the global ones in global-layer
+    order). Returns (logits, cache with ``pos + 1``)."""
+    w = _gathered(prepare(cfg, params))
+    pos = cache.pos
+    x = _embed(cfg, w, tokens)
+    positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    li = gi = 0
+    for lp, kind in zip(w.layers, cfg.layer_kinds()):
+        if kind == "local":
+            kv = (cache.k_local[li], cache.v_local[li])
+            li += 1
+        else:
+            kv = (cache.k_global[gi], cache.v_global[gi])
+            gi += 1
+        x = _mixed_layer(cfg, constraints.gather(lp), x, kind=kind,
+                         positions=positions, pos=pos, kv=kv)
+    x = apply_norm(cfg, w.final_norm, x)
+    return _unembed(cfg, w, x), cache._replace(pos=pos + 1)
+
+
+def drift_store_spec(cfg: ModelConfig, batch: int, device="cpu"
+                     ) -> Dict[str, torch.Tensor]:
+    """Zero stacked checkpoint store of ``DriftDecode``: (L, batch, n_out)
+    f32 per protected projection (one token per decode step); MoE layers
+    protect the attention projections only."""
+    d, h, hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd,
+                        cfg.d_ff)
+
+    def z(nout):
+        return torch.zeros((cfg.n_layers, batch, nout), dtype=torch.float32,
+                           device=device)
+    store = {"attn.q": z(h * hd), "attn.k": z(hkv * hd),
+             "attn.v": z(hkv * hd), "attn.o": z(d)}
+    if cfg.family != "moe":
+        store.update({"mlp.gate": z(f), "mlp.up": z(f), "mlp.down": z(d)})
+    return store
 
 
 def param_count(cfg: ModelConfig) -> int:

@@ -22,6 +22,12 @@ kernel takes Sq != Skv.
 
 The sampler gives the UNet one context per evaluation, at one fault scope
 (0), with a flat name-keyed checkpoint store (``drift_store_spec``).
+
+On the sharded engine (``distributed.constraints``) the weights rest as
+shards, gathered at the top and at each level; the timestep MLP and each
+ResBlock's timestep projection (M = batch, float GEMMs whose library
+kernel depends on the row count) run on the data group's gathered
+timestep rows. Without a mesh policy none of this adds an op.
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import dvfs
 from repro_torch.core.exec_ctx import ExecContext
+from repro_torch.distributed import constraints
+from repro_torch.kernels.abft_matmul import TILE
 from repro_torch.kernels.flash_attention import mha_flash
 from repro_torch.models.attention import full_attention
 from repro_torch.models.common import (ModelConfig, Params, dense_init,
@@ -169,10 +177,12 @@ def params_from_jax(tree: Any, device="cpu") -> Params:
 # --------------------------------------------------------------- blocks
 def _res_block(p: Params, x: torch.Tensor, temb: torch.Tensor
                ) -> torch.Tensor:
+    """``temb`` holds the data group's rows (the batch's own without a
+    sharded batch); the projection keeps this rank's."""
     h = _silu_f32(group_norm(x, p["gn1_s"], p["gn1_b"]))
     h = _conv(h, p["conv1"])
-    h = h + (_silu_f32(temb).to(x.dtype)
-             @ p["temb_w"].to(x.dtype))[:, None, None, :]
+    proj = _silu_f32(temb).to(x.dtype) @ p["temb_w"].to(x.dtype)
+    h = h + constraints.own_rows(proj)[:, None, None, :]
     h = _silu_f32(group_norm(h, p["gn2_s"], p["gn2_b"]))
     h = _conv(h, p["conv2"])
     skip = x if p["skip"] is None else _conv(x, p["skip"])
@@ -236,14 +246,18 @@ def forward(cfg: ModelConfig, params: Params, latents: torch.Tensor,
     counts and its store the refreshed checkpoints."""
     _check_cfg(cfg)
     dt = cfg.dtype
+    levels = ("down", "mid", "up")
+    params = dict(params, **constraints.gather(
+        {k: v for k, v in params.items() if k not in levels}))
     x = latents.to(dt)
-    temb = timestep_embedding(t).to(dt)
+    temb = timestep_embedding(constraints.gather_rows(t)).to(dt)
     temb = _silu_f32(temb @ params["t_w1"].to(dt))
     temb = temb @ params["t_w2"].to(dt)
 
     x = _conv(x, params["conv_in"])
     skips: List[torch.Tensor] = []
     for li, lvl in enumerate(params["down"]):
+        lvl = constraints.gather(lvl)
         x = _res_block(lvl["res1"], x, temb)
         x = _res_block(lvl["res2"], x, temb)
         if lvl["attn"] is not None:
@@ -251,10 +265,12 @@ def forward(cfg: ModelConfig, params: Params, latents: torch.Tensor,
         skips.append(x)
         if lvl["down"] is not None:
             x = _conv(x, lvl["down"], stride=2)
-    x = _res_block(params["mid"]["res1"], x, temb)
-    x = _attn_block(params["mid"]["attn"], x, text, ctx, "mid")
-    x = _res_block(params["mid"]["res2"], x, temb)
+    mid = constraints.gather(params["mid"])
+    x = _res_block(mid["res1"], x, temb)
+    x = _attn_block(mid["attn"], x, text, ctx, "mid")
+    x = _res_block(mid["res2"], x, temb)
     for li, lvl in enumerate(params["up"]):
+        lvl = constraints.gather(lvl)
         x = torch.cat([x, skips[-(li + 1)]], dim=-1)
         x = _res_block(lvl["res1"], x, temb)
         x = _res_block(lvl["res2"], x, temb)
@@ -276,7 +292,9 @@ def drift_store_spec(cfg: ModelConfig, batch: int, device="cpu"
     _check_cfg(cfg)
     store = {}
     for name, res, ch in attention_sites(cfg):
-        px, txt = batch * res * res, batch * cfg.cond_tokens
+        # a sharded batch's GEMMs of ragged tiles hold the whole batch's
+        px = constraints.store_rows(batch * res * res, TILE)
+        txt = constraints.store_rows(batch * cfg.cond_tokens, TILE)
         for tag, kv_rows in (("self", px), ("cross", txt)):
             for proj, rows in (("q", px), ("k", kv_rows), ("v", kv_rows),
                                ("o", px)):

@@ -1,7 +1,8 @@
 """DRIFT serving on PyTorch: request queue, micro-batcher, sampler cache,
 the batched engine, checkpoint offload, the deadline scheduler and the
 Pareto frontier, telemetry with its HTTP front end, and the flight
-recorder (counterpart of ``repro.serving``, without the sharded engine)."""
+recorder, and the sharded engine (counterpart of ``repro.serving``)."""
+from repro_torch.serving.batcher import request_key
 from repro_torch.serving.cache import CompiledSamplerCache, SamplerKey
 from repro_torch.serving.engine import DriftServeEngine, EngineStats
 from repro_torch.serving.frontier import (FRONTIER_OPS, FrontierBuilder,
@@ -18,6 +19,7 @@ from repro_torch.serving.servable import (UNSUPPORTED_FAMILIES,
 from repro_torch.serving.scheduler import (Admission, DeadlineScheduler,
                                            PriorityMicroBatcher,
                                            SchedulerConfig, SchedulerStats)
+from repro_torch.serving.sharded import ShardedDriftServeEngine, make_engine
 from repro_torch.serving.telemetry import (EngineTelemetry, GuardbandConfig,
                                            GuardbandController,
                                            LatencyEstimator, MetricsRegistry,
@@ -34,6 +36,7 @@ __all__ = ["Admission", "CompiledSamplerCache", "DeadlineScheduler",
            "PRIORITY_RANK", "PreviewEvent", "PriorityMicroBatcher",
            "REQUEST_OPS", "REQUEST_PRIORITIES", "RequestQueue",
            "RequestResult", "SamplerKey", "SchedulerConfig",
-           "SchedulerStats", "TelemetryHTTPServer", "UNSUPPORTED_FAMILIES",
-           "UnsupportedArchError", "aggregate_metrics",
-           "dominates", "pareto_front", "quality_proxy", "serve_telemetry"]
+           "SchedulerStats", "ShardedDriftServeEngine", "TelemetryHTTPServer",
+           "UNSUPPORTED_FAMILIES", "UnsupportedArchError",
+           "aggregate_metrics", "dominates", "make_engine", "pareto_front",
+           "quality_proxy", "request_key", "serve_telemetry"]

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 from repro_torch.core.rollback import DEFAULT_INTERVAL
 
@@ -33,6 +33,12 @@ class SamplerKey:
     # Always a concrete int here: "auto" requests resolve through the
     # offload planner (engine.auto_rollback_interval) before keying.
     rollback_interval: int = DEFAULT_INTERVAL
+    # Sharded-engine placement (empty on the single-device path): the mesh
+    # axes and sizes the bucket spreads over and the latents' batch spec,
+    # rendered hashable, so engines on different meshes never share a
+    # built sampler.
+    mesh_shape: Tuple[Tuple[str, int], ...] = ()
+    batch_spec: str = ""
 
 
 class CompiledSamplerCache:

@@ -146,7 +146,8 @@ class DriftServeEngine:
         self.nominal_steps = nominal_steps
         self.monitor_target_ber = monitor_target_ber
         self.queue = RequestQueue()
-        self.batcher = MicroBatcher(bucket)
+        self.batcher = MicroBatcher(bucket,
+                                    key_extra=self._sampler_key_extra(bucket))
         self.cache = CompiledSamplerCache()
         self.stats = EngineStats()
         # telemetry and the flight recorder, both on by default; pass
@@ -441,10 +442,25 @@ class DriftServeEngine:
         if store is not None:
             store.on_window(done_steps, carry)
 
+    # ---------------------------------------------------------- placement
+    def _sampler_key_extra(self, bucket: int) -> Dict[str, object]:
+        """Extra ``SamplerKey`` fields of every bucket (none here; the
+        sharded engine adds its mesh placement)."""
+        return {}
+
+    def place_inputs(self, tree):
+        """Where a batch's staged inputs live: as they are on one device
+        (the sharded engine keeps each rank's rows)."""
+        return tree
+
     # ------------------------------------------------------------ helpers
     def params_for(self, arch: str, smoke: bool):
-        """The cached params of (arch, smoke), built on first use from the
-        base seed (crc32, not ``hash``: stable across processes)."""
+        """The cached params of (arch, smoke), built on first use."""
+        return self._params_for(arch, smoke)
+
+    def _params_for(self, arch: str, smoke: bool):
+        """Build and cache the params of (arch, smoke) from the base seed
+        (crc32, not ``hash``: stable across processes)."""
         k = (arch, smoke)
         if k not in self._params:
             cfg = configs.get_config(arch, smoke=smoke)

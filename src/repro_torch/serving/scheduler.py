@@ -1,8 +1,8 @@
 """Deadline- and priority-aware scheduling on top of the DRIFT engine.
 
 Counterpart of ``repro.serving.scheduler``: the same policy, projection
-and formation, on the port's engine. The port has no sharded engine
-(ROADMAP Queue A 13), so the batcher carries no mesh ``key_extra``.
+and formation, on the port's engine; the priority batcher keeps the
+engine batcher's ``key_extra`` (a sharded engine's mesh placement).
 
 The engine gives every request two orthogonal quality/cost levers:
 
@@ -142,8 +142,9 @@ class PriorityMicroBatcher(MicroBatcher):
 
     def __init__(self, bucket: int,
                  urgency: Optional[Callable[[GenerationRequest], Tuple]]
-                 = None) -> None:
-        super().__init__(bucket)
+                 = None,
+                 key_extra: Optional[Dict[str, object]] = None) -> None:
+        super().__init__(bucket, key_extra=key_extra)
         self._urgency = urgency or (lambda r: r.request_id)
 
     def next_batch(self, queue: RequestQueue,
@@ -157,7 +158,7 @@ class PriorityMicroBatcher(MicroBatcher):
         seed = min(pending, key=self._urgency)
         def key_of(r):
             return request_key(
-                r, self.bucket, resolve_op(r),
+                r, self.bucket, resolve_op(r), self.key_extra,
                 resolve_interval(r) if resolve_interval is not None
                 else None)
         key = key_of(seed)
@@ -186,8 +187,9 @@ class DeadlineScheduler:
         self.engine = engine
         self.cfg = config or SchedulerConfig()
         self.stats = SchedulerStats()
-        engine.batcher = PriorityMicroBatcher(engine.batcher.bucket,
-                                              urgency=self._urgency)
+        engine.batcher = PriorityMicroBatcher(
+            engine.batcher.bucket, urgency=self._urgency,
+            key_extra=engine.batcher.key_extra)
         # Modeled-latency memo (run_cost is pure arithmetic but admission
         # sits on the submit path). Keyed on the *operating-point
         # parameters* -- (arch, voltage, frequency, steps, bucket,

@@ -131,11 +131,11 @@ class DiffusionServable:
         if model_cfg.cond_tokens:
             text = 0.1 * self._randn(seeds, TEXT_TAG, (model_cfg.cond_tokens,
                                                        model_cfg.cond_dim))
-            return lat, None, text
+            return self.eng.place_inputs((lat, None, text))
         cond = torch.tensor([s % max(model_cfg.num_classes, 1)
                              for s in seeds], dtype=torch.int64,
                             device=self.eng.device)
-        return lat, cond
+        return self.eng.place_inputs((lat, cond))
 
     def build_fn(self, key: SamplerKey) -> Callable:
         eng = self.eng
@@ -279,7 +279,7 @@ class DiffusionServable:
         heat, blocks = heatmap_lib.summarize(out.heatmap)
         return BatchOutcome(corrected=corrected,
                             n_model_evals=int(out.n_model_evals), rc=rc,
-                            n_words=latents.numel() * max(key.steps, 1),
+                            n_words=img.numel() * max(key.steps, 1),
                             per_slot=per_slot, heatmap=heat,
                             heatmap_blocks=blocks)
 
@@ -343,7 +343,8 @@ class AutoregressiveServable:
         return fields
 
     def batch_inputs(self, model_cfg, seeds: List[int]) -> Tuple:
-        return (ar.prompt_tokens(model_cfg, seeds, self.eng.device),)
+        return self.eng.place_inputs(
+            (ar.prompt_tokens(model_cfg, seeds, self.eng.device),))
 
     def build_fn(self, key: SamplerKey) -> ar.DecoderFns:
         eng = self.eng

@@ -2,8 +2,9 @@
 attention kernel's gradients, which training takes, included), the
 checkpoint-offload store's side-stream copies into pinned memory, a
 drain through the telemetry front end's ``/events`` with offload on, the
-bf16-only LM weights (``transformer.init_weights``), the MoE routing and
-the SSD blocks, on the card.
+bf16-only LM weights (``transformer.init_weights``), the MoE routing,
+the SSD blocks, ``DriftDecode`` and the windowed decode, and the sharded
+DiT on 2 ranks sharing the card over gloo, on the card.
 
 Marked ``gpu``: each test skips without a CUDA device. This module imports
 no JAX, so it runs on a machine that has only PyTorch:
@@ -768,3 +769,178 @@ def test_train_launcher_resumes_on_card(cuda, tmp_path, capsys):
     for a, b in zip(tree_leaves(resumed), tree_leaves(straight)):
         assert (a == b) if not isinstance(a, torch.Tensor) \
             else torch.equal(a, b)
+
+
+# ----------------------------------------- decode paths and sharding
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmo-1b", "deepseek-moe-16b",
+                                  "hymba-1.5b"])
+def test_drift_decode_on_card_matches_cpu(cuda, arch):
+    """SMOKE ``DriftDecode`` on the card and the CPU, the same params and
+    masks (drawn on the CPU): 3 steps at BER 1e-2 (layer 0 at 0), refresh
+    interval 2. Each layer's detected rows and corrected elements equal,
+    greedy tokens equal, logits and the store within 1e-4; every
+    protected projection launched both kernels once."""
+    from repro_torch.core import fault
+    from repro_torch.core.exec_ctx import DriftSystemConfig
+    from repro_torch.core.rollback import RollbackConfig
+    cfg = configs.get_config(arch, smoke=True)
+    params = transformer.init_params(cfg, 8)
+    prompts = torch.randint(0, cfg.vocab, (2, 8),
+                            generator=torch.Generator().manual_seed(2))
+    row = np.array([0.0, 1e-2, 1e-2], np.float32)
+    dcfg = DriftSystemConfig(mode="drift",
+                             rollback=RollbackConfig(interval=2))
+    base = transformer.ExecContext
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        ctxs = []
+
+        class Recording(base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                ctxs.append(self)
+        w = transformer.prepare(cfg, tree_map(lambda t: t.to(dev), params))
+        store = transformer.drift_store_spec(cfg, 2, dev)
+        src = fault.PhiloxFlipSource(5, 0, "cpu")
+        logits, cache = transformer.prefill(cfg, w, prompts.to(dev), 12)
+        tok = logits[:, -1:].argmax(-1)
+        steps = []
+        n0 = (tak.launches, trk.launches)
+        transformer.ExecContext = Recording
+        try:
+            for step in range(3):
+                ctxs.clear()
+                logits, cache, store = transformer.decode_step(
+                    cfg, w, cache, tok,
+                    transformer.DriftDecode(dcfg, src, row, store, step))
+                tok = logits[:, -1:].argmax(-1)
+                steps.append((logits.cpu(), tok.cpu(),
+                              [(int(c.stats["detected_row_errors"]),
+                                int(c.stats["corrected_elems"]))
+                               for c in ctxs]))
+        finally:
+            transformer.ExecContext = base
+        launched = (tak.launches - n0[0], trk.launches - n0[1])
+        out[dev.type] = (steps, {k: v.cpu() for k, v in store.items()},
+                         launched)
+    gemms = cfg.n_layers * (4 if cfg.family == "moe" else 7)
+    assert out["cuda"][2] == (3 * gemms, 3 * gemms)
+    assert out["cpu"][2] == (0, 0)
+    flagged = 0
+    for (lg, tg, cg), (lc, tc, cc) in zip(out["cuda"][0], out["cpu"][0]):
+        torch.testing.assert_close(lg, lc, atol=1e-4, rtol=0)
+        assert torch.equal(tg, tc) and cg == cc
+        flagged += sum(c for _, c in cc)
+    assert flagged > 0
+    for k, v in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][k], v, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-27b"])
+def test_mixed_decode_on_card_matches_decode_step(cuda, arch):
+    """SMOKE ``decode_step_mixed`` on the card past the ring's wrap
+    (prompt window + 6, 6 steps): logits bit-equal to the card's
+    ``decode_step`` on the full cache (the rings are read oldest first)
+    and within 1e-4 of the CPU's mixed decode."""
+    cfg = configs.get_config(arch, smoke=True)
+    params = transformer.init_params(cfg, 5)
+    g = torch.Generator().manual_seed(9)
+    s = cfg.window + 6
+    prompts = torch.randint(0, cfg.vocab, (2, s), generator=g)
+    toks = torch.randint(0, cfg.vocab, (6, 2, 1), generator=g)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        w = transformer.prepare(cfg, tree_map(lambda t: t.to(dev), params))
+        _, full = transformer.prefill(cfg, w, prompts.to(dev), s + 6)
+        mixed = transformer.mixed_from_full(cfg, full)
+        rows = []
+        for t in toks:
+            lf, full, _ = transformer.decode_step(cfg, w, full, t.to(dev))
+            lm, mixed = transformer.decode_step_mixed(cfg, w, mixed,
+                                                      t.to(dev))
+            rows.append((lf.cpu(), lm.cpu()))
+        runs[dev.type] = rows
+    for (lf, lm), (_, lm_cpu) in zip(runs["cuda"], runs["cpu"]):
+        assert torch.equal(lm, lf)
+        torch.testing.assert_close(lm, lm_cpu, atol=1e-4, rtol=0)
+
+
+SHARDED_BUCKET = 4
+
+
+def _card_dit_params():
+    """SMOKE DiT params with seeded values in every all-zero weight
+    (adaLN-Zero, the output), on the CPU."""
+    from repro_torch.models import dit
+    cfg = configs.get_config("dit-xl-512", smoke=True)
+    g = torch.Generator()
+    g.manual_seed(17)
+
+    def nudge(t):
+        if t.ndim >= 2 and not bool(t.any()):
+            return 0.05 * torch.randn(t.shape, generator=g)
+        return t
+    return tree_map(nudge, dit.init_params(cfg, 3))
+
+
+def _serve_card_dit(eng):
+    eng.set_params("dit-xl-512", True,
+                   tree_map(lambda t: t.to("cuda"), _card_dit_params()))
+    for i in range(SHARDED_BUCKET):
+        eng.submit(steps=3, mode="drift", op="undervolt", seed=i)
+    res = eng.run()
+    return dict(latents=[r.latents.cpu() for r in res],
+                counts=[(r.batch_corrected_elems, r.energy_j,
+                         r.monitor_op_index) for r in res],
+                monitor=(int(eng.monitor.n_updates),
+                         float(eng.monitor.ema_ber)))
+
+
+def _card_rank(rank: int, model_parallel: int, tmp: str) -> None:
+    """One of 2 ranks sharing cuda:0 over gloo (a spawned process)."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serving.sharded import ShardedDriftServeEngine
+    mesh = mesh_lib.make_serving_mesh(
+        model_parallel, device="cuda", init_method=f"file://{tmp}/rdzv",
+        rank=rank, world_size=2, timeout_s=300)
+    out = _serve_card_dit(ShardedDriftServeEngine(
+        mesh=mesh, bucket=SHARDED_BUCKET, device="cuda"))
+    out["backend"] = mesh.backend
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model_parallel", [1, 2])
+def test_sharded_dit_on_card_bit_equal(cuda, tmp_path, model_parallel):
+    """The SMOKE DiT (bucket 4, 3 drift steps) on 2 ranks sharing cuda:0
+    over gloo, as a (2, 1) and a (1, 2) mesh: every rank's latents,
+    corrected counts, billed joules and monitor equal one process's."""
+    from repro_torch.serving import DriftServeEngine
+    import torch.multiprocessing as mp
+    want = _serve_card_dit(DriftServeEngine(bucket=SHARDED_BUCKET,
+                                            device="cuda"))
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_card_rank,
+                         args=(r, model_parallel, str(tmp_path)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(300)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    assert [p.exitcode for p in procs] == [0, 0]
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+        assert got["backend"] == "gloo"
+        assert got["counts"] == want["counts"]
+        assert got["monitor"] == want["monitor"]
+        for a, b in zip(got["latents"], want["latents"]):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))

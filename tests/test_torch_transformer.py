@@ -224,8 +224,9 @@ def test_unported_paths_raise(setup):
     """The teacher-forcing ``forward`` and the VLM's init are ported: the
     forward's logits within 1e-4 of the reference's, the VLM's params
     laid out as the reference's (an untied ``lm_head``); the enc-dec
-    family belongs to ``models.encdec``; the windowed decode still raises
-    naming its queue item."""
+    family belongs to ``models.encdec``; the windowed decode runs: this
+    all-global config does not support it, as in the reference, and on
+    its (all-global) mixed cache it gives ``decode_step``'s logits."""
     import dataclasses
     jcfg, cfg, np_params, prompts = setup
     with pytest.raises(ValueError, match="encdec"):
@@ -245,10 +246,15 @@ def test_unported_paths_raise(setup):
                                atol=1e-4, rtol=0)
     assert float(aux) == float(jaux) == 0.0
     params = transformer.init_params(cfg, 0)
-    cache = transformer.init_cache(cfg, 1, 4, torch.float32)
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        transformer.decode_step_mixed(cfg, params, cache,
-                                      torch.zeros((1, 1), dtype=torch.long))
+    assert not transformer.supports_mixed_decode(cfg)
+    assert not jtf.supports_mixed_decode(jcfg)
+    tok = torch.zeros((1, 1), dtype=torch.long)
+    mixed = transformer.init_mixed_cache(cfg, 1, 4, torch.float32)
+    lm, mc = transformer.decode_step_mixed(cfg, params, mixed, tok)
+    lf, _, _ = transformer.decode_step(
+        cfg, params, transformer.init_cache(cfg, 1, 4, torch.float32), tok)
+    torch.testing.assert_close(lm, lf, atol=1e-5, rtol=0)
+    assert mc.pos == 1 and mc.k_local.shape[0] == 0
     with pytest.raises(ValueError):
         ar.make_decoder(cfg, ar.DecodeConfig(4, 2, "drift", 3e-3))
     assert dvfs.CLASS_FIRST_BLOCK == 1
