@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases device,build,families
     python3 chip_smoke.py --phases device,build,kernels,train
     python3 chip_smoke.py --phases device,build,sharded
+    python3 chip_smoke.py --phases device,build,train_sharded
 
 Phases, each printing one JSON line with its wall time:
 
@@ -63,7 +64,13 @@ Phases, each printing one JSON line with its wall time:
                self-attention shapes again over ``UNET_REPS`` times the
                launches, and whisper-base's encoder call (8, 1500, 8/8,
                64) within 3e-3, a limit that must fail the plain version
-               with the partial last tile's 28 keys dropped.
+               with the partial last tile's 28 keys dropped; olmo-1b's
+               train calls, causal (8, 128, 16/16, 128) (one process and
+               the (1, 2) mesh) and (4, 128, 16/16, 128) (a (2, 1) rank),
+               two key tiles with a causal diagonal, within 1e-2, a limit
+               that must fail the plain version with the last whole key
+               tile dropped. The train calls and whisper's also time the
+               backward beside SDPA's.
 4. reference -- the SMOKE DiT and the SMOKE olmo-1b served on the card
                (kernels) and on the CPU (plain versions) with the same
                params, inputs and flip masks: latents, tokens and counts
@@ -211,7 +218,7 @@ Phases, each printing one JSON line with its wall time:
                shapes they add and ``mha_flash`` at the UNet's two
                self-attention shapes, beside their bounds.
 11b. sharded -- the serve phase's 2 full-width DiT requests (its seeded
-               weights, drift at undervolt, 10 steps) in one process,
+               weights, drift at undervolt, 4 steps) in one process,
                then on a (data 2, model 1) and a (data 1, model 2) mesh
                of 2 spawned ranks sharing cuda:0 over gloo
                (``serving.sharded``): every rank's latents (on int32
@@ -242,6 +249,27 @@ Phases, each printing one JSON line with its wall time:
                greedy decode steps. The ``kernels`` phase times the
                attention kernel at whisper-base's encoder call, and its
                backward beside SDPA's.
+12b. train_sharded -- training across ranks (``make_train_step`` with a
+               mesh, ``checkpoint.manager`` from a mesh,
+               ``restore_resharded``): full-width olmo-1b at global batch
+               8 and sequence 128 from the port's init on 2 spawned ranks
+               sharing cuda:0 over gloo. Rank 0 first runs a one-process
+               twin's steps 1 and 2 alone; the mesh's AdamW update of the
+               twin's gradient must be bit-equal on every rank's block.
+               Then 2 steps on (data 2, model 1), each reduced gradient
+               within TS_GRAD_RTOL of the twin's gradient at the mesh's
+               params before the step (gathered whole), a limit that rank
+               0's half batch alone must fail; a save from that mesh
+               (leaves gathered whole, rank 0 writing); a restore onto
+               (data 1, model 2), every rank's blocks bit-equal to the
+               saved state; step 3 there, every block ``torch.equal`` to
+               the twin's step 3 from the restored state (rank 1's sent
+               through an exact integer sum). 16 attention launches and
+               16 backward calls a step on every rank. Per rank: ms,
+               collectives and peak memory a step, save and restore
+               seconds. Then the SMOKE CLI with ``--model-parallel 2``
+               under ``python -m torch.distributed.run`` (2 ranks) exits 0
+               and prints the mesh line once.
 
 Every DiT and olmo-1b result carries the perfmodel's attribution; each
 must bill a ledger whose ``ledger_total`` equals its ``energy_j`` bit for
@@ -272,7 +300,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "reference", "serve", "offload",
           "sched", "ar", "lm", "moe", "ssm", "baselines", "families",
-          "sharded", "train")
+          "sharded", "train", "train_sharded")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, int8 and bf16
 # tensor-core rates, float32 rate outside the tensor cores.
@@ -297,8 +325,9 @@ SSM_ARCHS = (("mamba2-370m", 26), ("hymba-1.5b", 27))
 AR_STEPS = 16
 AR_WINDOW = 4
 # tokens of the profiled request of each LM (its trace, up to ~450k
-# kernels at 16 tokens, is processed on the host after the run)
-PROFILE_AR_STEPS = 8
+# kernels at 16 tokens, is processed on the host after the run; 4 keeps
+# the whole script inside its time limit with the train_sharded phase)
+PROFILE_AR_STEPS = 4
 TS_ARGS = ["--taylorseer", "--precision", "int8-body4"]
 TS_KNOBS = dict(taylorseer=True, precision="int8-body4")
 TS_STEPS_SMOKE, TS_EVALS_SMOKE = 7, 3       # computes steps 0, 3, 6
@@ -911,14 +940,23 @@ LM_ATTN = (
      1e-2),
     ("whisper-base encoder self-attention", (8, 1500, 8, 8, 64), False, 0,
      0.0, 3e-3),
+    ("olmo-1b train, causal: one process, (1, 2)", (8, 128, 16, 16, 128),
+     True, 0, 0.0, 1e-2),
+    ("olmo-1b train, causal: a (2, 1) rank", (4, 128, 16, 16, 128), True, 0,
+     0.0, 1e-2),
 )
 # keys a K/V tile holds in the bf16 kernel (64 up to D 128, 32 above): a
 # row whose S leaves a partial last tile after whole ones must also show
 # that its tolerance tells the plain version apart from the same call with
 # that last tile's keys dropped
 KEY_TILE_D128, KEY_TILE_WIDE = 64, 32
+# the train path's rows: S is whole key tiles, so the control drops the
+# last whole tile (which the causal diagonal tile of the last query tile
+# reads)
+TRAIN_ATTN_ROWS = ("olmo-1b train, causal: one process, (1, 2)",
+                   "olmo-1b train, causal: a (2, 1) rank")
 # rows whose backward is timed too (the train path differentiates them)
-BWD_ROWS = ("whisper-base encoder self-attention",)
+BWD_ROWS = ("whisper-base encoder self-attention",) + TRAIN_ATTN_ROWS
 UNET_REPS = 5           # the UNet rows: this many times --reps launches
 
 
@@ -1014,7 +1052,8 @@ def phase_kernels_lm(torch, reps: int):
     different function, ``flex_softcap`` (its error against the plain
     version recorded, or why it failed). Softcapped rows scale q by 8 so
     that scores of ~30 bend. A row whose S ends in a partial key tile after
-    whole ones also holds the plain version without that tile's keys to
+    whole ones, or a train row (``TRAIN_ATTN_ROWS``, whose last whole tile
+    stands in), also holds the plain version without that tile's keys to
     its tolerance, which must fail."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fk
@@ -1052,6 +1091,8 @@ def phase_kernels_lm(torch, reps: int):
                                  f"beyond {tol}")
         tile = KEY_TILE_D128 if d <= 128 else KEY_TILE_WIDE
         partial = s % tile if s > tile else 0
+        if not partial and label in TRAIN_ATTN_ROWS:
+            partial = tile
         dropped_gap = None
         if partial:
             dropped = plain(q, k[:, :s - partial], v[:, :s - partial])
@@ -1079,7 +1120,7 @@ def phase_kernels_lm(torch, reps: int):
                    attended_pairs=pairs, library_ms=None,
                    library_kernels=None)
         if partial:
-            row.update(partial_tile_keys=partial,
+            row.update(dropped_tile_keys=partial,
                        dropped_tile_max_abs_gap=dropped_gap)
         lib_ring = [tuple(x.transpose(1, 2) for x in t) for t in ring]
         if cap:
@@ -3151,6 +3192,422 @@ def phase_train(torch, smi):
                      "state_bytes: params and both moments, f32")
 
 
+# ------------------------------------------- training across ranks (slice 14)
+TS_ARCH, TS_SEED, TS_WORLD = "olmo-1b", 60, 2
+# the (2, 1) mesh's gradient (a half batch per rank, summed and halved)
+# against the one-process twin's at the same params, bf16 activations:
+# each leaf within TS_GRAD_RTOL of its largest magnitude plus 1e-4 of the
+# largest anywhere, the loss within TS_LOSS_RTOL relative. The gradient of
+# rank 0's half batch alone (rank 1's dropped from the reduction) must
+# fail that limit. Measured on the H100 at these params: worst 0.41 and
+# 0.49 of the limit at steps 1 and 2, the half batch alone ~100x it.
+TS_GRAD_RTOL, TS_LOSS_RTOL = 1e-2, 1e-3
+TS_JOIN_S = 900
+TS_CLI_MESH = "[train] olmo-1b-smoke on mesh {'data': 1, 'model': 2}"
+
+
+def _coords_view(mesh, rank: int):
+    """``mesh`` as rank ``rank`` sees it, for its block slices (no
+    collective is made through it)."""
+    import types
+    from repro_torch.launch.mesh import _unravel
+    shape = tuple(mesh.shape[a] for a in mesh.axis_names)
+    return types.SimpleNamespace(
+        axis_names=mesh.axis_names, shape=mesh.shape,
+        coords=dict(zip(mesh.axis_names, _unravel(rank, shape))))
+
+
+def _ts_twin(torch, cfg, ocfg, batches, mesh):
+    """The one-process twin's steps 1 and 2 on this rank alone (the other
+    waits): ``value_and_grad`` and AdamW as ``make_train_step`` runs them.
+    At each step, for every rank of ``mesh``, ``sharded_update`` of the
+    twin's gradient on that rank's blocks of the twin's state must be
+    bit-equal to those blocks of the twin's next state. Returns the
+    twin's losses and gradient norms."""
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import sharding
+    from repro_torch.optim import adamw as optim
+    from repro_torch.train import steps
+    from repro_torch.tree import tree_leaves
+    state = steps.init_train_state(cfg, ocfg, TS_SEED, "cuda")
+    out = dict(loss=[], grad_norm=[], update_blocks_checked=0)
+    for s, b in enumerate(batches[:2]):
+        loss, _, grads = steps.value_and_grad(
+            cfg, state.params, b, synthetic.generator(state.seed, state.step))
+        norm = optim.global_norm(grads)
+        p, opt, _ = optim.apply(ocfg, state.opt, state.params, grads)
+        new = steps.TrainState(p, opt, state.step + 1, state.seed)
+        for r in range(mesh.size):
+            view = _coords_view(mesh, r)
+            blocks = sharding.shard_state(state, view)
+            got_p, got_opt, _ = steps.sharded_update(ocfg, blocks, grads,
+                                                     norm, view)
+            got = tree_leaves((got_p, got_opt.mu, got_opt.nu))
+            want = tree_leaves(sharding.block_of(
+                (p, opt.mu, opt.nu), (blocks.params, blocks.opt.mu,
+                                      blocks.opt.nu), view))
+            for a, w in zip(got, want):
+                a = a.local if isinstance(a, sharding.Shard) else a
+                if not torch.equal(a, w):
+                    raise AssertionError(
+                        f"train_sharded: the mesh's AdamW update of the "
+                        f"twin's step-{s + 1} gradient differs on rank "
+                        f"{r}'s block of a leaf {tuple(w.shape)}")
+            out["update_blocks_checked"] += len(got)
+            del blocks, got_p, got_opt, got, want
+        out["loss"].append(float(loss))
+        out["grad_norm"].append(float(norm))
+        state = new
+        del grads, p, opt, new
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ts_grad_ratio(got, want) -> tuple:
+    """(worst error over its limit, that leaf's shape): gradient leaves
+    ``got`` against ``want`` (TS_GRAD_RTOL of each leaf's largest
+    magnitude plus 1e-4 of the largest anywhere); above 1 fails."""
+    top = max(float(w.abs().max()) for w in want)
+    worst, where = 0.0, ()
+    for a, w in zip(got, want):
+        w = w.to(a.device)
+        lim = TS_GRAD_RTOL * float(w.abs().max()) + 1e-4 * top
+        ratio = float((a - w).abs().max()) / lim
+        if not ratio <= worst:
+            worst, where = ratio, tuple(w.shape)
+    return worst, where
+
+
+def _ts_twin_at(torch, cfg, state, mesh, batch, step: int):
+    """The twin's gradient at the mesh's params: ``state``'s params
+    gathered whole (every rank takes part), then, on rank 0 alone,
+    ``value_and_grad`` of the whole batch and of rank 0's rows alone (the
+    gradient with rank 1's half dropped from the reduction); the other
+    rank waits. Returns (loss, host gradient leaves, the dropped half's
+    worst ratio to the limit) on rank 0, None elsewhere."""
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import constraints, sharding
+    from repro_torch.train import steps
+    from repro_torch.tree import tree_leaves
+    params = constraints.gather(state.params, mesh)
+    out = None
+    if mesh.rank == 0:
+        gen = lambda: synthetic.generator(state.seed, state.step)  # noqa
+        loss, _, grads = steps.value_and_grad(cfg, params, batch, gen())
+        want = [g.cpu() for g in tree_leaves(grads)]
+        del grads
+        rows = sharding.batch_rows(next(iter(batch.values())).shape[0], mesh)
+        _, _, half = steps.value_and_grad(
+            cfg, params, {k: v[rows] for k, v in batch.items()}, gen())
+        dropped, _ = _ts_grad_ratio(tree_leaves(half), want)
+        if not dropped > 1:
+            raise AssertionError(f"train_sharded step {step}: the limit "
+                                 f"passes rank 0's half batch alone "
+                                 f"(ratio {dropped})")
+        out = (float(loss), want, dropped)
+        del half
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    return out
+
+
+def _saved_leaves(torch, path: Path):
+    """The leaves of a checkpoint directory as written (no hash check):
+    host tensors and ints."""
+    import numpy as np
+    meta = json.loads((path / "MANIFEST.json").read_text())["leaves"]
+    out = []
+    for i, m in enumerate(meta):
+        a = np.load(path / f"leaf_{i:05d}.npy")
+        if m["dtype"] == "int":
+            out.append(int(a))
+            continue
+        t = torch.from_numpy(a)
+        out.append(t.view(torch.bfloat16) if m["dtype"] == "bfloat16" else t)
+    return out
+
+
+def _ts_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of the train_sharded phase (a spawned process; ranks share
+    cuda:0 over gloo). Saves its record to ``tmp``; every check raises."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.optim.adamw import OptimConfig
+    from repro_torch.train import steps
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    torch.cuda.set_device(0)
+    m21 = mesh_lib.make_mesh(
+        (2, 1), ("data", "model"), device="cuda",
+        init_method=f"file://{tmp}/rdzv", rank=rank, world_size=world,
+        timeout_s=TS_JOIN_S)
+    m12 = mesh_lib.make_mesh((1, 2), ("data", "model"), device="cuda")
+    cfg = configs.get_config(TS_ARCH)
+    ocfg = OptimConfig(lr=3e-4, warmup_steps=max(TRAIN_STEPS // 20, 1),
+                       total_steps=TRAIN_STEPS)
+    dcfg = synthetic.for_model(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=TS_SEED)
+    batches = [synthetic.batch_at(dcfg, i, device="cuda")
+               for i in range(TRAIN_STEPS)]
+    rec = dict(rank=rank, backend=m21.backend, steps=[])
+    t0 = time.perf_counter()
+    twin = _ts_twin(torch, cfg, ocfg, batches, m21) if rank == 0 else None
+    m21.barrier()
+    rec["twin_s"] = time.perf_counter() - t0
+
+    # the gradient each step reduces, seen where the update takes it
+    seen = {}
+    update = steps.sharded_update
+
+    def tap(ocfg_, state_, grads, gnorm, mesh_, params=None):
+        seen["grads"] = grads
+        return update(ocfg_, state_, grads, gnorm, mesh_, params)
+    steps.sharded_update = tap
+
+    counters = _counters()
+    for mod in counters.values():
+        mod.launches = 0
+    fk.backward_calls = 0
+
+    def run_step(mesh, step_fn, state, i):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        n0, b0, c0 = (counters["flash_attention"].launches,
+                      fk.backward_calls, mesh.collectives)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step_fn(state, batches[i])
+        torch.cuda.synchronize()
+        out = dict(step=i + 1, mesh=dict(mesh.shape),
+                   ms=1e3 * (time.perf_counter() - t),
+                   loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   collectives=mesh.collectives - c0,
+                   attention_launches=(counters["flash_attention"].launches
+                                       - n0),
+                   backward_calls=fk.backward_calls - b0,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated())
+        if not out["attention_launches"] == out["backward_calls"] == \
+                cfg.n_layers:
+            raise AssertionError(f"train_sharded step {i + 1} on rank "
+                                 f"{rank}: {out}")
+        rec["steps"].append(out)
+        return state, m
+
+    # (data 2, model 1): steps 1 and 2, each reduced gradient held on rank
+    # 0 to the twin's gradient at the mesh's params, taken before the step
+    state = sharding.shard_state(
+        steps.init_train_state(cfg, ocfg, TS_SEED, "cuda"), m21)
+    step21 = steps.make_train_step(cfg, ocfg, mesh=m21)
+    worst, where, dropped, ref_loss = [], [], [], []
+    for i in range(2):
+        # the twin's launches compare, and count on no path
+        held = counters["flash_attention"].launches, fk.backward_calls
+        ref = _ts_twin_at(torch, cfg, state, m21, batches[i], i + 1)
+        counters["flash_attention"].launches, fk.backward_calls = held
+        state, m = run_step(m21, step21, state, i)
+        if ref is not None:
+            loss, want, drop = ref
+            ratio, shape = _ts_grad_ratio(tree_leaves(seen["grads"]), want)
+            if not ratio <= 1:
+                raise AssertionError(f"train_sharded step {i + 1}: a "
+                                     f"reduced gradient leaf {shape} is "
+                                     f"{ratio} of its limit off the twin's")
+            if not abs(float(m["loss"]) - loss) <= TS_LOSS_RTOL * abs(loss):
+                raise AssertionError(f"train_sharded step {i + 1}: loss "
+                                     f"{float(m['loss'])}, twin {loss}")
+            worst.append(ratio)
+            where.append(list(shape))
+            dropped.append(drop)
+            ref_loss.append(loss)
+        seen.clear()
+    if twin is not None:
+        rec["twin"] = dict(loss=twin["loss"], grad_norm=twin["grad_norm"],
+                           update_blocks_checked=twin[
+                               "update_blocks_checked"],
+                           loss_at_mesh_params=ref_loss,
+                           worst_grad_err_over_limit=worst,
+                           worst_grad_leaf=where,
+                           dropped_half_over_limit=dropped)
+        del twin
+
+    # save from (2, 1), restore onto (1, 2)
+    ck = Path(tmp) / "ck"
+    mgr = CheckpointManager(str(ck), keep_last=1)
+    c0 = m21.collectives
+    t = time.perf_counter()
+    mgr.save(2, state, extra={"data_step": 2}, mesh=m21)
+    rec["save_s"] = time.perf_counter() - t
+    rec["save_collectives"] = m21.collectives - c0
+    t = time.perf_counter()
+    got, restored, _ = mgr.restore_resharded(state, m12)
+    torch.cuda.synchronize()
+    rec["restore_s"] = time.perf_counter() - t
+    del state
+    saved = _saved_leaves(torch, ck / "step_00000002")
+    for a, w in zip(tree_leaves(restored), saved):
+        if isinstance(a, sharding.Shard):
+            w = w[sharding.block_slices(m12, w.shape, a.spec)]
+            ok = torch.equal(a.local.cpu(), w)
+        else:
+            ok = a == w if not isinstance(a, torch.Tensor) \
+                else torch.equal(a.cpu(), w)
+        if not (got == 2 and ok):
+            raise AssertionError(f"train_sharded: rank {rank}'s restored "
+                                 "block differs from the saved state")
+    rec["restored_bit_equal"] = True
+    if rank != 0:
+        del saved
+
+    # (data 1, model 2): step 3 from the restored state
+    state3, m3 = run_step(m12, steps.make_train_step(cfg, ocfg, mesh=m12),
+                          restored, 2)
+    steps.sharded_update = update
+    rec["launches"] = {k: mod.launches for k, mod in counters.items()}
+    rec["backward_calls"] = fk.backward_calls
+    del restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    m12.barrier()
+
+    # the twin's step 3 from the restored state, on rank 0; each rank's
+    # block of it (rank 1's sent through an exact integer sum) torch.equal
+    # to the mesh's
+    full = None
+    if rank == 0:
+        start = tree_unflatten(state3, [
+            x.to("cuda") if isinstance(x, torch.Tensor) else x
+            for x in saved])
+        del saved
+        full, tm3 = steps.make_train_step(cfg, ocfg)(start, batches[2])
+        del start
+        if (float(tm3["loss"]), float(tm3["grad_norm"])) != \
+                (float(m3["loss"]), float(m3["grad_norm"])):
+            raise AssertionError(f"train_sharded step 3: loss, grad norm "
+                                 f"{float(m3['loss'])}, "
+                                 f"{float(m3['grad_norm'])}; twin "
+                                 f"{float(tm3['loss'])}, "
+                                 f"{float(tm3['grad_norm'])}")
+        full = tree_leaves(full)
+    peers = [_coords_view(m12, r) for r in range(m12.size)]
+    for i, a in enumerate(tree_leaves(state3)):
+        if not isinstance(a, sharding.Shard):
+            if full is not None and not (
+                    a == full[i] if not isinstance(a, torch.Tensor)
+                    else torch.equal(a, full[i])):
+                raise AssertionError("train_sharded step 3: a replicated "
+                                     "leaf differs from the twin's")
+            continue
+        for r in range(1, m12.size):
+            sl = sharding.block_slices(peers[r], a.shape, a.spec)
+            buf = torch.zeros(tuple(s.stop - s.start for s in sl),
+                              dtype=a.local.dtype, device="cuda")
+            if full is not None:
+                buf.copy_(full[i][sl])
+            m12.sum_bytes(buf)
+            if rank == r and not torch.equal(buf, a.local):
+                raise AssertionError(f"train_sharded step 3: rank {r}'s "
+                                     "block differs from the twin's")
+        if full is not None and not torch.equal(
+                a.local, full[i][sharding.block_slices(m12, a.shape,
+                                                       a.spec)]):
+            raise AssertionError("train_sharded step 3: rank 0's block "
+                                 "differs from the twin's")
+    rec["step3_bit_equal"] = True
+    rec["collectives"] = m21.collectives + m12.collectives
+    torch.save(rec, f"{tmp}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def phase_train_sharded(torch, smi):
+    """Training across ranks (``train.steps.make_sharded_train_step``,
+    ``checkpoint.manager`` from a mesh, ``restore_resharded``):
+    full-width olmo-1b at global batch TRAIN_BATCH and sequence TRAIN_SEQ
+    from the port's init, on 2 spawned ranks sharing cuda:0 over gloo.
+    Rank 0 first runs a one-process twin's steps 1 and 2 alone (the
+    mesh's AdamW update of its gradient bit-equal on every rank's block);
+    then 2 steps on (data 2, model 1), each reduced gradient within
+    TS_GRAD_RTOL of the twin's gradient at the mesh's params before the
+    step (gathered whole), a limit that the gradient of rank 0's half
+    batch alone must fail; a save from that mesh; a restore onto
+    (data 1, model 2), every rank's blocks bit-equal to the saved state as
+    written; step 3 there, every block `torch.equal` to the twin's step 3
+    from the restored state. Every step launches 16 attentions and 16
+    backward calls on every rank, counted from the first mesh step to the
+    last. Then the SMOKE CLI with ``--model-parallel 2`` under ``python
+    -m torch.distributed.run`` (2 ranks, cuda:0) must exit 0 and print the
+    mesh line once."""
+    import shutil
+    import torch.multiprocessing as mp
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = ROOT / "build" / "train_sharded"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_ts_rank, args=(r, TS_WORLD, str(tmp)))
+             for r in range(TS_WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(TS_JOIN_S)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * TS_WORLD:
+        raise AssertionError(f"train_sharded ranks exited {codes}")
+    command_s = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+             for r in range(TS_WORLD)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches, bwd = {}, 0
+    for rec in ranks:
+        if not (rec["restored_bit_equal"] and rec["step3_bit_equal"]):
+            raise AssertionError(f"train_sharded rank {rec['rank']}: {rec}")
+        _add_launches(launches, rec.pop("launches"))
+        bwd += rec.pop("backward_calls")
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(TS_WORLD), "-m", "repro_torch.launch.train",
+         "--model-parallel", "2", "--steps", "3", "--global-batch", "2",
+         "--seq", "16", "--device", "cuda"], capture_output=True, text=True,
+        timeout=TS_JOIN_S, env=env, cwd=ROOT)
+    if cli.returncode != 0 or cli.stdout.count(TS_CLI_MESH) != 1 or \
+            cli.stdout.count("[train] done") != 1:
+        raise AssertionError(f"train_sharded CLI exited {cli.returncode}:\n"
+                             f"{cli.stdout[-2000:]}\n{cli.stderr[-2000:]}")
+    return dict(arch=TS_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                world=TS_WORLD, card=smi, command_s=command_s, ranks=ranks,
+                launches=launches, backward_calls=bwd,
+                cli=dict(wall_s=time.perf_counter() - t0,
+                         mesh_line=TS_CLI_MESH),
+                energy=[],
+                note="ms: host wall of one train step ended by a "
+                     "synchronize (the first includes warm-up); "
+                     "peak_mem_bytes: max_memory_allocated over that step "
+                     "in the rank's process; collectives: the rank's "
+                     "calls that step; twin_s: rank 0's one-process twin "
+                     "and its update checks (rank 1 waits)")
+
+
 # ----------------------------------------------- decode paths (slice 13)
 def _recording_contexts(transformer):
     """Patch ``transformer.ExecContext`` with a subclass that keeps every
@@ -3413,8 +3870,11 @@ DECODE_PATHS = {"olmo-1b": ("drift_decode", "ar+drift", _drift_decode),
 
 
 # ------------------------------------------------------ sharded serving
+# denoising steps of the sharded phase's requests (10 until the
+# train_sharded phase needed its time; steps 2 and 3 are faulted)
+SHARDED_STEPS = 4
 SHARDED_ARGV = ["--arch", ARCH, "--no-smoke", "--batch", str(BUCKET),
-                "--steps", str(SERVE_STEPS), "--requests", "2", "--op",
+                "--steps", str(SHARDED_STEPS), "--requests", "2", "--op",
                 "undervolt", "--mode", "drift", "--device", "cuda"]
 SHARDED_WORLD = 2
 SHARDED_JOIN_S = 600
@@ -3491,8 +3951,8 @@ def _equal_view(torch, got, want) -> bool:
 
 def phase_sharded(torch, smi):
     """Serving across ranks (``serving.sharded``): the serve phase's 2
-    full-width DiT-XL/2-512 requests (bucket 2, 10 steps, drift at
-    undervolt, its seeded weights) in one process, then on a (data 2,
+    full-width DiT-XL/2-512 requests (bucket 2, SHARDED_STEPS steps, drift
+    at undervolt, its seeded weights) in one process, then on a (data 2,
     model 1) and a (data 1, model 2) mesh of 2 spawned ranks that share
     cuda:0 over gloo (NCCL refuses two ranks on one card). Every rank's
     latents, heatmap of detections, corrected counts, monitor state and
@@ -3583,7 +4043,7 @@ def phase_sharded(torch, smi):
     if cli.returncode != 0 or cli.stdout.count(mesh_line) != 1:
         raise AssertionError(f"sharded CLI exited {cli.returncode}:\n"
                              f"{cli.stdout[-2000:]}\n{cli.stderr[-2000:]}")
-    return dict(arch=ARCH, bucket=BUCKET, steps=SERVE_STEPS,
+    return dict(arch=ARCH, bucket=BUCKET, steps=SHARDED_STEPS,
                 world=SHARDED_WORLD, card=smi,
                 single=dict(wall_s=single_wall, peak_mem_bytes=single_peak,
                             launches=single_launches,
@@ -3606,9 +4066,9 @@ def kernel_summary(kernels_out, path_launches, backward_calls):
     """One row per TPU kernel of the repo. ``launches`` sums the counts
     of the paths that ran (``launches_by_path``). ``mha_flash`` launches
     nothing of its own: its row carries the ``flash_attention`` launches
-    of the ar, lm, moe, ssm and train paths, all made through it, and the
-    train path's backward calls (the plain version's gradient, recomputed;
-    ``backward_calls_by_path``). The composites keep no count
+    of the ar, lm, moe, ssm, train and train_sharded paths, all made
+    through it, and the train paths' backward calls (the plain version's
+    gradient, recomputed; ``backward_calls_by_path``). The composites keep no count
     (``launches`` null): each call's launches are counted under the
     kernels it calls."""
     (abft_rows, rb_rows, fl_rows, fi_rows, mha_rows, stat_row, drift_row,
@@ -3680,10 +4140,11 @@ def kernel_summary(kernels_out, path_launches, backward_calls):
                  mha["library_ms"],
                  counted="flash_attention",
                  paths=("ar", "ar+drift", "lm", "lm+mixed", "moe", "ssm",
-                        "train"),
+                        "train", "train_sharded"),
                  note="the flash_attention launches of the ar, ar+drift, "
-                      "lm, lm+mixed, moe, ssm and train paths, each made "
-                      "through mha_flash; not a kernel of its own"),
+                      "lm, lm+mixed, moe, ssm, train and train_sharded "
+                      "paths, each made through mha_flash; not a kernel "
+                      "of its own"),
              backward_calls=sum(backward_calls.values()) if backward_calls
              else None, backward_calls_by_path=backward_calls,
              lm_shapes=[{k: r.get(k) for k in (
@@ -3759,7 +4220,8 @@ def main(argv=None) -> int:
         elif phase == "reference":
             rec.update(phase_reference(torch))
         elif phase in ("serve", "offload", "sched", "ar", "lm", "moe",
-                       "ssm", "baselines", "families", "sharded", "train"):
+                       "ssm", "baselines", "families", "sharded", "train",
+                       "train_sharded"):
             out = (phase_serve(torch) if phase == "serve"
                    else phase_offload(torch, smi) if phase == "offload"
                    else phase_sched(torch, smi) if phase == "sched"
@@ -3770,6 +4232,8 @@ def main(argv=None) -> int:
                    else phase_baselines(torch) if phase == "baselines"
                    else phase_sharded(torch, smi) if phase == "sharded"
                    else phase_train(torch, smi) if phase == "train"
+                   else phase_train_sharded(torch, smi)
+                   if phase == "train_sharded"
                    else phase_families(torch, args.reps))
             path_launches[phase] = out["launches"]
             path_launches.update(out.pop("extra_launches", {}))
@@ -3780,8 +4244,8 @@ def main(argv=None) -> int:
                 path_launches["offload+steady"] = out["steady_launches"]
             if phase == "sched":
                 path_launches["sched+auto"] = out["auto_launches"]
-            if phase == "train":
-                backward_calls["train"] = out["backward_calls"]
+            if phase in ("train", "train_sharded"):
+                backward_calls[phase] = out["backward_calls"]
             energy_recs += out.pop("energy")
             rec.update(out)
         rec["wall_s"] = time.perf_counter() - t0

@@ -14,6 +14,12 @@ pipeline's state is the step alone (see ``checkpoint.manager``); the
 batch then moves to ``device``, so the card trains on the CPU's numbers.
 The reference draws from JAX's threefry, which cannot be replayed here:
 the two pipelines follow one law but give different numbers.
+
+On a mesh every rank draws the GLOBAL batch of a step and the sharded
+train step takes the rank's rows of it by ``sharding.batch_spec``
+(``sharding.batch_rows``), as the reference's launcher hands the global
+batch to its sharded step; ``shard``/``num_shards`` draw other data
+(from the generator keyed by the shard) and are not a mesh's rows.
 """
 from __future__ import annotations
 

@@ -10,7 +10,9 @@ the places where the data ranks must agree, each a helper here:
 
 * ``gather(tree)``: the ``sharding.Shard`` leaves of a block's weights,
   made whole at the block boundary (``dit.forward``, ``unet.forward`` and
-  ``transformer``'s layer loops). Weights rest sharded (FSDP on ``data``,
+  ``transformer``'s layer loops); with an explicit mesh, a train state's
+  params and moments (``train.steps``, ``checkpoint.manager``), which
+  run under no policy. Weights rest sharded (FSDP on ``data``,
   tensor parallel on ``model``) and are gathered whole, so every GEMM
   computes what the single-device engine computes, bit for bit.
 * ``data_amax``, ``data_sum``: what the single-device engine computes over
@@ -116,7 +118,10 @@ def get_policy() -> Optional[MeshPolicy]:
 
 
 # ------------------------------------------------------------- weights
-_ALIGN = 16     # bytes; every weight's region in the packed buffer
+# bytes; every weight's region in the packed buffer starts at a multiple
+# of the caching allocator's 512, so a library GEMM picks the kernel it
+# picks for the weight on one device (cuBLAS reads pointer alignment)
+_ALIGN = 512
 
 
 def _owns(mesh, s: sharding.Shard) -> bool:
@@ -149,16 +154,19 @@ def _gather_shards(mesh, shards: List[sharding.Shard]) -> List[torch.Tensor]:
     return fulls
 
 
-def gather(tree: Any) -> Any:
-    """``tree`` with every ``Shard`` leaf gathered whole (the block
-    boundary's anchor), all in one collective; without a policy, or
-    without a shard in it, ``tree`` itself."""
-    if _POLICY is None:
-        return tree
+def gather(tree: Any, mesh=None) -> Any:
+    """``tree`` with every ``Shard`` leaf gathered whole over ``mesh`` (by
+    default the policy's: the block boundary's anchor), all in one
+    collective; without a mesh or a policy, or without a shard in it,
+    ``tree`` itself."""
+    if mesh is None:
+        if _POLICY is None:
+            return tree
+        mesh = _POLICY.mesh
     shards = [x for x in tree_leaves(tree) if isinstance(x, sharding.Shard)]
     if not shards:
         return tree
-    fulls = iter(_gather_shards(_POLICY.mesh, shards))
+    fulls = iter(_gather_shards(mesh, shards))
     return tree_map(lambda x: next(fulls)
                     if isinstance(x, sharding.Shard) else x, tree)
 

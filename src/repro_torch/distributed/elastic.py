@@ -2,7 +2,9 @@
 
 A copy of ``repro.distributed.elastic``, which is pure Python: the port
 keeps its own copy rather than importing the reference's package. The
-train launcher prints ``plan_mesh``'s plan for its one device.
+train launcher lays ``plan_mesh``'s plan for its ranks over them
+(``launch.mesh.make_mesh``), and a resume goes through
+``CheckpointManager.restore_resharded`` onto that mesh.
 
 This module holds the *decision logic* (pure, unit-testable); the actuation
 is launch-level (re-create the mesh, restore-resharded from the checkpoint

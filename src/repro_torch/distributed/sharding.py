@@ -10,7 +10,8 @@ A spec is a tuple with one entry per dim: ``None``, an axis name, or a
 tuple of names, laid out as ``jax.sharding.PartitionSpec`` (a tuple
 subclass, so the two compare with ``==``). A *mesh* here is anything with
 ``axis_names`` and a ``shape`` mapping name -> size: the port's
-``launch.mesh.ServingMesh``, or a JAX ``AbstractMesh`` in the tests.
+``launch.mesh.Mesh`` (``coords`` too, for a rank's blocks), or a JAX
+``AbstractMesh`` in the tests.
 
 Param paths are the ``"/"``-joined keys of the port's trees. They match
 the reference's but for two things, both mapped here: the port keeps
@@ -24,7 +25,11 @@ the rule's last entry, as any 1-D leaf does.
 The serving engine holds its weights at rest as ``Shard`` leaves
 (``shard_tree``): each rank keeps its block of every weight, and the
 models gather a block's weights where they use them
-(``distributed.constraints.gather``).
+(``distributed.constraints.gather``). A train state on a mesh holds its
+params and optimizer moments the same way (``state_specs``,
+``shard_state``; ``constraints.gather`` makes them whole), the
+counterpart of the reference's ``shardings_for(state, mesh)``; a rank
+takes its rows of the global batch by ``batch_spec`` (``batch_rows``).
 """
 from __future__ import annotations
 
@@ -34,6 +39,8 @@ import re
 from typing import Any, Optional, Tuple
 
 import torch
+
+from repro_torch.tree import tree_leaves, tree_map
 
 Spec = Tuple[Any, ...]
 
@@ -255,3 +262,74 @@ def shard_tree(tree: Any, mesh) -> Any:
         return shard_tensor(leaf, spec_for_param(path, tuple(leaf.shape),
                                                  mesh), mesh)
     return _walk(tree, one)
+
+
+# ---------------------------------------------------------- train state
+def state_specs(state: Any, mesh) -> Any:
+    """The spec tree of a train state (``train.steps.TrainState``), as the
+    reference's ``param_specs`` gives it over its ``TrainState``: a named
+    tuple's fields add nothing to a path (JAX's path string drops
+    attribute keys), so the params, AdamW's ``mu``/``nu`` and Adafactor's
+    ``vr``/``vc`` take their param's rule by path, fixed up for their own
+    shapes; host ints (the steps, the seed) are replicated."""
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(state_specs(v, mesh) for v in state))
+    return param_specs(state, mesh)
+
+
+def shard_state(state: Any, mesh) -> Any:
+    """``state`` with each tensor of rank >= 1 replaced by this rank's
+    ``Shard`` of it, by ``state_specs``; scalars and host ints stay
+    whole."""
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(shard_state(v, mesh) for v in state))
+    return shard_tree(state, mesh)
+
+
+def local(tree: Any) -> Any:
+    """``tree`` with each ``Shard`` replaced by this rank's block."""
+    return tree_map(lambda x: x.local if isinstance(x, Shard) else x, tree)
+
+
+def block_of(tree: Any, like: Any, mesh) -> Any:
+    """This rank's block of each whole tensor of ``tree`` where ``like``
+    holds a ``Shard`` (by that shard's spec; a view, not a copy)."""
+    leaves = iter(tree_leaves(like))
+    return tree_map(lambda x: _block(x, next(leaves), mesh), tree)
+
+
+def rewrap(blocks: Any, like: Any) -> Any:
+    """``blocks`` (this rank's blocks, where ``like`` holds a ``Shard``) as
+    ``Shard`` leaves with ``like``'s shapes and specs."""
+    leaves = iter(tree_leaves(like))
+
+    def one(x):
+        s = next(leaves)
+        return Shard(x, s.shape, s.spec) if isinstance(s, Shard) else x
+    return tree_map(one, blocks)
+
+
+def reshard_like(tree: Any, like: Any, mesh) -> Any:
+    """``tree``'s whole tensors as this rank's ``Shard`` of them where
+    ``like`` holds a ``Shard``, by its spec."""
+    leaves = iter(tree_leaves(like))
+
+    def one(x):
+        s = next(leaves)
+        return shard_tensor(x, s.spec, mesh) if isinstance(s, Shard) else x
+    return tree_map(one, tree)
+
+
+def _block(x, s, mesh):
+    if not isinstance(s, Shard):
+        return x
+    return x[block_slices(mesh, x.shape, s.spec)]
+
+
+def batch_rows(n: int, mesh) -> slice:
+    """This rank's rows of a batch of ``n`` (dim 0), by ``batch_spec``:
+    its block over the (pod, data) axes when they divide ``n``, else every
+    row (the batch is replicated)."""
+    entry = batch_spec((n,), mesh)[0]
+    i, count = block_index(mesh, entry)
+    return slice(i * n // count, (i + 1) * n // count)

@@ -63,9 +63,14 @@ def global_norm(tree: Params) -> torch.Tensor:
                           for leaf in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads: Params, max_norm: float
+def clip_by_global_norm(grads: Params, max_norm: float,
+                        norm: Optional[torch.Tensor] = None
                         ) -> Tuple[Params, torch.Tensor]:
-    norm = global_norm(grads)
+    """``grads`` scaled to a global norm of at most ``max_norm``; ``norm``
+    is theirs unless given (a rank's block of the gradient, clipped by
+    the whole gradient's norm)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(_on(max_norm, norm) / torch.clamp(norm, min=1e-9),
                         max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
@@ -125,12 +130,17 @@ def _on(x, like: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply(cfg: OptimConfig, state: OptState, params: Params, grads: Params
+def apply(cfg: OptimConfig, state: OptState, params: Params, grads: Params,
+          gnorm: Optional[torch.Tensor] = None
           ) -> Tuple[Params, OptState, dict]:
     """One update. Returns (new params, new state, {"grad_norm": f32 0-d
-    tensor, "lr": f32})."""
+    tensor, "lr": f32}). ``gnorm`` is the gradient's global norm, computed
+    here unless given: a mesh rank updates its block of the params and
+    AdamW moments with the whole gradient's norm, and every AdamW step is
+    elementwise, so the block is the block of the whole update, bit for
+    bit."""
     grads = tree_map(lambda g: g.float(), grads)
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, gnorm)
     lr = lr_at(cfg, state.step)
     step = state.step + 1
 

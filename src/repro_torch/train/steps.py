@@ -7,6 +7,11 @@ optimizer update (``optim.adamw``). ``make_prefill_step`` /
 ``make_decode_step`` / ``make_denoise_step`` build the serving steps.
 The JAX package jit-compiles these functions; the port runs them eagerly.
 
+With a mesh (``make_train_step(..., mesh=)``) the step runs SPMD on the
+ranks of a ``launch.mesh.Mesh`` (``make_sharded_train_step``): params and
+moments rest as ``Shard`` leaves, each rank computes on its rows of the
+global batch, and the gradient is summed over the data axes.
+
 The train state carries a host-int ``seed`` where the reference carries a
 PRNG key: the diffusion loss draws its timesteps and noise from a CPU
 generator keyed by (seed, step), as the reference folds the step into
@@ -17,12 +22,15 @@ the same step.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.data.synthetic import generator
 from repro_torch.diffusion import schedule as sched_lib
+from repro_torch.distributed import constraints
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import dit as dit_lib
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tf_lib
@@ -91,20 +99,27 @@ def _encdec_loss(cfg: ModelConfig, params, batch
     return softmax_xent(logits, batch["tokens"][:, 1:]), {}
 
 
+def _diffusion_draws(latents: torch.Tensor, gen: Optional[torch.Generator]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The diffusion loss's (t, eps) for ``latents``: the (B,) timesteps,
+    then the noise of the latents' shape, drawn from ``gen`` on the CPU."""
+    t = torch.randint(0, sched_lib.DdpmSchedule.default(1000).num_steps,
+                      (latents.shape[0],), generator=gen)
+    return t, torch.randn(tuple(latents.shape), generator=gen)
+
+
 def _diffusion_loss(cfg: ModelConfig, params, batch,
                     gen: Optional[torch.Generator] = None,
                     t: Optional[torch.Tensor] = None,
                     eps: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Dict]:
     """Standard DDPM epsilon-prediction MSE. ``t`` (B,) and ``eps`` (the
-    latents' shape) are drawn from ``gen`` on the CPU unless given."""
+    latents' shape) are given together, or ``_diffusion_draws`` draws them
+    from ``gen``."""
     latents = batch["latents"]
-    b = latents.shape[0]
     sched = sched_lib.DdpmSchedule.default(1000)
     if t is None:
-        t = torch.randint(0, sched.num_steps, (b,), generator=gen)
-    if eps is None:
-        eps = torch.randn(tuple(latents.shape), generator=gen)
+        t, eps = _diffusion_draws(latents, gen)
     t, eps = t.to(latents.device), eps.to(latents.device)
     x_t = sched.q_sample(latents, t, eps)
     if cfg.family == "dit":
@@ -120,19 +135,22 @@ def _diffusion_loss(cfg: ModelConfig, params, batch,
     return torch.mean((pred - eps) ** 2), {}
 
 
-def loss_fn(cfg: ModelConfig, params, batch, gen: torch.Generator
+def loss_fn(cfg: ModelConfig, params, batch, gen: torch.Generator,
+            draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
             ) -> Tuple[torch.Tensor, Dict]:
-    """The family's training loss and its extras."""
+    """The family's training loss and its extras; ``draws`` is the
+    diffusion loss's (t, eps), drawn from ``gen`` unless given."""
     if cfg.family in tf_lib.FAMILIES:
         return _lm_loss(cfg, params, batch)
     if cfg.family == "encdec":
         return _encdec_loss(cfg, params, batch)
     if cfg.family in ("dit", "unet"):
-        return _diffusion_loss(cfg, params, batch, gen)
+        return _diffusion_loss(cfg, params, batch, gen, *(draws or ()))
     raise ValueError(cfg.family)
 
 
-def value_and_grad(cfg: ModelConfig, params, batch, gen: torch.Generator
+def value_and_grad(cfg: ModelConfig, params, batch, gen: torch.Generator,
+                   draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                    ) -> Tuple[torch.Tensor, Dict, Any]:
     """(loss, extras, grads): the gradient of ``loss_fn`` with respect to
     every leaf of ``params`` (zeros for a leaf the loss does not reach,
@@ -141,7 +159,7 @@ def value_and_grad(cfg: ModelConfig, params, batch, gen: torch.Generator
             for leaf in tree_leaves(params)]
     with torch.enable_grad():
         loss, extras = loss_fn(cfg, tree_unflatten(params, live), batch,
-                               gen)
+                               gen, draws)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(live, grads)]
@@ -149,35 +167,187 @@ def value_and_grad(cfg: ModelConfig, params, batch, gen: torch.Generator
             tree_unflatten(params, grads))
 
 
+def _rows_value_and_grad(cfg: ModelConfig, params, batch: Dict,
+                         gen: torch.Generator, rows: slice
+                         ) -> Tuple[torch.Tensor, Dict, Any]:
+    """``value_and_grad`` on ``rows`` of ``batch``; the diffusion loss's
+    ``t`` and ``eps`` are drawn for the whole batch (``_diffusion_draws``)
+    and cut to the same rows."""
+    draws = None
+    if cfg.family in ("dit", "unet"):
+        draws = tuple(x[rows] for x in _diffusion_draws(batch["latents"],
+                                                        gen))
+    return value_and_grad(cfg, params, {k: v[rows] for k, v in batch.items()},
+                          gen, draws)
+
+
+def _batch_grads(cfg: ModelConfig, params, batch: Dict, state: "TrainState",
+                 microbatches: int, rows_of: Callable[[int], slice]
+                 ) -> Tuple[torch.Tensor, Dict, Any, bool]:
+    """(loss, extras, grads, split) over ``batch``: with ``microbatches >
+    1`` accumulated over that many slices of it, one after another
+    (dividing the live-activation footprint by the microbatch count), each
+    drawing from the generator (seed, step, 0) as the reference's fold-in
+    of 0 does; ``rows_of(m)`` is the rows of m this rank computes of each
+    (``split``: fewer than all)."""
+    n = next(iter(batch.values())).shape[0]
+    m = n // max(microbatches, 1)
+    rows = rows_of(m)
+    split = rows.stop - rows.start < m
+    if microbatches <= 1:
+        return _rows_value_and_grad(
+            cfg, params, batch, generator(state.seed, state.step),
+            rows) + (split,)
+    grads = tree_map(torch.zeros_like, params)
+    loss = 0.0
+    for i in range(microbatches):
+        mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+        l_i, extras, g_i = _rows_value_and_grad(
+            cfg, params, mb, generator(state.seed, state.step, 0), rows)
+        grads = tree_map(torch.add, grads, g_i)
+        loss = loss + l_i
+    grads = tree_map(lambda g: g / microbatches, grads)
+    return loss / microbatches, extras, grads, split
+
+
 def make_train_step(cfg: ModelConfig, optim_cfg: optim_lib.OptimConfig,
-                    microbatches: int = 1
+                    microbatches: int = 1, mesh=None
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
     """Build the train step; ``microbatches > 1`` accumulates the gradient
     over that many slices of the batch, one after another, dividing the
-    live-activation footprint by the microbatch count."""
+    live-activation footprint by the microbatch count. With a ``mesh``
+    the step runs SPMD on its ranks (``make_sharded_train_step``)."""
+    if mesh is not None:
+        return make_sharded_train_step(cfg, optim_cfg, mesh, microbatches)
+
     def train_step(state: TrainState, batch: Dict
                    ) -> Tuple[TrainState, Dict]:
-        if microbatches <= 1:
-            loss, extras, grads = value_and_grad(
-                cfg, state.params, batch, generator(state.seed, state.step))
-        else:
-            grads = tree_map(torch.zeros_like, state.params)
-            loss = 0.0
-            for i in range(microbatches):
-                mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)
-                                   + tuple(v.shape[1:]))[i]
-                      for k, v in batch.items()}
-                l_i, extras, g_i = value_and_grad(
-                    cfg, state.params, mb,
-                    generator(state.seed, state.step, 0))
-                grads = tree_map(torch.add, grads, g_i)
-                loss = loss + l_i
-            grads = tree_map(lambda g: g / microbatches, grads)
-            loss = loss / microbatches
+        loss, extras, grads, _ = _batch_grads(
+            cfg, state.params, batch, state, microbatches,
+            lambda m: slice(0, m))
         params, opt, om = optim_lib.apply(optim_cfg, state.opt, state.params,
                                           grads)
         metrics = {"loss": loss, **extras, **om}
         return TrainState(params, opt, state.step + 1, state.seed), metrics
+
+    return train_step
+
+
+# ------------------------------------------------------ sharded train step
+class MoeDataAxisError(NotImplementedError):
+    """The MoE family on a data axis of more than one rank."""
+
+
+def _same_on_every_rank(mesh, values) -> None:
+    """Raise unless every rank holds the same bits of each f32 0-d tensor
+    in ``values`` (one integer sum of every rank's bits, in its slot)."""
+    mine = torch.stack([v.detach().float().reshape(()) for v in values])
+    slots = torch.zeros((mesh.size, len(values)), dtype=torch.int32,
+                        device=mine.device)
+    slots[mesh.rank] = mine.view(torch.int32)
+    mesh.sum_bytes(slots)
+    if not bool((slots == slots[mesh.rank]).all()):
+        raise RuntimeError(f"replicated values differ across the ranks of "
+                           f"{mesh}: {slots.view(torch.float32).tolist()}")
+
+
+def _data_size(mesh) -> int:
+    return math.prod(shd.axis_size(mesh, a) for a in shd.data_axes(mesh))
+
+
+def sharded_value_and_grad(cfg: ModelConfig, state: TrainState,
+                           batch: Dict, mesh, microbatches: int = 1
+                           ) -> Tuple[Any, torch.Tensor, Dict, Any]:
+    """(whole params, loss, extras, whole gradient) of a sharded step: the
+    params gathered whole, exactly (integer sums over their bits);
+    ``value_and_grad`` on the rank's rows of each microbatch of the GLOBAL
+    ``batch`` (``sharding.batch_rows``: a block over the (pod, data) axes,
+    or every row when they do not divide it; the diffusion draws made for
+    the whole microbatch); when the rows were split, the gradient, loss
+    and extras summed over the data axes and divided by their size (every
+    loss here is a token or element mean with no mask, so that is the
+    global batch's mean)."""
+    params = constraints.gather(state.params, mesh)
+    loss, extras, grads, split = _batch_grads(
+        cfg, params, batch, state, microbatches,
+        lambda m: shd.batch_rows(m, mesh))
+    if split:
+        dsize = _data_size(mesh)
+        grads = tree_map(lambda g: g.contiguous(), grads)
+        for g in tree_leaves(grads):
+            mesh.all_reduce(g, group=mesh.data_group).div_(dsize)
+        names = sorted(extras)
+        sums = torch.stack([loss] + [extras[k] for k in names])
+        mesh.all_reduce(sums, group=mesh.data_group).div_(dsize)
+        loss, extras = sums[0], dict(zip(names, sums[1:]))
+    return params, loss, extras, grads
+
+
+def sharded_update(optim_cfg: optim_lib.OptimConfig, state: TrainState,
+                   grads: Any, gnorm: torch.Tensor, mesh,
+                   params: Any = None) -> Tuple[Any, optim_lib.OptState,
+                                                Dict]:
+    """(new params, new optimizer state, metrics): the optimizer applied
+    with the whole gradient's norm ``gnorm``, each rank keeping its block.
+    AdamW runs on the blocks of the params, moments and ``grads`` (it is
+    elementwise, so each block is the block of the whole update, bit for
+    bit); Adafactor, whose factored statistics span whole tensors, on the
+    whole ``params`` (gathered unless given) and gathered moments, cut to
+    blocks after."""
+    opt = state.opt
+    if optim_cfg.kind == "adamw":
+        new_p, new_opt, om = optim_lib.apply(
+            optim_cfg, opt._replace(mu=shd.local(opt.mu),
+                                    nu=shd.local(opt.nu)),
+            shd.local(state.params), shd.block_of(grads, state.params, mesh),
+            gnorm=gnorm)
+        return (shd.rewrap(new_p, state.params),
+                new_opt._replace(mu=shd.rewrap(new_opt.mu, opt.mu),
+                                 nu=shd.rewrap(new_opt.nu, opt.nu)), om)
+    if params is None:
+        params = constraints.gather(state.params, mesh)
+    new_p, new_opt, om = optim_lib.apply(
+        optim_cfg, constraints.gather(opt, mesh), params, grads, gnorm=gnorm)
+    return (shd.reshard_like(new_p, state.params, mesh),
+            shd.reshard_like(new_opt, opt, mesh), om)
+
+
+def make_sharded_train_step(cfg: ModelConfig,
+                            optim_cfg: optim_lib.OptimConfig, mesh,
+                            microbatches: int = 1
+                            ) -> Callable[[TrainState, Dict],
+                                          Tuple[TrainState, Dict]]:
+    """The train step SPMD on ``mesh`` (``launch.mesh.Mesh``): the data
+    and tensor parallelism the reference's jitted step computes under
+    GSPMD. The state holds its params and moments as ``Shard`` leaves
+    (``sharding.shard_state``); the step takes the GLOBAL batch, which
+    every rank regenerates (``data.synthetic.batch_at``), and runs
+    ``sharded_value_and_grad``, checks that every rank holds the same
+    loss and gradient norm, then ``sharded_update``. On the ``model`` axis
+    alone every rank computes the whole batch and the step is bit-equal
+    to one process. The MoE family routes over the whole batch (capacity,
+    drops and the aux loss count all T tokens), so its rows cannot split:
+    on a data axis above 1 it raises ``MoeDataAxisError``."""
+    dsize = _data_size(mesh)
+    if cfg.family == "moe" and dsize > 1:
+        raise MoeDataAxisError(
+            f"{cfg.name}: MoE routing is global over the batch, so its "
+            f"rows cannot split over a data axis of {dsize}; train it on "
+            "the model axis alone (ROADMAP Queue A item 17)")
+
+    def train_step(state: TrainState, batch: Dict
+                   ) -> Tuple[TrainState, Dict]:
+        params, loss, extras, grads = sharded_value_and_grad(
+            cfg, state, batch, mesh, microbatches)
+        if optim_cfg.kind == "adamw":
+            params = None       # the update reads blocks only: free it
+        norm = optim_lib.global_norm(grads)
+        _same_on_every_rank(mesh, [loss, norm])
+        new_p, new_opt, om = sharded_update(optim_cfg, state, grads, norm,
+                                            mesh, params)
+        metrics = {"loss": loss, **extras, **om}
+        return TrainState(new_p, new_opt, state.step + 1,
+                          state.seed), metrics
 
     return train_step
 

@@ -944,3 +944,69 @@ def test_sharded_dit_on_card_bit_equal(cuda, tmp_path, model_parallel):
         assert got["monitor"] == want["monitor"]
         for a, b in zip(got["latents"], want["latents"]):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _card_train_rank(rank: int, tmp: str) -> None:
+    """One of 2 ranks sharing cuda:0 over gloo on a (data 1, model 2)
+    mesh: 2 AdamW steps of SMOKE olmo-1b, the state gathered whole."""
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import constraints, sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"), device="cuda",
+                              init_method=f"file://{tmp}/rdzv", rank=rank,
+                              world_size=2, timeout_s=300)
+    cfg = configs.get_config("olmo-1b", smoke=True)
+    ocfg = adamw.OptimConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    state = sharding.shard_state(
+        steps.init_train_state(cfg, ocfg, 0, "cuda"), mesh)
+    step = steps.make_train_step(cfg, ocfg, mesh=mesh)
+    dcfg = synthetic.for_model(cfg, 4, 16)
+    for i in range(2):
+        state, _ = step(state, synthetic.batch_at(dcfg, i, device="cuda"))
+    whole = constraints.gather(state, mesh)
+    torch.save([t.cpu() if isinstance(t, torch.Tensor) else t
+                for t in tree_leaves(whole)], f"{tmp}/rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_sharded_train_on_card_bit_equal(cuda, tmp_path):
+    """SMOKE olmo-1b on 2 ranks sharing cuda:0 over gloo as a (1, 2) mesh:
+    after 2 AdamW steps every rank's state, gathered whole, equals one
+    process's on the card."""
+    import torch.multiprocessing as mp
+    from repro_torch.data import synthetic
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+    cfg = configs.get_config("olmo-1b", smoke=True)
+    ocfg = adamw.OptimConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    state = steps.init_train_state(cfg, ocfg, 0, "cuda")
+    step = steps.make_train_step(cfg, ocfg)
+    dcfg = synthetic.for_model(cfg, 4, 16)
+    for i in range(2):
+        state, _ = step(state, synthetic.batch_at(dcfg, i, device="cuda"))
+    want = [t.cpu() if isinstance(t, torch.Tensor) else t
+            for t in tree_leaves(state)]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_card_train_rank, args=(r, str(tmp_path)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(300)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    assert [p.exitcode for p in procs] == [0, 0]
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b) if isinstance(b, torch.Tensor) \
+                else a == b
+

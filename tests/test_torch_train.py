@@ -448,8 +448,8 @@ def test_plan_mesh_and_stragglers_match_reference():
 def test_launcher_resumes_from_its_checkpoints(tmp_path, capsys):
     """Two runs into one ``--ckpt-dir``: the first trains 6 steps and saves
     at 2, 4 and 6; with step 6's checkpoint removed, the second resumes
-    from 4 and ends bit-equal to the first. ``--model-parallel 2`` raises
-    naming Queue A 13."""
+    from 4 and ends bit-equal to the first. ``--model-parallel 2`` on one
+    rank raises ``plan_mesh``'s error, as the reference's launcher does."""
     ck = tmp_path / "ck"
     base = ["--arch", "olmo-1b", "--device", "cpu", "--global-batch", "2",
             "--seq", "16", "--ckpt-every", "2", "--log-every", "1",
@@ -469,5 +469,7 @@ def test_launcher_resumes_from_its_checkpoints(tmp_path, capsys):
     for a, b in zip(tree_leaves(resumed), tree_leaves(straight)):
         assert (a == b) if not isinstance(a, torch.Tensor) \
             else torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="Queue A item 13"):
+    with pytest.raises(ValueError, match="1 devices cannot keep TP=2"):
         train_cli.main(base + ["--model-parallel", "2"])
+    with pytest.raises(ValueError, match="1 devices cannot keep TP=2"):
+        jelastic.plan_mesh(1, 2)
