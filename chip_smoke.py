@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases device,build,kernels,train
     python3 chip_smoke.py --phases device,build,sharded
     python3 chip_smoke.py --phases device,build,train_sharded
+    python3 chip_smoke.py --phases device,build,roofline,examples
 
 Phases, each printing one JSON line with its wall time:
 
@@ -270,6 +271,20 @@ Phases, each printing one JSON line with its wall time:
                seconds. Then the SMOKE CLI with ``--model-parallel 2``
                under ``python -m torch.distributed.run`` (2 ranks) exits 0
                and prints the mesh line once.
+13. roofline -- three card paths: the full-width DiT's drift evaluation
+               at bucket 2 (``dryrun.drift_sample_step``), full-width
+               olmo-1b's train step at batch 8, seq 128, and its
+               stat_abft decode step at bucket 2. Each is counted by
+               ``launch.op_analysis`` on meta tensors and again on the
+               card with its kernels launched: FLOPs, int8 ops and bytes
+               must be equal. Each is timed (synchronised, the median of
+               5 after a warm-up) and printed with its dominant term,
+               bound on ``perfmodel.hw.H100_SXM`` and share bound /
+               measured, which must not pass 1.05.
+14. examples -- ``python -m repro_torch.examples.quickstart`` and
+               ``drift_serve --requests 2 --batch 2 --steps 3`` on the
+               card at SMOKE, as subprocesses started together: each
+               must exit 0.
 
 Every DiT and olmo-1b result carries the perfmodel's attribution; each
 must bill a ledger whose ``ledger_total`` equals its ``energy_j`` bit for
@@ -300,14 +315,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "reference", "serve", "offload",
           "sched", "ar", "lm", "moe", "ssm", "baselines", "families",
-          "sharded", "train", "train_sharded")
+          "sharded", "train", "train_sharded", "roofline", "examples")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, int8 and bf16
-# tensor-core rates, float32 rate outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-BF16_FLOPS_PER_S = 989e12
-F32_FLOPS_PER_S = 67e12
+# tensor-core rates, float32 rate outside the tensor cores; read from
+# ``perfmodel.hw.H100_SXM`` once the package is on the path (``_peaks``).
+HBM_BYTES_PER_S = INT8_OPS_PER_S = BF16_FLOPS_PER_S = F32_FLOPS_PER_S = None
 L2_BYTES = 50 * 2 ** 20
 
 ARCH = "dit-xl-512"
@@ -414,6 +427,17 @@ def device_ms(fn, ring, reps: int, name=""):
         return total_us / 1e3 / reps
     TIMERS.add("cuda events (profiler saw no device time)")
     return time_ms(fn, ring, reps)
+
+
+def _peaks() -> None:
+    """The card's peaks from ``perfmodel.hw.H100_SXM``."""
+    global HBM_BYTES_PER_S, INT8_OPS_PER_S, BF16_FLOPS_PER_S, \
+        F32_FLOPS_PER_S
+    from repro_torch.perfmodel.hw import H100_SXM as hw
+    HBM_BYTES_PER_S = hw.hbm_bytes_per_s
+    INT8_OPS_PER_S = hw.peak_ops_int8
+    BF16_FLOPS_PER_S = hw.peak_flops_bf16
+    F32_FLOPS_PER_S = hw.peak_flops_f32
 
 
 def flops_per_s(dtype) -> float:
@@ -531,9 +555,8 @@ def _abft_rb_rows(torch, g, src, site, name, mkn, valid, reps):
             bad = int((a != b).sum())
             raise AssertionError(f"abft_matmul {name} ({m}x{k}x{n}): "
                                  f"{label} differs in {bad} elements")
-    mt, nt = m // 32, n // 32
-    bytes_ = m * k + k * n + 4 * m * n + 4 * m * n + 8 * m * nt + 8 * mt * n
-    ops = 2 * m * n * k + 2 * m * k * nt + 2 * mt * k * n
+    work = ak.work(m, k, n)
+    bytes_, ops = work["bytes"], work["int8_ops"]
     t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
     ring = ring_of((aq, bq, flips), bytes_)
     try:
@@ -572,9 +595,7 @@ def _abft_rb_rows(torch, g, src, site, name, mkn, valid, reps):
         if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
             raise AssertionError(f"rollback_correct {name} union={union}"
                                  " differs from its plain version")
-    # Per element one f32 read (ckpt where masked, else c) and one f32
-    # write; the row and column differences; the per-tile count.
-    rbytes = 8 * m * n + 4 * m * nt + 4 * mt * n + 4 * mt * nt
+    rbytes = rk.work(m, n)["bytes"]
     ring = ring_of((c, ckpt, rd, cd), rbytes)
 
     def rb(c_, ck_, rd_, cd_):
@@ -654,8 +675,8 @@ def phase_kernels(torch, reps: int):
                 raise AssertionError(
                     f"{label} {dtype} at {(b, s, h, d)}: max abs err "
                     f"{max_abs_err([out], [want])} beyond {tol}")
-        flops = 4 * b * h * s * s * d
-        bytes_ = 4 * q.numel() * q.element_size()
+        work = fk.work(b, s, h, h, d, q.element_size())
+        flops, bytes_ = work["flops"], work["bytes"]
         t_o, t_b = flops / flops_per_s(dtype), bytes_ / HBM_BYTES_PER_S
         ring = ring_of((q, k, v), bytes_)
         # SDPA on (B, H, S, D) transposed views of the same inputs.
@@ -767,7 +788,8 @@ def phase_kernels_ar(torch, reps: int):
             wall_ms=time_ms(fik.fault_inject, ring, fr),
             plain_ms=device_ms(fik.fault_inject_plain, ring, fr),
             library_ms=device_ms(xor, ring, fr),
-            bound_ms=1e3 * 12 * n / HBM_BYTES_PER_S, bound_by="bytes"))
+            bound_ms=1e3 * fik.work(n)["bytes"] / HBM_BYTES_PER_S,
+            bound_by="bytes"))
         fi_rows[-1]["library_ratio"] = fi_rows[-1]["ms"] / \
             fi_rows[-1]["library_ms"]
         del ring
@@ -790,10 +812,10 @@ def phase_kernels_ar(torch, reps: int):
         if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
             raise AssertionError(f"mha_flash {dtype} at {(b, s, h, d)}: max "
                                  f"abs err {err} beyond {tol}")
-        pairs = s * (s + 1) // 2                  # causal (query, key)
-        flops = 4 * b * h * d * pairs
+        work = fk.work(b, s, h, h, d, q.element_size(), causal=True)
+        flops = work["flops"]
         t_o = flops / flops_per_s(dtype)
-        t_b = 4 * b * s * h * d * q.element_size() / HBM_BYTES_PER_S
+        t_b = work["bytes"] / HBM_BYTES_PER_S
         ring = ring_of((q, k, v), 4 * q.numel() * q.element_size())
         lib_ring = [tuple(x.transpose(1, 2) for x in r) for r in ring]
 
@@ -842,8 +864,8 @@ def phase_kernels_ar(torch, reps: int):
         torch.cuda.synchronize()
         err = max(err, _check_equal(f"stat_abft_matmul threshold {thr}",
                                     got, want))
-    sbytes = m * kk + kk * n + 8 * m * n + m * (n // bn)
-    sops = 2 * m * n * kk + 2 * m * kk * (n // bn)
+    work = sk.work(m, kk, n, bn)
+    sbytes, sops = work["bytes"], work["int8_ops"]
     ring = ring_of((aq, bq, flips), sbytes)
 
     def stat(a, b_, f):
@@ -874,9 +896,8 @@ def phase_kernels_ar(torch, reps: int):
     want = ops.drift_gemm_plain(x, w, ckpt, dflips)
     torch.cuda.synchronize()
     err = _check_equal("drift_gemm", got, want)
-    nt, mt = n // 32, m // 32
-    dbytes = 4 * m * kk + 4 * kk * n + 12 * m * n + 4 * m * nt + 4 * mt * n
-    dops = 2 * m * n * kk + 2 * m * kk * nt + 2 * mt * kk * n
+    work = ops.work(m, kk, n)
+    dbytes, dops = work["bytes"], work["int8_ops"]
     t_b, t_o = dbytes / HBM_BYTES_PER_S, dops / INT8_OPS_PER_S
     ring = ring_of((x, w, ckpt, dflips), dbytes)
     drift_row = dict(shape=[m, kk, n], flagged_tiles=int(got.n_flagged_tiles),
@@ -960,16 +981,6 @@ BWD_ROWS = ("whisper-base encoder self-attention",) + TRAIN_ATTN_ROWS
 UNET_REPS = 5           # the UNet rows: this many times --reps launches
 
 
-def attn_pairs(s: int, causal: bool, window: int) -> int:
-    """(query, key) pairs one head attends: causal and window clipped."""
-    total = 0
-    for r in range(s):
-        lo = max(0, r - window + 1) if window > 0 else 0
-        hi = r if causal else s - 1
-        total += hi - lo + 1
-    return total
-
-
 def flex_softcap(torch, s: int, window: int, cap: float, dev):
     """The library call that computes a causal, softcapped row's function:
     ``flex_attention`` with the cap as its ``score_mod`` (which sees the
@@ -1029,7 +1040,7 @@ def _backward_times(torch, F, fk, q, k, v, causal: bool, reps: int):
     ms = device_ms(bwd, [()], reps)
     calls = fk.backward_calls - n0
     lib_ms = device_ms(lib_bwd, [()], reps)
-    pairs = attn_pairs(s, causal, 0)
+    pairs = fk.attn_pairs(s, causal, 0)
     t_o = 10 * b * h * d * pairs / BF16_FLOPS_PER_S
     t_b = 8 * b * s * h * d * q.element_size() / HBM_BYTES_PER_S
     return dict(bwd_ms=ms, bwd_library_ms=lib_ms,
@@ -1103,9 +1114,9 @@ def phase_kernels_lm(torch, reps: int):
                                      f"passes the plain version without "
                                      f"its last {partial} keys")
             del dropped
-        pairs = attn_pairs(s, causal, window)
-        flops = 4 * b * h * d * pairs
-        bytes_ = 2 * b * s * d * (2 * h + 2 * hkv)
+        pairs = fk.attn_pairs(s, causal, window)
+        work = fk.work(b, s, h, hkv, d, 2, causal, window)
+        flops, bytes_ = work["flops"], work["bytes"]
         t_o, t_b = flops / BF16_FLOPS_PER_S, bytes_ / HBM_BYTES_PER_S
         ring = ring_of((q, k, v), bytes_)
         r = reps * (UNET_REPS if label.startswith("sd15") else 1)
@@ -2707,10 +2718,8 @@ def _family_kernel_rows(torch, reps: int):
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"abft_matmul {name} differs from its "
                                  "plain version")
-        mt, nt = m // 32, n // 32
-        bytes_ = (m * k + k * n + 4 * m * n + 4 * m * n + 8 * m * nt
-                  + 8 * mt * n)
-        ops = 2 * m * n * k + 2 * m * k * nt + 2 * mt * k * n
+        work = ak.work(m, k, n)
+        bytes_, ops = work["bytes"], work["int8_ops"]
         t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
         ring = ring_of((aq, bq, flips), bytes_)
         try:
@@ -2740,8 +2749,8 @@ def _family_kernel_rows(torch, reps: int):
                               rtol=1e-2):
             raise AssertionError(f"mha_flash at {shape}: max abs err "
                                  f"{max_abs_err([got], [want])}")
-        flops = 4 * b * h * s_ * s_ * d
-        bytes_ = 4 * q.numel() * q.element_size()
+        work = fk.work(b, s_, h, h, d, q.element_size())
+        flops, bytes_ = work["flops"], work["bytes"]
         t_o, t_b = flops / BF16_FLOPS_PER_S, bytes_ / HBM_BYTES_PER_S
         ring = ring_of((q, k, v), bytes_)
         lib_ring = [tuple(x.transpose(1, 2) for x in r) for r in ring]
@@ -4062,6 +4071,179 @@ def phase_sharded(torch, smi):
                      "both meshes")
 
 
+# ----------------------------------------------------------- roofline
+ROOFLINE_REPS = 5           # timed calls a path, after one warm-up
+ROOFLINE_SHARE_LIMIT = 1.05  # bound / measured above this: a count is wrong
+
+
+def _roof_serve(torch):
+    """The full-width DiT's drift evaluation at bucket 2: one denoising
+    step with DRIFT on every GEMM (``dryrun.drift_sample_step``) on the
+    engine's f32 params, BER 3e-3 in the body class."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import fault
+    from repro_torch.launch import dryrun
+    from repro_torch.models import dit
+    dev = torch.device("cuda")
+    cfg = get_config(ARCH)
+    g = torch.Generator(device=dev)
+    g.manual_seed(31)
+    params = dit.init_params(cfg, 31, dev)
+    lat = torch.randn((BUCKET, cfg.latent_size, cfg.latent_size,
+                       cfg.latent_channels), generator=g, device=dev)
+    labels = torch.arange(BUCKET, device=dev)
+    stores = dit.drift_store_spec(cfg, BUCKET, dev)
+    step = dryrun.drift_sample_step(cfg)
+    src = fault.PhiloxFlipSource(31, 0, dev)
+    return (f"{ARCH} drift evaluation, bucket {BUCKET}", step,
+            (params, lat, 500, labels, *stores), {"flip_source": src})
+
+
+def _roof_train(torch):
+    """Full-width olmo-1b's train step at TRAIN_BATCH x TRAIN_SEQ, one
+    process (the ``train`` phase's)."""
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.optim.adamw import OptimConfig
+    from repro_torch.train import steps
+    cfg = configs.get_config(AR_ARCH)
+    ocfg = OptimConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    state = steps.init_train_state(cfg, ocfg, 32, "cuda")
+    batch = synthetic.batch_at(
+        synthetic.for_model(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=32), 0,
+        device="cuda")
+    return (f"{AR_ARCH} train step, batch {TRAIN_BATCH} x seq "
+            f"{TRAIN_SEQ}", steps.make_train_step(cfg, ocfg),
+            (state, batch), {})
+
+
+def _roof_ar(torch):
+    """Full-width olmo-1b's stat_abft decode step at bucket 2 (the ``ar``
+    phase's decoder, a faulted step after an 8-token prefill)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import dvfs, fault
+    from repro_torch.launch import op_analysis
+    from repro_torch.models import transformer
+    from repro_torch.serving import ar
+    dev = torch.device("cuda")
+    cfg = get_config(AR_ARCH)
+    weights = transformer.init_weights(cfg, 33, dev)
+    schedule = dvfs.fine_grained_schedule(AR_STEPS + 1, dvfs.UNDERVOLT)
+    fns = ar.make_decoder(cfg, ar.DecodeConfig(AR_STEPS + 1, AR_WINDOW,
+                                               "stat_abft", 3e-3),
+                          schedule=schedule)
+    tok, cache = fns.prefill(weights, ar.prompt_tokens(cfg, [0, 1], dev))
+    src = fault.PhiloxFlipSource(33, 0, dev)
+
+    def step(weights, cache, tok, monitor):
+        return fns.step(weights, cache, tok, 4, monitor,
+                        op_analysis.uncounted_source(src, tok.device), 1.0)
+    return (f"{AR_ARCH} stat_abft decode step, bucket {BUCKET}", step,
+            (weights, cache, tok, dvfs.ber_monitor_init(dev)), {})
+
+
+def phase_roofline(torch, smi):
+    """Three card paths (``_roof_serve``, ``_roof_train``, ``_roof_ar``),
+    each: (a) counted on meta tensors through ``op_analysis.analyze``;
+    (b) counted again on the card with its tensors and kernels under the
+    same counter, FLOPs, int8 ops and bytes equal to (a)'s (both come
+    from shapes); (c) timed, synchronised, the median of ROOFLINE_REPS
+    calls after a warm-up; (d) its roofline on ``perfmodel.hw.H100_SXM``
+    (``launch.roofline.roofline_row``): the dominant term, the bound and
+    the share bound / measured, which must not pass
+    ROOFLINE_SHARE_LIMIT."""
+    from repro_torch.launch import dryrun, op_analysis, roofline
+    rows = []
+    for build in (_roof_serve, _roof_train, _roof_ar):
+        name, fn, args, kw = build(torch)
+        meta = op_analysis.analyze(fn, *dryrun.to_meta(args),
+                                   **dryrun.to_meta(kw))
+        card = op_analysis.analyze(fn, *args, **kw)
+        torch.cuda.synchronize()
+        for key in ("flops", "int8_ops", "bytes"):
+            if meta[key] != card[key]:
+                raise AssertionError(f"roofline {name}: {key} on meta "
+                                     f"{meta[key]} != on the card "
+                                     f"{card[key]}")
+        fn(*args, **kw)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(ROOFLINE_REPS):
+            t0 = time.perf_counter()
+            fn(*args, **kw)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        ms = sorted(times)[len(times) // 2]
+        rr = roofline.roofline_row(dict(
+            arch=name, shape="", mesh=[1], n_devices=1, model_flops=0.0,
+            flops_per_device=card["flops"],
+            int8_ops_per_device=card["int8_ops"],
+            bytes_per_device=card["bytes"],
+            collective_bytes_per_device=0.0))
+        bound_ms = 1e3 * max(rr["t_compute_s"], rr["t_memory_s"],
+                             rr["t_collective_s"])
+        row = dict(path=name, flops=card["flops"],
+                   int8_ops=card["int8_ops"], bytes=card["bytes"],
+                   kernels=card["kernels"], dominant=rr["dominant"],
+                   t_compute_ms=1e3 * rr["t_compute_s"],
+                   t_memory_ms=1e3 * rr["t_memory_s"], bound_ms=bound_ms,
+                   ms=ms, times_ms=times, share=bound_ms / ms,
+                   meta_count_s=meta["count_s"],
+                   card_count_s=card["count_s"],
+                   top_ops=card["top_ops"][:5])
+        rows.append(row)
+        del fn, args, kw
+        gc.collect()
+        torch.cuda.empty_cache()
+        if row["share"] > ROOFLINE_SHARE_LIMIT:
+            raise AssertionError(f"roofline {name}: bound {bound_ms} ms over "
+                                 f"measured {ms} ms is {row['share']}")
+    emit({"phase": "roofline", "nvidia_smi": smi, "paths": rows,
+          "note": "counts from shapes (launch.op_analysis), equal on meta "
+                  "and on the card; bound_ms is the H100 SXM roofline "
+                  "(perfmodel.hw.H100_SXM: 989 TFLOP/s bf16, 1979 TOP/s "
+                  "int8, 3.35 TB/s) of those counts, elementwise ops "
+                  "unfused as eager PyTorch runs them; ms the median of "
+                  f"{ROOFLINE_REPS} synchronised calls; share = "
+                  "bound_ms / ms"})
+    return {"paths": [dict(path=r["path"], share=r["share"],
+                           dominant=r["dominant"]) for r in rows]}
+
+
+# ----------------------------------------------------------- examples
+EXAMPLES = (("quickstart", []),
+            ("drift_serve", ["--requests", "2", "--batch", "2",
+                             "--steps", "3"]))
+EXAMPLES_TIMEOUT_S = 120
+
+
+def phase_examples(torch):
+    """The port's examples on the card at SMOKE, as subprocesses started
+    together, each with ``PYTHONPATH=src``: each must exit 0."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.examples.{name}", *argv],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for name, argv in EXAMPLES}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            t0 = time.perf_counter()
+            text, _ = proc.communicate(timeout=EXAMPLES_TIMEOUT_S)
+            out[name] = dict(rc=proc.returncode,
+                             tail=text.strip().splitlines()[-3:],
+                             wait_s=time.perf_counter() - t0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    bad = {n: r for n, r in out.items() if r["rc"] != 0}
+    if bad:
+        raise AssertionError(f"examples failed: {bad}")
+    return {"examples": out}
+
+
 def kernel_summary(kernels_out, path_launches, backward_calls):
     """One row per TPU kernel of the repo. ``launches`` sums the counts
     of the paths that ran (``launches_by_path``). ``mha_flash`` launches
@@ -4191,6 +4373,7 @@ def main(argv=None) -> int:
                            ": run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _lib
+    _peaks()
 
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -4248,6 +4431,10 @@ def main(argv=None) -> int:
                 backward_calls[phase] = out["backward_calls"]
             energy_recs += out.pop("energy")
             rec.update(out)
+        elif phase == "roofline":
+            rec.update(phase_roofline(torch, smi))
+        elif phase == "examples":
+            rec.update(phase_examples(torch))
         rec["wall_s"] = time.perf_counter() - t0
         emit(rec)
 

@@ -10,7 +10,7 @@ training (``train.steps``), as in the reference, which serves neither.
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, List
 
 from repro_torch.models.common import ModelConfig
 
@@ -29,6 +29,18 @@ _MODULES: Dict[str, str] = {
     "whisper-base": "whisper_base",
     "internvl2-76b": "internvl2_76b",
 }
+
+
+#: every arch, in the reference registry's order (the order of its
+#: ``list_archs``, its dry-run and its CLI help)
+ALL_ARCHS = ("gemma3-27b", "gemma2-9b", "olmo-1b", "glm4-9b", "whisper-base",
+             "kimi-k2-1t-a32b", "deepseek-moe-16b", "mamba2-370m",
+             "hymba-1.5b", "internvl2-76b", "dit-xl-512", "pixart-alpha",
+             "sd15-unet")
+
+
+def list_archs() -> List[str]:
+    return list(ALL_ARCHS)
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:

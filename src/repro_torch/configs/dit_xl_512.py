@@ -17,3 +17,11 @@ SMOKE = ModelConfig(
     latent_size=8, latent_channels=4, patch_size=2, num_classes=10,
     dtype=torch.float32,
 )
+
+# ~100M-parameter trainable variant for the end-to-end training example
+TRAIN_100M = ModelConfig(
+    name="dit-s-train", family="dit",
+    n_layers=12, d_model=768, n_heads=12, n_kv_heads=12, d_ff=3072,
+    latent_size=16, latent_channels=4, patch_size=2, num_classes=10,
+    norm="layernorm", dtype=torch.float32,
+)

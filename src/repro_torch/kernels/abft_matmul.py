@@ -23,22 +23,37 @@ aligned operands) or its byte-wise staging for any other K.
 
 ``abft_matmul`` takes the plain version for CPU tensors only; a CUDA
 tensor launches the kernel or raises. ``launches`` counts kernel launches.
+``work`` is the kernel's own work, which ``launch.op_analysis`` counts for
+each call (meta tensors too, under its counter) and the card check's bound
+reads.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.core.abft import wrap_i32
-from repro_torch.kernels import _lib
+from repro_torch.kernels import _count, _lib
 
 TILE = 32
 launches = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
              + [ctypes.c_void_p] * 6)
+
+
+def work(m: int, k: int, n: int) -> Dict[str, int]:
+    """The kernel's work on ``(M, K) @ (K, N)``: int8 operations of the
+    product and of both expected checksums; bytes with each input read
+    once (A, B int8, flips int32) and each output written once (c and the
+    four checksum arrays, int32)."""
+    mt, nt = m // TILE, n // TILE
+    return {"flops": 0,
+            "int8_ops": 2 * m * n * k + 2 * m * k * nt + 2 * mt * k * n,
+            "bytes": (m * k + k * n + 4 * m * n + 4 * m * n + 8 * m * nt
+                      + 8 * mt * n)}
 
 
 def abft_matmul_plain(aq: torch.Tensor, bq: torch.Tensor, flips: torch.Tensor,
@@ -95,8 +110,19 @@ def launch_args(aq: torch.Tensor, bq: torch.Tensor) -> Tuple[int, ...]:
 def abft_matmul(aq: torch.Tensor, bq: torch.Tensor, flips: torch.Tensor,
                 bm: int = TILE, bn: int = TILE) -> Tuple[torch.Tensor, ...]:
     """(c, act_row, exp_row, act_col, exp_col); see the module docstring."""
-    global launches
     _check(aq, bq, flips, bm, bn)
+    with _count.kernel("abft_matmul", work, aq.shape[0], aq.shape[1],
+                       bq.shape[1]):
+        return _abft_matmul(aq, bq, flips, bm, bn)
+
+
+def _abft_matmul(aq, bq, flips, bm, bn):
+    global launches
+    if _count.meta_call(aq.device):
+        m, n = aq.shape[0], bq.shape[1]
+        return tuple(torch.empty(shape, dtype=torch.int32, device="meta")
+                     for shape in ((m, n), (m, n // bn), (m, n // bn),
+                                   (m // bm, n), (m // bm, n)))
     if aq.device.type == "cpu":
         return abft_matmul_plain(aq, bq, flips, bm, bn)
     if aq.device.type != "cuda":

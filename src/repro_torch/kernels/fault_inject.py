@@ -16,20 +16,29 @@ larger inputs take one launch per ``CHUNK``.
 
 ``fault_inject`` takes the plain version for CPU tensors only; a CUDA
 tensor launches the kernel or raises. ``launches`` counts kernel launches.
+``work`` is the kernel's own work (``abft_matmul``'s docstring says who
+reads it).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 
-from repro_torch.kernels import _lib
+from repro_torch.kernels import _count, _lib
 
 CHUNK = 1 << 30                  # words per launch (csrc's CHUNK)
 launches = 0
 
 _DTYPES = (torch.int32, torch.float32)
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p]
+
+
+def work(words: int) -> Dict[str, int]:
+    """The kernel's work on ``words`` 32-bit words: x and the mask read,
+    the output written (12 bytes a word); the xor is not counted."""
+    return {"flops": 0, "int8_ops": 0, "bytes": 12 * words}
 
 
 def fault_inject_plain(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -52,8 +61,15 @@ def _check(x, mask):
 
 def fault_inject(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """``x ^ mask`` on the raw 32-bit words, in ``x``'s dtype."""
-    global launches
     _check(x, mask)
+    with _count.kernel("fault_inject", work, x.numel()):
+        return _fault_inject(x, mask)
+
+
+def _fault_inject(x, mask):
+    global launches
+    if _count.meta_call(x.device):
+        return torch.empty_like(x)
     if x.device.type == "cpu":
         return fault_inject_plain(x, mask)
     if x.device.type != "cuda":

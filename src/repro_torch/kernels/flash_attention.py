@@ -44,14 +44,20 @@ differentiates plain ``jnp`` attention. So the card's gradient is the
 plain version's at the kernel's inputs, while its forward rounds P to
 bf16 (ROADMAP Queue C 3). On the CPU the wrappers are ``full_attention``,
 which autograd differentiates as it is.
+
+``work`` is the kernel's own work, causal pairs and windows clipped
+(``abft_matmul``'s docstring says who reads it); under a count the
+wrappers take meta tensors and ``_Attention``'s backward is counted as
+the plain version it runs.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 
-from repro_torch.kernels import _lib
+from repro_torch.kernels import _count, _lib
 from repro_torch.models.attention import full_attention
 
 MAX_D = 256
@@ -63,6 +69,31 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
              + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                 ctypes.c_int, ctypes.c_int, ctypes.c_float]
              + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
+def attn_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs one head attends over a length ``s``: causal
+    (row r reads keys up to r) and window clipped (``window`` > 0 drops
+    keys with ``row - key >= window``)."""
+    w = window if 0 < window < s else 0
+    if causal:
+        return w * (w + 1) // 2 + (s - w) * w if w else s * (s + 1) // 2
+    # row r reads keys max(0, r - w + 1) .. s - 1
+    return s * s - (s - w + 1) * (s - w) // 2 if w else s * s
+
+
+def work(b: int, s: int, h: int, hkv: int, d: int, itemsize: int,
+         causal: bool = False, window: int = 0) -> Dict[str, int]:
+    """The kernel's work on (B, S, H, D) q and (B, S, Hkv, D) k, v: 4 D
+    FLOPs (Q K^T and P V) per attended pair and query head; bytes with
+    q, k, v read once and o written once."""
+    return {"flops": 4 * b * h * d * attn_pairs(s, causal, window),
+            "int8_ops": 0, "bytes": itemsize * b * s * d * (2 * h + 2 * hkv)}
+
+
+def _work_of(q, k, causal, window=0):
+    b, s, h, d = q.shape
+    return work(b, s, h, k.shape[2], d, q.element_size(), causal, window)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -96,7 +127,7 @@ def _check(q, k, v, ndim, window=0, softcap=0.0):
                          ">= 0 (0: off)")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention operands on different devices")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
@@ -128,9 +159,17 @@ def launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch(q, k, v, causal, window=0, softcap=0.0):
     """Launch on (B, S, H, D) q and (B, S, Hkv, D) k, v CUDA tensors; a
-    contiguous (B, S, H, D) out."""
+    contiguous (B, S, H, D) out (empty, with no launch, for meta tensors
+    under a count)."""
+    with _count.kernel("flash_attention", _work_of, q, k, causal, window):
+        o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        if _count.meta_call(q.device):
+            return o
+        return _launch_into(o, q, k, v, causal, window, softcap)
+
+
+def _launch_into(o, q, k, v, causal, window, softcap):
     global launches
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     b, s, h, d, strides, vec = launch_args(q, k, v, o)
     fn = _lib.function("flash_attention", "flash_attention_launch",
                        _ARGTYPES)
@@ -176,7 +215,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q, k, v: (BH, S, D) -> (BH, S, D) in the input dtype."""
     _check(q, k, v, 3)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal)
+        with _count.kernel("flash_attention", _work_of, q.unsqueeze(2),
+                           k.unsqueeze(2), causal):
+            return flash_attention_plain(q, k, v, causal)
     return _Attention.apply(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
                             causal, 0, 0.0).squeeze(2)
 
@@ -190,6 +231,9 @@ def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``full_attention``; 0 turns each off."""
     _check(q, k, v, 4, window, softcap)
     if q.device.type == "cpu":
-        return full_attention(q, k, v, causal=causal, window=window,
-                              attn_softcap=softcap)
+        with _count.kernel("flash_attention", _work_of, q, k, causal,
+                           window):
+            # contiguous, as the kernel writes it
+            return full_attention(q, k, v, causal=causal, window=window,
+                                  attn_softcap=softcap).contiguous()
     return _Attention.apply(q, k, v, causal, window, softcap)

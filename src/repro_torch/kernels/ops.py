@@ -20,7 +20,7 @@ both kernels once, and their wrappers count those launches.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +47,17 @@ def _pad2(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 def padded_shape(m: int, n: int) -> tuple:
     """The (Mp, Np) grid ``flips`` must cover."""
     return -(-m // TILE) * TILE, -(-n // TILE) * TILE
+
+
+def work(m: int, k: int, n: int) -> Dict[str, int]:
+    """The composite's work, its bound on the card: the ABFT product and
+    checksums in int8 operations; x, w (f32) and flips read, y written,
+    the checkpoint read, the row and column differences written."""
+    nt, mt = n // TILE, m // TILE
+    return {"flops": 0,
+            "int8_ops": 2 * m * n * k + 2 * m * k * nt + 2 * mt * k * n,
+            "bytes": (4 * m * k + 4 * k * n + 12 * m * n + 4 * m * nt
+                      + 4 * mt * n)}
 
 
 def _drift_gemm(mm, rb, x, w, ckpt, flips, threshold_bit, bm, bn, bk,

@@ -22,16 +22,18 @@ where masked, else c) and one f32 write, ~75 MB at 2048x4608, ~23 us at
 
 ``rollback_correct`` takes the plain version for CPU tensors only; a CUDA
 tensor launches the kernel or raises. ``launches`` counts kernel launches.
+``work`` is the kernel's own work (``abft_matmul``'s docstring says who
+reads it).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.abft import _exceeds
-from repro_torch.kernels import _lib
+from repro_torch.kernels import _count, _lib
 
 TILE = 32
 launches = 0
@@ -40,6 +42,15 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_void_p] * 3)
 
 Valid = Optional[Tuple[int, int]]
+
+
+def work(m: int, n: int) -> Dict[str, int]:
+    """The kernel's work on an (M, N) output: per element one f32 read
+    (ckpt where masked, else c) and one f32 write; the row and column
+    differences read; the per-tile count written. No arithmetic counted."""
+    mt, nt = m // TILE, n // TILE
+    return {"flops": 0, "int8_ops": 0,
+            "bytes": 8 * m * n + 4 * m * nt + 4 * mt * n + 4 * mt * nt}
 
 
 def rollback_correct_plain(c: torch.Tensor, ckpt: torch.Tensor,
@@ -89,8 +100,20 @@ def rollback_correct(c: torch.Tensor, ckpt: torch.Tensor,
                      union: bool = True, valid: Valid = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(corrected (M, N) f32, tile_count (Mt, Nt) int32)."""
-    global launches
     _check(c, ckpt, row_diff, col_diff, bm, bn, valid)
+    with _count.kernel("rollback_correct", work, *c.shape):
+        return _rollback_correct(c, ckpt, row_diff, col_diff, threshold,
+                                 bm, bn, union, valid)
+
+
+def _rollback_correct(c, ckpt, row_diff, col_diff, threshold, bm, bn,
+                      union, valid):
+    global launches
+    if _count.meta_call(c.device):
+        m, n = c.shape
+        return (torch.empty_like(c),
+                torch.empty((m // bm, n // bn), dtype=torch.int32,
+                            device="meta"))
     if c.device.type == "cpu":
         return rollback_correct_plain(c, ckpt, row_diff, col_diff, threshold,
                                       bm, bn, union, valid)

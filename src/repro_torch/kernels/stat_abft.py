@@ -27,7 +27,7 @@ never tile-align, and the decode loop uses the float ``detect``.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -107,6 +107,14 @@ def min_detectable_magnitude(x: torch.Tensor, w: torch.Tensor
     detected wherever the clean residual sits inside the envelope:
     ``2 * tau``."""
     return 2.0 * threshold(x, w)
+
+
+def work(m: int, k: int, n: int, bn: int = 128) -> Dict[str, int]:
+    """The composite's work, its bound on the card: the product and the
+    row checksums at ``bn`` in int8 operations; A, B and flips read, c
+    written, one flag byte a (row, N-tile)."""
+    return {"flops": 0, "int8_ops": 2 * m * n * k + 2 * m * k * (n // bn),
+            "bytes": m * k + k * n + 8 * m * n + m * (n // bn)}
 
 
 def _stat_abft(mm, aq, bq, flips, threshold_mag, bm, bn):

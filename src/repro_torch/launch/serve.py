@@ -72,6 +72,7 @@ from typing import Optional, Sequence
 
 import torch.distributed as dist
 
+from repro_torch import configs
 from repro_torch.core import dvfs as dvfs_lib
 from repro_torch.core.quant import PRECISION_PLANS
 from repro_torch.core.rollback import DEFAULT_INTERVAL
@@ -80,7 +81,7 @@ from repro_torch.serving import (DeadlineScheduler, DriftServeEngine,
                                  serve_telemetry)
 from repro_torch.serving.request import (REQUEST_OPS, REQUEST_PRIORITIES,
                                          PreviewEvent)
-from repro_torch.serving.servable import paradigm_for
+from repro_torch.serving.servable import PARADIGM_BY_FAMILY, paradigm_for
 from repro_torch.serving.sharded import ShardedDriftServeEngine, make_engine
 from repro_torch.serving.trace import write_chrome_trace
 
@@ -106,6 +107,23 @@ def rollback_interval_arg(value: str):
     return iv
 
 
+def arch_family_help() -> str:
+    """--arch help text derived from the ServableModel registry: every
+    known arch grouped by serving paradigm, unsupported ones named (the
+    help-sync test holds all of it in --help)."""
+    by_paradigm, unsupported = {}, []
+    for arch in configs.list_archs():
+        paradigm = PARADIGM_BY_FAMILY.get(configs.get_config(arch).family)
+        if paradigm is None:
+            unsupported.append(arch)
+        else:
+            by_paradigm.setdefault(paradigm, []).append(arch)
+    parts = [f"{p}: {', '.join(archs)}"
+             for p, archs in sorted(by_paradigm.items())]
+    parts.append(f"unsupported: {', '.join(unsupported)}")
+    return "; ".join(parts)
+
+
 def default_mode_for(arch: str) -> str:
     """``drift`` for diffusion archs, ``stat_abft`` for autoregressive."""
     return "drift" if paradigm_for(arch) == "diffusion" else "stat_abft"
@@ -119,10 +137,8 @@ def build_parser() -> argparse.ArgumentParser:
         epilog=f"DVFS ladder (op 'auto', walked by the BER monitor): "
                f"{OP_LADDER_HELP}.")
     ap.add_argument("--arch", default="dit-xl-512",
-                    help="model to serve (ported: dit-xl-512, pixart-alpha, "
-                         "sd15-unet, diffusion; olmo-1b, gemma2-9b, "
-                         "gemma3-27b, glm4-9b, deepseek-moe-16b, "
-                         "kimi-k2-1t-a32b, autoregressive)")
+                    help="model to serve; paradigm comes from the "
+                         f"ServableModel registry -- {arch_family_help()}")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="serve the 3-layer smoke config (--no-smoke: the "
@@ -148,7 +164,8 @@ def build_parser() -> argparse.ArgumentParser:
                     default=DEFAULT_INTERVAL, metavar="N|auto",
                     help="rollback checkpoint-refresh interval in steps "
                          "(autoregressive: the KV rollback window in "
-                         f"tokens; default: {DEFAULT_INTERVAL}); 'auto' "
+                         f"tokens; default: {DEFAULT_INTERVAL}, from "
+                         "core.rollback.DEFAULT_INTERVAL); 'auto' "
                          "lets the offload planner pick per (arch, op, "
                          "steps, bucket) from modeled energy+stall at the "
                          "monitor's target detection rate")

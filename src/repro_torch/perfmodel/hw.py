@@ -1,4 +1,4 @@
-"""Hardware constants of the paper's accelerator.
+"""Hardware constants: the paper's accelerator and the H100 roofline.
 
 Counterpart of ``repro.perfmodel.hw``. Paper accelerator (Sec 6.1): 64
 systolic arrays (default 32x32, int8 multipliers + int32 accumulators),
@@ -6,9 +6,12 @@ nominal 0.9 V / 2 GHz, HBM2 off-chip, synthesized on a commercial 14nm
 PDK. Peak int8 throughput: 64 arrays x 32x32 MACs x 2 GHz x 2 ops = 262
 Tops.
 
-The reference's ``TpuV5e`` roofline constants are left out: only its
-dry-run and roofline tools read them, and their port (ROADMAP Queue A
-item 14) measures the GPU instead.
+NVIDIA H100 SXM (the port's dry-run and roofline target, in place of
+the reference's TPU v5e): the published dense peaks of the 700 W part
+from NVIDIA's data sheet, 989 TFLOP/s bf16 and 1979 TOP/s int8 on the
+tensor cores, 67 TFLOP/s f32 outside them, 3.35 TB/s of HBM3 over 80 GB,
+and NVLink 4's 900 GB/s per GPU, both directions together, so 450 GB/s
+one way.
 """
 from __future__ import annotations
 
@@ -35,4 +38,17 @@ class PaperAccel:
         return (self.n_arrays * self.array_dim ** 2 * self.freq_ghz * 1e9)
 
 
+@dataclasses.dataclass(frozen=True)
+class H100:
+    peak_flops_bf16: float = 989e12     # dense, tensor cores
+    peak_ops_int8: float = 1979e12      # dense, tensor cores
+    peak_flops_f32: float = 67e12       # outside the tensor cores
+    hbm_bytes_per_s: float = 3.35e12
+    hbm_bytes: float = 80e9
+    # NVLink 4: 900 GB/s per GPU counting both directions (data sheet),
+    # so 450 GB/s each way
+    link_bytes_per_s: float = 450e9
+
+
 PAPER_ACCEL = PaperAccel()
+H100_SXM = H100()

@@ -1010,3 +1010,29 @@ def test_sharded_train_on_card_bit_equal(cuda, tmp_path):
             assert torch.equal(a, b) if isinstance(b, torch.Tensor) \
                 else a == b
 
+
+
+@pytest.mark.gpu
+def test_op_counts_on_meta_equal_card(cuda):
+    """``op_analysis.analyze`` of one ``abft_matmul`` and one causal GQA
+    ``mha_flash`` call: FLOPs, int8 ops and bytes on meta tensors equal
+    those of the same call on the card with its kernel launched, and
+    equal the kernel's ``work``."""
+    from repro_torch.launch import op_analysis
+    rng = np.random.default_rng(41)
+    m, k, n = 256, 320, 192
+    aq = torch.from_numpy(_int8(rng, (m, k)))
+    bq = torch.from_numpy(_int8(rng, (k, n)))
+    flips = torch.from_numpy(_flips(rng, (m, n)).view(np.int32))
+    q = torch.randn((2, 64, 8, 64), dtype=torch.bfloat16)
+    kv = torch.randn((2, 64, 2, 64), dtype=torch.bfloat16)
+    calls = ((tak.abft_matmul, (aq, bq, flips), {}, tak.work(m, k, n)),
+             (tfk.mha_flash, (q, kv, kv), dict(causal=True, window=24),
+              tfk.work(2, 64, 8, 2, 64, 2, True, 24)))
+    for fn, args, kw, work in calls:
+        n0 = tak.launches + tfk.launches
+        card = op_analysis.analyze(fn, *(a.to(cuda) for a in args), **kw)
+        assert tak.launches + tfk.launches == n0 + 1
+        meta = op_analysis.analyze(fn, *(a.to("meta") for a in args), **kw)
+        for key in ("flops", "int8_ops", "bytes"):
+            assert card[key] == meta[key] == work[key], (fn, key)
