@@ -252,11 +252,12 @@ Phases, each printing one JSON line with its wall time:
                backward beside SDPA's.
 12b. train_sharded -- training across ranks (``make_train_step`` with a
                mesh, ``checkpoint.manager`` from a mesh,
-               ``restore_resharded``): full-width olmo-1b at global batch
-               8 and sequence 128 from the port's init on 2 spawned ranks
-               sharing cuda:0 over gloo. Rank 0 first runs a one-process
-               twin's steps 1 and 2 alone; the mesh's AdamW update of the
-               twin's gradient must be bit-equal on every rank's block.
+               ``restore_resharded``): full-width olmo-1b cut to TS_LAYERS
+               layers at global batch 8 and sequence 128 from the port's
+               init on 2 spawned ranks sharing cuda:0 over gloo. Rank 0
+               first runs a one-process twin's steps 1 and 2 alone; the
+               mesh's AdamW update of the twin's gradient must be
+               bit-equal on every rank's block.
                Then 2 steps on (data 2, model 1), each reduced gradient
                within TS_GRAD_RTOL of the twin's gradient at the mesh's
                params before the step (gathered whole), a limit that rank
@@ -265,12 +266,26 @@ Phases, each printing one JSON line with its wall time:
                (data 1, model 2), every rank's blocks bit-equal to the
                saved state; step 3 there, every block ``torch.equal`` to
                the twin's step 3 from the restored state (rank 1's sent
-               through an exact integer sum). 16 attention launches and
-               16 backward calls a step on every rank. Per rank: ms,
+               through an exact integer sum). TS_LAYERS attention launches
+               and backward calls a step on every rank. Per rank: ms,
                collectives and peak memory a step, save and restore
-               seconds. Then the SMOKE CLI with ``--model-parallel 2``
-               under ``python -m torch.distributed.run`` (2 ranks) exits 0
-               and prints the mesh line once.
+               seconds. Then, in the same ranks, full-width
+               deepseek-moe-16b cut to TS_MOE_LAYERS layers takes 2
+               steps on (data 2, model 1), each MoE layer routing the
+               global batch (``moe.moe_layer``): each reduced gradient
+               within TS_GRAD_RTOL of the twin's at the mesh's params
+               (rank 0's half alone failing it); every MoE layer's
+               gathered tokens the same bits on both ranks, this rank's
+               rows its own input, their routing ``torch.equal`` to
+               ``moe.route`` of the gathered tokens; the assignments a
+               per-rank route would drop and the global route keeps,
+               counted; TS_MOE_LAYERS attention launches and backward
+               calls a step; per rank ms, collectives and peak memory a
+               step. Then the SMOKE CLI, ``--model-parallel 2`` and
+               ``--arch deepseek-moe-16b`` on (2, 1), each under
+               ``python -m torch.distributed.run`` (2 ranks), both
+               started together: each exits 0 and prints its mesh line
+               once.
 13. roofline -- three card paths: the full-width DiT's drift evaluation
                at bucket 2 (``dryrun.drift_sample_step``), full-width
                olmo-1b's train step at batch 8, seq 128, and its
@@ -338,9 +353,9 @@ SSM_ARCHS = (("mamba2-370m", 26), ("hymba-1.5b", 27))
 AR_STEPS = 16
 AR_WINDOW = 4
 # tokens of the profiled request of each LM (its trace, up to ~450k
-# kernels at 16 tokens, is processed on the host after the run; 4 keeps
+# kernels at 16 tokens, is processed on the host after the run; 2 keeps
 # the whole script inside its time limit with the train_sharded phase)
-PROFILE_AR_STEPS = 4
+PROFILE_AR_STEPS = 2
 TS_ARGS = ["--taylorseer", "--precision", "int8-body4"]
 TS_KNOBS = dict(taylorseer=True, precision="int8-body4")
 TS_STEPS_SMOKE, TS_EVALS_SMOKE = 7, 3       # computes steps 0, 3, 6
@@ -3202,17 +3217,25 @@ def phase_train(torch, smi):
 
 
 # ------------------------------------------- training across ranks (slice 14)
-TS_ARCH, TS_SEED, TS_WORLD = "olmo-1b", 60, 2
+# full-width olmo-1b cut 16 -> TS_LAYERS layers (0.64 B params), which
+# keeps the whole script inside its time limit with the MoE part
+TS_ARCH, TS_LAYERS, TS_SEED, TS_WORLD = "olmo-1b", 8, 60, 2
 # the (2, 1) mesh's gradient (a half batch per rank, summed and halved)
 # against the one-process twin's at the same params, bf16 activations:
 # each leaf within TS_GRAD_RTOL of its largest magnitude plus 1e-4 of the
 # largest anywhere, the loss within TS_LOSS_RTOL relative. The gradient of
 # rank 0's half batch alone (rank 1's dropped from the reduction) must
-# fail that limit. Measured on the H100 at these params: worst 0.41 and
-# 0.49 of the limit at steps 1 and 2, the half batch alone ~100x it.
+# fail that limit. Measured on the H100 with olmo-1b's 16 layers: worst
+# 0.41 and 0.49 of the limit at steps 1 and 2, the half batch alone ~100x
+# it; deepseek-moe-16b's 2 layers: 0.49 and 0.38, the half ~100x.
 TS_GRAD_RTOL, TS_LOSS_RTOL = 1e-2, 1e-3
 TS_JOIN_S = 900
 TS_CLI_MESH = "[train] olmo-1b-smoke on mesh {'data': 1, 'model': 2}"
+# the MoE part: full-width deepseek-moe-16b cut 28 -> TS_MOE_LAYERS layers
+# (1.60 B params), the same batches and limits, on (data 2, model 1)
+TS_MOE_ARCH, TS_MOE_LAYERS = "deepseek-moe-16b", 2
+TS_MOE_CLI_MESH = ("[train] deepseek-moe-smoke on mesh {'data': 2, "
+                   "'model': 1}")
 
 
 def _coords_view(mesh, rank: int):
@@ -3340,9 +3363,162 @@ def _saved_leaves(torch, path: Path):
     return out
 
 
+def _ts_moe(torch, mesh, run_step):
+    """The MoE part of a train_sharded rank: TS_MOE_ARCH at full width cut
+    to TS_MOE_LAYERS layers, 2 AdamW steps on ``mesh`` (data 2, model 1),
+    each MoE layer routing the global batch (``moe.moe_layer``). Before
+    each step rank 0 takes the twin's gradient at the mesh's params
+    (``_ts_twin_at``: the whole batch, then rank 0's half alone, which
+    must fail the limit); the reduced gradient must pass it. In each step
+    every MoE layer's gather and routing are tapped: the gathered tokens
+    the same bits on every rank, this rank's rows its own input, the
+    routing ``torch.equal`` to ``moe.route`` of the gathered tokens; the
+    assignments of this rank's rows that a per-rank route drops and the
+    global route keeps are counted, and on rank 0 where the twin's MoE
+    inputs and routing differ from the mesh's. Returns the record."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import constraints, sharding
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.models import moe
+    from repro_torch.optim.adamw import OptimConfig
+    from repro_torch.train import steps
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(configs.get_config(TS_MOE_ARCH),
+                              n_layers=TS_MOE_LAYERS)
+    ocfg = OptimConfig(lr=3e-4, warmup_steps=max(TRAIN_STEPS // 20, 1),
+                       total_steps=TRAIN_STEPS)
+    dcfg = synthetic.for_model(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=TS_SEED)
+    batches = [synthetic.batch_at(dcfg, i, device="cuda") for i in range(2)]
+    t0 = t = time.perf_counter()
+    state = sharding.shard_state(
+        steps.init_train_state(cfg, ocfg, TS_SEED, "cuda"), mesh)
+    torch.cuda.synchronize()
+    rec = dict(arch=cfg.name, layers=cfg.n_layers,
+               n_params=sum(math.prod(x.shape) for x in tree_leaves(
+                   state.params) if isinstance(x, sharding.Shard)),
+               init_s=time.perf_counter() - t, steps=[], layers_checked=[])
+    step_fn = steps.make_train_step(cfg, ocfg, mesh=mesh)
+    route, gather, update = (moe.route, constraints.gather_rows_grad,
+                             steps.sharded_update)
+    tap = dict(routes=[], gathers=[], grads=None)
+
+    def tap_route(cfg_, router, x):
+        r = route(cfg_, router, x)
+        # kept detached, the router copied: a tensor of the graph, or a
+        # view of the gathered params, would keep all of them alive
+        tap["routes"].append((router.detach().clone(), x.detach(),
+                              moe.Routing(*(v.detach() if isinstance(
+                                  v, torch.Tensor) else v for v in r))))
+        return r
+
+    def tap_gather(x, mesh_):
+        full = gather(x, mesh_)
+        tap["gathers"].append(x.detach())
+        return full
+
+    def tap_update(ocfg_, state_, grads, gnorm, mesh_, params=None):
+        tap["grads"] = grads
+        return update(ocfg_, state_, grads, gnorm, mesh_, params)
+
+    counters = _counters()
+    i_blk, _ = constraints.data_block(mesh)
+    k = cfg.top_k
+    t_global = batches[0]["tokens"][:, :-1].numel()    # the MoE's T
+    fields = ("flat_e", "rank", "keep", "slot")
+    for i in range(2):
+        # the twin's launches compare, and count on no path; its routes
+        # of the whole batch are kept (the half batch's are not)
+        held = counters["flash_attention"].launches, fk.backward_calls
+        moe.route = tap_route
+        try:
+            ref = _ts_twin_at(torch, cfg, state, mesh, batches[i], i + 1)
+        finally:
+            moe.route = route
+        counters["flash_attention"].launches, fk.backward_calls = held
+        twin = [(x, r) for _, x, r in tap["routes"]
+                if x.shape[0] == t_global]
+        tap["routes"].clear()
+        moe.route, constraints.gather_rows_grad = tap_route, tap_gather
+        steps.sharded_update = tap_update
+        try:
+            state, m = run_step(mesh, step_fn, state, batches[i], i,
+                                cfg.n_layers, rec["steps"])
+        finally:
+            moe.route, constraints.gather_rows_grad = route, gather
+            steps.sharded_update = update
+        if not len(tap["routes"]) == len(tap["gathers"]) == cfg.n_layers:
+            raise AssertionError(f"train_sharded {cfg.name} step {i + 1}: "
+                                 f"{len(tap['routes'])} routes, "
+                                 f"{len(tap['gathers'])} gathers")
+        layers = []
+        for j, ((router, xg, r), x) in enumerate(zip(tap["routes"],
+                                                     tap["gathers"])):
+            rows = slice(i_blk * x.shape[0], (i_blk + 1) * x.shape[0])
+            words = xg.reshape(-1).view(torch.int32)
+            hi, lo = words.clone(), words.clone()
+            mesh.all_reduce(hi, op=dist.ReduceOp.MAX, group=mesh.data_group)
+            mesh.all_reduce(lo, op=dist.ReduceOp.MIN, group=mesh.data_group)
+            again = route(cfg, router, xg)
+            local = route(cfg, router, xg[rows])
+            out = dict(
+                layer=j, tokens=xg.shape[0], capacity=r.capacity,
+                local_capacity=local.capacity,
+                same_on_every_rank=bool(torch.equal(hi, words)
+                                        and torch.equal(lo, words)),
+                own_rows_equal=bool(torch.equal(xg[rows], x)),
+                routing_equal=bool(again.capacity == r.capacity and all(
+                    torch.equal(getattr(again, f), getattr(r, f))
+                    for f in fields)),
+                dropped_global=int((~r.keep).sum()),
+                per_rank_drops_kept_globally=int(
+                    (r.keep[rows.start * k:rows.stop * k]
+                     & ~local.keep).sum()))
+            if twin:
+                tx, tr = twin[j]
+                out.update(twin_input_equal=bool(torch.equal(tx, xg)),
+                           twin_expert_diff=int(
+                               (tr.flat_e != r.flat_e).sum()),
+                           twin_keep_diff=int((tr.keep != r.keep).sum()))
+            if not (out["same_on_every_rank"] and out["own_rows_equal"]
+                    and out["routing_equal"]):
+                raise AssertionError(f"train_sharded {cfg.name} step "
+                                     f"{i + 1}: {out}")
+            layers.append(out)
+        rec["layers_checked"].append(layers)
+        if ref is not None:
+            loss, want, drop = ref
+            ratio, shape = _ts_grad_ratio(tree_leaves(tap["grads"]), want)
+            rec.setdefault("twin", []).append(dict(
+                step=i + 1, loss=loss, mesh_loss=float(m["loss"]),
+                worst_grad_err_over_limit=ratio, worst_grad_leaf=list(shape),
+                dropped_half_over_limit=drop))
+            if not ratio <= 1:
+                raise AssertionError(f"train_sharded {cfg.name} step "
+                                     f"{i + 1}: a reduced gradient leaf "
+                                     f"{shape} is {ratio} of its limit off "
+                                     f"the twin's")
+            if not abs(float(m["loss"]) - loss) <= TS_LOSS_RTOL * abs(loss):
+                raise AssertionError(f"train_sharded {cfg.name} step "
+                                     f"{i + 1}: loss {float(m['loss'])}, "
+                                     f"twin {loss}")
+            del want
+        tap.update(routes=[], gathers=[], grads=None)
+        del ref, twin
+    del state, step_fn, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
 def _ts_rank(rank: int, world: int, tmp: str) -> None:
     """One rank of the train_sharded phase (a spawned process; ranks share
     cuda:0 over gloo). Saves its record to ``tmp``; every check raises."""
+    import dataclasses
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
@@ -3362,7 +3538,7 @@ def _ts_rank(rank: int, world: int, tmp: str) -> None:
         init_method=f"file://{tmp}/rdzv", rank=rank, world_size=world,
         timeout_s=TS_JOIN_S)
     m12 = mesh_lib.make_mesh((1, 2), ("data", "model"), device="cuda")
-    cfg = configs.get_config(TS_ARCH)
+    cfg = dataclasses.replace(configs.get_config(TS_ARCH), n_layers=TS_LAYERS)
     ocfg = OptimConfig(lr=3e-4, warmup_steps=max(TRAIN_STEPS // 20, 1),
                        total_steps=TRAIN_STEPS)
     dcfg = synthetic.for_model(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=TS_SEED)
@@ -3388,7 +3564,7 @@ def _ts_rank(rank: int, world: int, tmp: str) -> None:
         mod.launches = 0
     fk.backward_calls = 0
 
-    def run_step(mesh, step_fn, state, i):
+    def run_step(mesh, step_fn, state, batch, i, layers, into):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3396,7 +3572,7 @@ def _ts_rank(rank: int, world: int, tmp: str) -> None:
                       fk.backward_calls, mesh.collectives)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        state, m = step_fn(state, batches[i])
+        state, m = step_fn(state, batch)
         torch.cuda.synchronize()
         out = dict(step=i + 1, mesh=dict(mesh.shape),
                    ms=1e3 * (time.perf_counter() - t),
@@ -3406,11 +3582,10 @@ def _ts_rank(rank: int, world: int, tmp: str) -> None:
                                        - n0),
                    backward_calls=fk.backward_calls - b0,
                    peak_mem_bytes=torch.cuda.max_memory_allocated())
-        if not out["attention_launches"] == out["backward_calls"] == \
-                cfg.n_layers:
+        if not out["attention_launches"] == out["backward_calls"] == layers:
             raise AssertionError(f"train_sharded step {i + 1} on rank "
                                  f"{rank}: {out}")
-        rec["steps"].append(out)
+        into.append(out)
         return state, m
 
     # (data 2, model 1): steps 1 and 2, each reduced gradient held on rank
@@ -3424,7 +3599,8 @@ def _ts_rank(rank: int, world: int, tmp: str) -> None:
         held = counters["flash_attention"].launches, fk.backward_calls
         ref = _ts_twin_at(torch, cfg, state, m21, batches[i], i + 1)
         counters["flash_attention"].launches, fk.backward_calls = held
-        state, m = run_step(m21, step21, state, i)
+        state, m = run_step(m21, step21, state, batches[i], i, cfg.n_layers,
+                            rec["steps"])
         if ref is not None:
             loss, want, drop = ref
             ratio, shape = _ts_grad_ratio(tree_leaves(seen["grads"]), want)
@@ -3480,8 +3656,9 @@ def _ts_rank(rank: int, world: int, tmp: str) -> None:
 
     # (data 1, model 2): step 3 from the restored state
     state3, m3 = run_step(m12, steps.make_train_step(cfg, ocfg, mesh=m12),
-                          restored, 2)
+                          restored, batches[2], 2, cfg.n_layers, rec["steps"])
     steps.sharded_update = update
+    seen.clear()
     rec["launches"] = {k: mod.launches for k, mod in counters.items()}
     rec["backward_calls"] = fk.backward_calls
     del restored
@@ -3533,6 +3710,18 @@ def _ts_rank(rank: int, world: int, tmp: str) -> None:
             raise AssertionError("train_sharded step 3: rank 0's block "
                                  "differs from the twin's")
     rec["step3_bit_equal"] = True
+    del state3, full, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # full-width deepseek-moe-16b, cut in depth, on (data 2, model 1)
+    for mod in counters.values():
+        mod.launches = 0
+    fk.backward_calls = 0
+    rec["moe"] = _ts_moe(torch, m21, run_step)
+    _add_launches(rec["launches"], {k: mod.launches
+                                    for k, mod in counters.items()})
+    rec["backward_calls"] += fk.backward_calls
     rec["collectives"] = m21.collectives + m12.collectives
     torch.save(rec, f"{tmp}/rank{rank}.pt")
     dist.destroy_process_group()
@@ -3541,8 +3730,9 @@ def _ts_rank(rank: int, world: int, tmp: str) -> None:
 def phase_train_sharded(torch, smi):
     """Training across ranks (``train.steps.make_sharded_train_step``,
     ``checkpoint.manager`` from a mesh, ``restore_resharded``):
-    full-width olmo-1b at global batch TRAIN_BATCH and sequence TRAIN_SEQ
-    from the port's init, on 2 spawned ranks sharing cuda:0 over gloo.
+    full-width olmo-1b cut to TS_LAYERS layers at global batch TRAIN_BATCH
+    and sequence TRAIN_SEQ from the port's init, on 2 spawned ranks
+    sharing cuda:0 over gloo.
     Rank 0 first runs a one-process twin's steps 1 and 2 alone (the
     mesh's AdamW update of its gradient bit-equal on every rank's block);
     then 2 steps on (data 2, model 1), each reduced gradient within
@@ -3551,11 +3741,13 @@ def phase_train_sharded(torch, smi):
     batch alone must fail; a save from that mesh; a restore onto
     (data 1, model 2), every rank's blocks bit-equal to the saved state as
     written; step 3 there, every block `torch.equal` to the twin's step 3
-    from the restored state. Every step launches 16 attentions and 16
+    from the restored state. Every step launches TS_LAYERS attentions and
     backward calls on every rank, counted from the first mesh step to the
-    last. Then the SMOKE CLI with ``--model-parallel 2`` under ``python
-    -m torch.distributed.run`` (2 ranks, cuda:0) must exit 0 and print the
-    mesh line once."""
+    last. Then, in the same ranks, the MoE part (``_ts_moe``), counted
+    from its first step to its last. Then the SMOKE CLI, ``--model-parallel
+    2`` and ``--arch deepseek-moe-16b`` on (2, 1), each under ``python -m
+    torch.distributed.run`` (2 ranks, cuda:0) and both started together,
+    must exit 0 and print its mesh line once."""
     import shutil
     import torch.multiprocessing as mp
     gc.collect()
@@ -3591,23 +3783,39 @@ def phase_train_sharded(torch, smi):
         _add_launches(launches, rec.pop("launches"))
         bwd += rec.pop("backward_calls")
 
+    # the SMOKE launcher, olmo-1b on (1, 2) and deepseek-moe-16b on
+    # (2, 1), both runs started together
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
-    cli = subprocess.run(
+    clis = [(line, subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", str(TS_WORLD), "-m", "repro_torch.launch.train",
-         "--model-parallel", "2", "--steps", "3", "--global-batch", "2",
-         "--seq", "16", "--device", "cuda"], capture_output=True, text=True,
-        timeout=TS_JOIN_S, env=env, cwd=ROOT)
-    if cli.returncode != 0 or cli.stdout.count(TS_CLI_MESH) != 1 or \
-            cli.stdout.count("[train] done") != 1:
-        raise AssertionError(f"train_sharded CLI exited {cli.returncode}:\n"
-                             f"{cli.stdout[-2000:]}\n{cli.stderr[-2000:]}")
+         *args, "--global-batch", "2", "--seq", "16", "--device", "cuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)) for line, args in (
+            (TS_CLI_MESH, ["--model-parallel", "2", "--steps", "3"]),
+            (TS_MOE_CLI_MESH, ["--arch", TS_MOE_ARCH, "--steps", "2"]))]
+    try:
+        outs = [(line, p.communicate(timeout=TS_JOIN_S), p.returncode)
+                for line, p in clis]
+    finally:
+        for _, p in clis:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for line, (out, err), code in outs:
+        if code != 0 or out.count(line) != 1 or \
+                out.count("[train] done") != 1:
+            raise AssertionError(f"train_sharded CLI exited {code}:\n"
+                                 f"{out[-2000:]}\n{err[-2000:]}")
+    moe_ranks = [rec.pop("moe") for rec in ranks]
     return dict(arch=TS_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                 world=TS_WORLD, card=smi, command_s=command_s, ranks=ranks,
+                moe=dict(arch=TS_MOE_ARCH, layers=TS_MOE_LAYERS,
+                         batch=TRAIN_BATCH, seq=TRAIN_SEQ, ranks=moe_ranks),
                 launches=launches, backward_calls=bwd,
                 cli=dict(wall_s=time.perf_counter() - t0,
-                         mesh_line=TS_CLI_MESH),
+                         mesh_lines=[TS_CLI_MESH, TS_MOE_CLI_MESH]),
                 energy=[],
                 note="ms: host wall of one train step ended by a "
                      "synchronize (the first includes warm-up); "

@@ -28,9 +28,18 @@ the places where the data ranks must agree, each a helper here:
 Without a policy, or with a policy whose batch is not sharded, every
 helper returns its input untouched, so single-device serving runs exactly
 the code it ran before.
+
+A train step runs under no policy: it takes its mesh explicitly. While
+its rows are split over the data axes, ``train.steps`` enters
+``split_rows(mesh)``, and the MoE layer, which routes over the whole
+batch, reads ``split_rows_mesh()`` and gathers its tokens with
+``gather_rows_grad``: the rows of the data group, exactly, in the order
+of the ranks' blocks over (pod, data), with a backward that sums the
+incoming gradient over the group.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, List, Optional, Tuple
@@ -250,3 +259,61 @@ def data_amax(amax: torch.Tensor) -> torch.Tensor:
     out = torch.where(pair[1] > 0, torch.full_like(pair[0], float("nan")),
                       pair[0])
     return out.to(amax.dtype)
+
+
+# ------------------------------------------------ rows of a split train step
+_SPLIT_MESH = None
+
+
+@contextlib.contextmanager
+def split_rows(mesh):
+    """Within: a train step's rows are split over ``mesh``'s data axes
+    (``sharding.batch_rows``), so a layer that needs the whole batch
+    gathers it (``models.moe.moe_layer``). Serving never enters it."""
+    global _SPLIT_MESH
+    prev, _SPLIT_MESH = _SPLIT_MESH, mesh
+    try:
+        yield
+    finally:
+        _SPLIT_MESH = prev
+
+
+def split_rows_mesh():
+    """The mesh of the enclosing ``split_rows``, else None."""
+    return _SPLIT_MESH
+
+
+def data_block(mesh) -> Tuple[int, int]:
+    """(index, count) of this rank's block over the mesh's (pod, data)
+    axes, pod major: the block ``sharding.batch_rows`` gives it."""
+    return sharding.block_index(mesh, sharding.data_axes(mesh))
+
+
+class _GatherRowsGrad(torch.autograd.Function):
+    """Forward: the data group's rows of ``x`` (dim 0), each rank's block
+    at its ``data_block``, written into a zeroed buffer and summed as
+    integers (exact). Backward: the incoming gradient summed over the
+    group in f32, this rank's rows of it in the gradient's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        i, n = data_block(mesh)
+        m = x.shape[0]
+        ctx.mesh, ctx.rows = mesh, slice(i * m, (i + 1) * m)
+        full = torch.zeros((n * m,) + tuple(x.shape[1:]), dtype=x.dtype,
+                           device=x.device)
+        full[ctx.rows] = x
+        return mesh.sum_bytes(full, group=mesh.data_group)
+
+    @staticmethod
+    def backward(ctx, g):
+        acc = g.to(torch.float32, copy=True).contiguous()
+        ctx.mesh.all_reduce(acc, group=ctx.mesh.data_group)
+        return acc[ctx.rows].to(g.dtype), None
+
+
+def gather_rows_grad(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The data group's rows of ``x`` (dim 0), in the order of the ranks'
+    blocks over (pod, data); differentiable: each rank's gradient is its
+    rows of the group's summed gradient (``_GatherRowsGrad``)."""
+    return _GatherRowsGrad.apply(x, mesh)

@@ -12,8 +12,8 @@ exploits. Its model and inputs come from ``tiny_model`` and
 folder); ``similarities`` takes them as arguments, so the reference's
 can be carried over. The ``bits``, ``steps``, ``blocks`` and
 ``selfheal`` probes run the reference's benchmark folder
-(``benchmarks/fig4``-``fig7``), which the port's benchmark (ROADMAP
-Queue A, after item 17) will carry; here they raise.
+(``benchmarks/fig4``-``fig7``), which the port's benchmark issue
+(ROADMAP Queue A) will carry; here they raise.
 """
 from __future__ import annotations
 
@@ -99,7 +99,7 @@ def _unported(name: str):
     def probe(device="cuda"):
         raise NotImplementedError(
             f"--probe {name} runs the reference's JAX benchmark folder; the "
-            "port's benchmark (ROADMAP Queue A, after item 17) carries it")
+            "port's benchmark issue (ROADMAP Queue A) carries it")
     return probe
 
 

@@ -43,7 +43,11 @@ The model axis duplicates compute: the port gathers each block's weights
 whole and every rank of the ``model`` axis computes the block on the
 same rows (ROADMAP Queue A 15). The per-rank counts show that
 duplication, and the roofline's ``useful_flops_ratio`` falls to about
-1/model. That is the honest reading of the port as it stands.
+1/model. That is the honest reading of the port as it stands. On a data
+axis the MoE layers route the global batch (``models.moe.moe_layer``):
+each gathers the data group's tokens and runs every expert on all of
+them, so the MoE archs' ``train_4k`` cells count the expert compute of
+the whole batch on every data rank, and the gathers' bytes.
 
 The report keeps the reference's keys where their meaning holds (``arch``,
 ``shape``, ``mesh``, ``axes``, ``n_devices``, ``opt``, ``n_params``,

@@ -23,6 +23,13 @@ decode must give the same tokens on every replay. The reference's
 sharding constraints have no counterpart here: the sharded engine runs
 a language model's bucket whole on every rank (``serving.sharded``).
 
+A train step whose rows are split over a mesh's data axes routes the
+global batch, as the reference's jitted step does under GSPMD
+(``moe_layer``): each rank gathers the group's tokens, runs ``moe_ffn``
+on all T of them (capacity, drops and the aux loss count every token)
+and keeps its own rows of ``y``. The expert compute is duplicated on
+every data rank (ROADMAP Queue A 15).
+
 The expert FFNs are unprotected, as in the reference: no GEMM here goes
 through an execution context, so serving injects and detects on the
 attention projections only.
@@ -34,6 +41,7 @@ from typing import Callable, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import constraints
 from repro_torch.models.common import (ModelConfig, Params, dense_init,
                                        trunc_normal)
 
@@ -149,6 +157,22 @@ def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor
         0, r.flat_e, kept) / torch.clamp_min(kept.sum(), 1.0)
     aux = e * torch.sum(frac_tokens * r.probs.mean(dim=0))
     return y, aux
+
+
+def moe_layer(cfg: ModelConfig, p: Params, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A layer's MoE FFN on its flattened tokens x (T_local, d): ``moe_ffn``
+    itself, or, inside ``constraints.split_rows(mesh)``, ``moe_ffn`` on
+    the data group's tokens (``constraints.gather_rows_grad``, the ranks'
+    blocks in order: one process's token order) with this rank's rows of
+    ``y`` and the whole batch's aux loss, the same on every rank."""
+    mesh = constraints.split_rows_mesh()
+    if mesh is None:
+        return moe_ffn(cfg, p, x)
+    y, aux = moe_ffn(cfg, p, constraints.gather_rows_grad(x, mesh))
+    i, _ = constraints.data_block(mesh)
+    m = x.shape[0]
+    return y[i * m:(i + 1) * m], aux
 
 
 def moe_param_count(cfg: ModelConfig) -> int:

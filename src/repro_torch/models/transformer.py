@@ -390,7 +390,8 @@ def _layer(cfg: ModelConfig, p: Params, x: torch.Tensor, *, window: int,
         x = x + attn_out
     h2 = apply_norm(cfg, p["ln2"], x)
     if cfg.family == "moe":       # unprotected: no ctx, as the reference
-        y2, aux = moe.moe_ffn(cfg, p["moe"], h2.reshape(-1, h2.shape[-1]))
+        y2, aux = moe.moe_layer(cfg, p["moe"],
+                                h2.reshape(-1, h2.shape[-1]))
         return x + y2.reshape(h2.shape), new_ssm, aux
     return (x + _mlp_block(cfg, p["mlp"], h2, ctx=ctx, rclass=rclass),
             new_ssm, None)

@@ -10,7 +10,8 @@ The JAX package jit-compiles these functions; the port runs them eagerly.
 With a mesh (``make_train_step(..., mesh=)``) the step runs SPMD on the
 ranks of a ``launch.mesh.Mesh`` (``make_sharded_train_step``): params and
 moments rest as ``Shard`` leaves, each rank computes on its rows of the
-global batch, and the gradient is summed over the data axes.
+global batch, and the gradient is summed over the data axes. The MoE
+layers route the global batch all the same (``models.moe.moe_layer``).
 
 The train state carries a host-int ``seed`` where the reference carries a
 PRNG key: the diffusion loss draws its timesteps and noise from a CPU
@@ -22,6 +23,7 @@ the same step.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -168,42 +170,49 @@ def value_and_grad(cfg: ModelConfig, params, batch, gen: torch.Generator,
 
 
 def _rows_value_and_grad(cfg: ModelConfig, params, batch: Dict,
-                         gen: torch.Generator, rows: slice
+                         gen: torch.Generator, rows: slice, mesh=None
                          ) -> Tuple[torch.Tensor, Dict, Any]:
     """``value_and_grad`` on ``rows`` of ``batch``; the diffusion loss's
     ``t`` and ``eps`` are drawn for the whole batch (``_diffusion_draws``)
-    and cut to the same rows."""
+    and cut to the same rows. With ``mesh`` (the rows split over its data
+    axes) inside ``constraints.split_rows(mesh)``."""
     draws = None
     if cfg.family in ("dit", "unet"):
         draws = tuple(x[rows] for x in _diffusion_draws(batch["latents"],
                                                         gen))
-    return value_and_grad(cfg, params, {k: v[rows] for k, v in batch.items()},
-                          gen, draws)
+    scope = (contextlib.nullcontext() if mesh is None
+             else constraints.split_rows(mesh))
+    with scope:
+        return value_and_grad(cfg, params,
+                              {k: v[rows] for k, v in batch.items()},
+                              gen, draws)
 
 
 def _batch_grads(cfg: ModelConfig, params, batch: Dict, state: "TrainState",
-                 microbatches: int, rows_of: Callable[[int], slice]
-                 ) -> Tuple[torch.Tensor, Dict, Any, bool]:
+                 microbatches: int, rows_of: Callable[[int], slice],
+                 mesh=None) -> Tuple[torch.Tensor, Dict, Any, bool]:
     """(loss, extras, grads, split) over ``batch``: with ``microbatches >
     1`` accumulated over that many slices of it, one after another
     (dividing the live-activation footprint by the microbatch count), each
     drawing from the generator (seed, step, 0) as the reference's fold-in
     of 0 does; ``rows_of(m)`` is the rows of m this rank computes of each
-    (``split``: fewer than all)."""
+    (``split``: fewer than all, over ``mesh``'s data axes)."""
     n = next(iter(batch.values())).shape[0]
     m = n // max(microbatches, 1)
     rows = rows_of(m)
     split = rows.stop - rows.start < m
+    scope = mesh if split else None
     if microbatches <= 1:
         return _rows_value_and_grad(
             cfg, params, batch, generator(state.seed, state.step),
-            rows) + (split,)
+            rows, scope) + (split,)
     grads = tree_map(torch.zeros_like, params)
     loss = 0.0
     for i in range(microbatches):
         mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
         l_i, extras, g_i = _rows_value_and_grad(
-            cfg, params, mb, generator(state.seed, state.step, 0), rows)
+            cfg, params, mb, generator(state.seed, state.step, 0), rows,
+            scope)
         grads = tree_map(torch.add, grads, g_i)
         loss = loss + l_i
     grads = tree_map(lambda g: g / microbatches, grads)
@@ -234,10 +243,6 @@ def make_train_step(cfg: ModelConfig, optim_cfg: optim_lib.OptimConfig,
 
 
 # ------------------------------------------------------ sharded train step
-class MoeDataAxisError(NotImplementedError):
-    """The MoE family on a data axis of more than one rank."""
-
-
 def _same_on_every_rank(mesh, values) -> None:
     """Raise unless every rank holds the same bits of each f32 0-d tensor
     in ``values`` (one integer sum of every rank's bits, in its slot)."""
@@ -268,11 +273,19 @@ def sharded_value_and_grad(cfg: ModelConfig, state: TrainState,
     the whole microbatch); when the rows were split, the gradient, loss
     and extras summed over the data axes and divided by their size (every
     loss here is a token or element mean with no mask, so that is the
-    global batch's mean)."""
+    global batch's mean).
+
+    While the rows are split, each microbatch's ``value_and_grad`` runs
+    inside ``constraints.split_rows(mesh)``: an MoE layer routes the
+    microbatch's global tokens and returns the global aux loss on every
+    rank. A rank's objective is then xent_r + 0.01 aux; the gather's
+    backward sums over the ranks, so the summed gradient is that of
+    sum_r xent_r + n 0.01 aux, and dividing by n gives the gradient of
+    the global batch's loss, mean xent + 0.01 aux."""
     params = constraints.gather(state.params, mesh)
     loss, extras, grads, split = _batch_grads(
         cfg, params, batch, state, microbatches,
-        lambda m: shd.batch_rows(m, mesh))
+        lambda m: shd.batch_rows(m, mesh), mesh)
     if split:
         dsize = _data_size(mesh)
         grads = tree_map(lambda g: g.contiguous(), grads)
@@ -328,15 +341,8 @@ def make_sharded_train_step(cfg: ModelConfig,
     loss and gradient norm, then ``sharded_update``. On the ``model`` axis
     alone every rank computes the whole batch and the step is bit-equal
     to one process. The MoE family routes over the whole batch (capacity,
-    drops and the aux loss count all T tokens), so its rows cannot split:
-    on a data axis above 1 it raises ``MoeDataAxisError``."""
-    dsize = _data_size(mesh)
-    if cfg.family == "moe" and dsize > 1:
-        raise MoeDataAxisError(
-            f"{cfg.name}: MoE routing is global over the batch, so its "
-            f"rows cannot split over a data axis of {dsize}; train it on "
-            "the model axis alone (ROADMAP Queue A item 17)")
-
+    drops and the aux loss count all T tokens): on a data axis above 1
+    each MoE layer gathers the global tokens (``models.moe.moe_layer``)."""
     def train_step(state: TrainState, batch: Dict
                    ) -> Tuple[TrainState, Dict]:
         params, loss, extras, grads = sharded_value_and_grad(

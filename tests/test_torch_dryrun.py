@@ -289,6 +289,27 @@ def test_lower_cell_report_and_cli(tmp_path, capsys):
         dryrun.lower_cell("olmo-1b", "train_4k", (16, 16), opt="dp_only")
 
 
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "kimi-k2-1t-a32b"])
+def test_moe_train_cells_count(arch, mesh):
+    """The MoE archs' ``train_4k`` cells count on one rank of (16, 16) and
+    (2, 16, 16): every MoE layer routes the global batch, so each data
+    rank runs the whole batch's experts and the useful FLOPs fall well
+    under 1/16; each layer's gather sends at least the ring's share of
+    the global tokens, bf16 forward and the f32 gradient backward."""
+    shape, axes = dryrun.MESHES[mesh]
+    rep = dryrun.lower_cell(arch, "train_4k", shape, axes=axes)
+    n = rep["n_devices"]
+    assert rep["model_flops"] / (rep["flops_per_device"] * n) < 1 / 32
+    cfg = configs.get_config(arch)
+    spec = shapes.get_shape("train_4k")
+    tokens = spec.global_batch * spec.seq_len
+    nd = n // shape[-1]
+    gather = 2 * (nd - 1) / nd * tokens * cfg.d_model * (2 + 4)
+    assert rep["collective_bytes_per_device"] >= cfg.n_layers * gather
+    assert rep["collective_ops_executed"] > 0
+
+
 # ------------------------------------------------------ CountingMesh
 def _train_count(mesh_shape, rank=0):
     """One step's count on meta tensors (a rank's collectives return its

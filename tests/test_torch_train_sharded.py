@@ -17,12 +17,18 @@ every collective timing out after ``TIMEOUT_S``): a pair (the (1, 2) and
 and production meshes, a (pod 2, data 2, model 1) mesh). Every rank runs
 its scenario and saves what it computed; the tests hold it against one
 process run here on one thread, as each rank runs.
+
+The MoE family on a data axis routes the global batch
+(``models.moe.moe_layer``): besides the whole train step, each group runs
+one MoE layer on 128 tokens a block of rows (T = 256 on 2 blocks, 512 on
+4) with a router skewed toward one expert, where a rank routing its own
+rows alone would drop assignments the global route keeps.
 """
+import dataclasses
 import functools
 import os
 import subprocess
 import sys
-import types
 from pathlib import Path
 
 import jax
@@ -45,10 +51,10 @@ from repro.train import steps as jsteps
 from repro_torch import configs
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data import synthetic
-from repro_torch.distributed import sharding
+from repro_torch.distributed import constraints, sharding
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import train as train_cli
-from repro_torch.models import dit, encdec, transformer
+from repro_torch.models import dit, encdec, moe, transformer
 from repro_torch.optim import adamw, compression
 from repro_torch.train import steps
 from repro_torch.tree import tree_leaves, tree_map
@@ -57,8 +63,17 @@ from repro_torch.tree import tree_leaves, tree_map
 FAMILY_ARCHS = ("olmo-1b", "deepseek-moe-16b", "mamba2-370m", "hymba-1.5b",
                 "internvl2-76b", "whisper-base", "dit-xl-512", "sd15-unet")
 # trained on the data axis: an LM, a diffusion model (its draws are
-# global), the enc-dec model
-DATA_ARCHS = ("olmo-1b", "dit-xl-512", "whisper-base")
+# global), the enc-dec model, the MoE family (its routing is global)
+MOE_ARCHS = ("deepseek-moe-16b", "kimi-k2-1t-a32b")
+DATA_ARCHS = ("olmo-1b", "dit-xl-512", "whisper-base") + MOE_ARCHS
+# (arch, group): every data arch on the pair's (2, 1) and the quad's
+# (2, 2); the MoE archs also on the quad's (pod 2, data 2, model 1)
+DATA_CASES = ([(a, g) for a in DATA_ARCHS for g in ("pair", "quad")]
+              + [(a, "pod") for a in MOE_ARCHS])
+# the MoE layer test: MOE_ROWS tokens a block of rows, E = 8, top-3,
+# capacity factor 1.0: the capacity is 64 for a rank's 128 tokens, 128 for
+# T = 256 (2 blocks) and 192 for T = 512 (4 blocks)
+MOE_ROWS, MOE_SEED = 128, 11
 BATCH, SEQ, STEPS, SEED = 4, 16, 2, 7
 OCFG = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 TIMEOUT_S = 120                  # per collective
@@ -154,6 +169,56 @@ def _data_axis(mesh, tmp: str, arch: str):
                 final=whole(st, mesh))
 
 
+def moe_layer_inputs(t: int):
+    """(cfg, params, x, c) of the MoE layer test at ``t`` tokens, from
+    seeds: SMOKE deepseek-moe-16b at capacity factor 1.0 (its experts
+    drawn by ``init_moe_params``); x (t, d) with a constant offset that
+    the router's column 0 reads, so most tokens pick expert 0 and the
+    capacity drops some of them; c, the weights of the objective
+    ``(y c).sum()``."""
+    cfg = dataclasses.replace(configs.get_config("deepseek-moe-16b",
+                                                 smoke=True),
+                              capacity_factor=1.0)
+    g = torch.Generator()
+    g.manual_seed(MOE_SEED)
+    params = moe.init_moe_params(cfg, g)
+    rng = np.random.default_rng(MOE_SEED)
+    d = cfg.d_model
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32))  # noqa: E731
+    router = rng.standard_normal((d, cfg.n_experts)) / np.sqrt(d)
+    router[:, 0] += 4.0 / d
+    params["router"] = f32(router)
+    x = f32(rng.standard_normal((t, d)) + 0.5)
+    c = f32(rng.standard_normal((t, d)))
+    return cfg, params, x, c
+
+
+def routing_ints(r: moe.Routing):
+    return dict(flat_e=r.flat_e, rank=r.rank, keep=r.keep, slot=r.slot,
+                capacity=r.capacity)
+
+
+def _moe_layer(mesh):
+    """One MoE layer on this rank's block of the test's tokens inside
+    ``split_rows(mesh)``: its rows of ``y``, the aux loss, the gradients
+    of ``(y c).sum() + aux`` (its rows of ``c``) with respect to the
+    params and its rows of x, the gathered tokens and their routing."""
+    i, n = constraints.data_block(mesh)
+    cfg, params, x, c = moe_layer_inputs(MOE_ROWS * n)
+    rows = slice(i * MOE_ROWS, (i + 1) * MOE_ROWS)
+    live = [t.requires_grad_(True) for t in tree_leaves(params)]
+    xr = x[rows].clone().requires_grad_(True)
+    with constraints.split_rows(mesh):
+        y, aux = moe.moe_layer(cfg, params, xr)
+    grads = torch.autograd.grad((y * c[rows]).sum() + aux, live + [xr])
+    with torch.no_grad():
+        seen = constraints.gather_rows_grad(x[rows], mesh)
+    return dict(rows=(rows.start, rows.stop), y=y.detach(),
+                aux=aux.detach(), grads=list(grads[:-1]), x_grad=grads[-1],
+                gathered=seen,
+                routing=routing_ints(moe.route(cfg, params["router"], seen)))
+
+
 def _restore(m21, m12, tmp: str):
     """2 steps on (2, 1), saved; restored onto (1, 2), step 3; and a
     corrupt newest step falling back."""
@@ -233,14 +298,19 @@ def _rank_main(rank: int, world: int, tmp: str) -> None:
         out["model_axis"] = {a: _model_axis(m12, a) for a in FAMILY_ARCHS}
         out["adafactor"] = _model_axis(m12, "olmo-1b", "adafactor")
         out["data_axis"] = {a: _data_axis(m21, tmp, a) for a in DATA_ARCHS}
+        out["moe_layer"] = _moe_layer(m21)
         out["restore"] = _restore(m21, m12, tmp)
         out["compress"] = _compress(m21, "data")
         out["collectives"] = m21.collectives + m12.collectives
     else:
         m22 = mesh_lib.make_mesh((2, 2), ("data", "model"), **kw)
         out["data_axis"] = {a: _data_axis(m22, tmp, a) for a in DATA_ARCHS}
+        out["moe_layer"] = _moe_layer(m22)
         out["meshes"], pod = _meshes(rank)
         out["compress"] = _compress(pod, "pod")
+        out["data_axis_pod"] = {a: _data_axis(pod, tmp, a)
+                                for a in MOE_ARCHS}
+        out["moe_layer_pod"] = _moe_layer(pod)
     torch.save(out, f"{tmp}/rank{rank}.pt")
     torch.distributed.destroy_process_group()
 
@@ -593,22 +663,6 @@ def test_meshes_on_four_ranks(quad):
 
 
 # ------------------------------------------------------------- the steps
-def test_moe_refuses_a_data_axis():
-    """The MoE family routes over the whole batch: a data axis above 1
-    raises naming its ROADMAP item; the model axis alone builds."""
-    for arch in ("deepseek-moe-16b", "kimi-k2-1t-a32b"):
-        cfg = configs.get_config(arch, smoke=True)
-        ocfg = adamw.OptimConfig()
-        for shape in ({"data": 2, "model": 1}, {"data": 2, "model": 2}):
-            mesh = types.SimpleNamespace(axis_names=("data", "model"),
-                                         shape=shape)
-            with pytest.raises(steps.MoeDataAxisError,
-                               match="ROADMAP Queue A item 17"):
-                steps.make_train_step(cfg, ocfg, mesh=mesh)
-        steps.make_train_step(cfg, ocfg, mesh=types.SimpleNamespace(
-            axis_names=("data", "model"), shape={"data": 1, "model": 2}))
-
-
 @one_thread
 def _one_process(arch: str, kind: str = "adamw"):
     cfg, ocfg, state = init_state(arch, kind=kind)
@@ -653,12 +707,20 @@ def _value_and_grad(cfg, params, batch, step: int):
                                 synthetic.generator(SEED, step))
 
 
-@pytest.mark.parametrize("group", ["pair", "quad"])
-@pytest.mark.parametrize("arch", DATA_ARCHS)
+# arch -> the reference's loss and gradient on the first batch
+_JAX_FIRST = {}
+# group -> (fixture, key of the ranks' data-axis records)
+DATA_GROUPS = {"pair": ("pair", "data_axis"), "quad": ("quad", "data_axis"),
+               "pod": ("quad", "data_axis_pod")}
+
+
+@pytest.mark.parametrize("arch,group", DATA_CASES)
 def test_data_axis_matches_one_process_and_reference(arch, group,
                                                      data_params, request):
     """(data 2, model 1) and (data 2, model 2), global batch 4 split 2 and
-    2, from the reference's SMOKE init:
+    2, and for the MoE family (pod 2, data 2, model 1), split 1, 1, 1, 1,
+    from the reference's SMOKE init (the MoE layers routing the global
+    batch, the aux loss global):
     - at each of 2 steps, the loss and the gradient (summed over the data
       axis, divided by 2) within DATA_RTOL of one process's on the same
       params (the mesh's, gathered before the step);
@@ -670,11 +732,12 @@ def test_data_axis_matches_one_process_and_reference(arch, group,
       each rank's block, gathered: `torch.equal` to one process's AdamW;
     - the replicated values (metrics, the final state gathered, every
       recorded gradient) identical on every rank."""
-    ranks = request.getfixturevalue(group)
+    fixture, key = DATA_GROUPS[group]
+    ranks = request.getfixturevalue(fixture)
     np_params, params = data_params[arch]
     cfg, ocfg, state = init_state(arch, params)
     bs = batches(cfg)
-    first = ranks[0]["data_axis"][arch]
+    first = ranks[0][key][arch]
     for s, rec in enumerate(first["steps"]):
         loss, _, grads = _value_and_grad(cfg, rec["before"], bs[s], s)
         np.testing.assert_allclose(float(rec["loss"]), float(loss),
@@ -684,7 +747,9 @@ def test_data_axis_matches_one_process_and_reference(arch, group,
                                    rtol=DATA_RTOL)
         assert_tree_close(rec["grads"], grads, DATA_RTOL, 1e-7,
                           f"{arch} step {s}")
-    jl, jg = jax_grads(arch, np_params, bs[0])
+    if arch not in _JAX_FIRST:     # the same for every group
+        _JAX_FIRST[arch] = jax_grads(arch, np_params, bs[0])
+    jl, jg = _JAX_FIRST[arch]
     jg_port = port_params(cfg, jg)
     rec = first["steps"][0]
     np.testing.assert_allclose(float(rec["loss"]), jl, rtol=2e-5)
@@ -694,14 +759,109 @@ def test_data_axis_matches_one_process_and_reference(arch, group,
     _, _, g1 = _value_and_grad(cfg, params, bs[0], 0)
     new_p, new_opt, _ = adamw.apply(ocfg, state.opt, params, g1)
     for rank in ranks:
-        assert_equal_trees(rank["data_axis"][arch]["update"],
+        assert_equal_trees(rank[key][arch]["update"],
                            (new_p, new_opt), f"{arch} update")
-        other = rank["data_axis"][arch]
+        other = rank[key][arch]
         assert [r["metrics"] for r in other["steps"]] == \
             [r["metrics"] for r in first["steps"]]
         assert_equal_trees(other["final"], first["final"], f"{arch} final")
         for a, b in zip(other["steps"], first["steps"]):
             assert_equal_trees(a["grads"], b["grads"], f"{arch} grads")
+
+
+# -------------------------------------------------------- the MoE layer
+# group -> (fixture, key of the ranks' MoE-layer records)
+LAYER_GROUPS = {"pair": ("pair", "moe_layer"), "quad": ("quad", "moe_layer"),
+                "pod": ("quad", "moe_layer_pod")}
+
+
+def _layer_ranks(group, request):
+    """The ranks' MoE-layer records, and one record for each block of
+    rows (the model axis repeats a block)."""
+    fixture, key = LAYER_GROUPS[group]
+    recs = [r[key] for r in request.getfixturevalue(fixture)]
+    blocks = {}
+    for rec in recs:
+        blocks.setdefault(rec["rows"], rec)
+    return recs, [blocks[k] for k in sorted(blocks)]
+
+
+@one_thread
+def _moe_layer_one_process(blocks: int):
+    """One process's MoE layer on all tokens of ``blocks`` blocks of rows:
+    (cfg, params, x, y, aux, the gradients of ``(y c).sum() + blocks aux``
+    with respect to the params then x, the routing)."""
+    cfg, params, x, c = moe_layer_inputs(MOE_ROWS * blocks)
+    live = [t.requires_grad_(True) for t in tree_leaves(params)]
+    xg = x.clone().requires_grad_(True)
+    y, aux = moe.moe_ffn(cfg, params, xg)
+    grads = torch.autograd.grad((y * c).sum() + blocks * aux, live + [xg])
+    return (cfg, params, x, y.detach(), aux.detach(), grads,
+            moe.route(cfg, params["router"].detach(), x))
+
+
+def _assert_close(got, want, label):
+    """Within 1e-6 of ``want``'s largest magnitude."""
+    err = float((got - want).abs().max())
+    assert err <= 1e-6 * float(want.abs().max()), (label, err)
+
+
+@pytest.mark.parametrize("group", ["pair", "quad", "pod"])
+def test_moe_layer_routes_the_global_batch(group, request):
+    """One MoE layer inside ``split_rows``, 128 tokens a rank, over (data
+    2, model 1) and (data 2, model 2) at T = 256 (capacity 128) and (pod
+    2, data 2, model 1) at T = 512 (capacity 192), the router skewed
+    toward expert 0 (the global route drops assignments):
+    on every rank the gathered tokens are one process's, their routing
+    integers and this rank's rows of ``y`` `torch.equal` to one process's
+    ``moe_ffn``, the aux loss equal on every rank and to one process's;
+    the ranks' gradients of ``(y c).sum() + aux`` (each its rows of c),
+    summed over the blocks, within 1e-6 of one process's gradient of
+    ``(y c).sum() + n aux`` (n blocks), and each rank's gradient of its
+    rows of x those rows of one process's."""
+    recs, blocks = _layer_ranks(group, request)
+    n = len(blocks)
+    assert n == (4 if group == "pod" else 2)
+    cfg, _, x, y, aux, grads, r = _moe_layer_one_process(n)
+    want = routing_ints(r)
+    assert want["capacity"] == {2: 128, 4: 192}[n] and not bool(r.keep.all())
+    for rec in recs:
+        assert torch.equal(rec["gathered"], x)
+        for k, v in want.items():
+            got = rec["routing"][k]
+            assert (torch.equal(got, v) if isinstance(v, torch.Tensor)
+                    else got == v), (group, k)
+        lo, hi = rec["rows"]
+        assert torch.equal(rec["y"], y[lo:hi])
+        assert torch.equal(rec["aux"], aux)
+        _assert_close(rec["x_grad"], grads[-1][lo:hi], "x")
+    for i, want_g in enumerate(grads[:-1]):
+        got = torch.stack([b["grads"][i] for b in blocks]).sum(0)
+        _assert_close(got, want_g, f"param {i}")
+
+
+@pytest.mark.parametrize("group", ["pair", "quad", "pod"])
+def test_moe_layer_per_rank_routing_fails_the_checks(group, request):
+    """The negative control: a rank routing its own 128 rows alone
+    (capacity 64) drops assignments that the global route keeps, so its
+    routing integers and its rows of ``y`` differ from one process's,
+    which the ranks' records match."""
+    _, blocks = _layer_ranks(group, request)
+    cfg, params, x, y, _, _, r = _moe_layer_one_process(len(blocks))
+    k, dropped = cfg.top_k, 0
+    for b in blocks:
+        lo, hi = b["rows"]
+        local = moe.route(cfg, params["router"].detach(), x[lo:hi])
+        assert local.capacity == 64
+        lost = int((r.keep[lo * k:hi * k] & ~local.keep).sum())
+        dropped += lost
+        if lost:
+            y_local, _ = one_thread(moe.moe_ffn)(cfg, params, x[lo:hi])
+            assert not torch.equal(y_local.detach(), y[lo:hi])
+            assert not torch.equal(local.keep, b["routing"]["keep"][
+                lo * k:hi * k])
+        assert torch.equal(b["y"], y[lo:hi])
+    assert dropped > 0
 
 
 # ---------------------------------------------------------- checkpoints
