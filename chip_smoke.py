@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases device,build,families
     python3 chip_smoke.py --phases device,build,kernels,train
     python3 chip_smoke.py --phases device,build,sharded
+    python3 chip_smoke.py --phases device,build,sharded_lm
     python3 chip_smoke.py --phases device,build,train_sharded
     python3 chip_smoke.py --phases device,build,roofline,examples
 
@@ -108,9 +109,9 @@ Phases, each printing one JSON line with its wall time:
 6. offload  -- the same CLI serves the full-width DiT's 2 requests at
                rollback interval 2 in turns on fresh engines with one base
                seed: plain, ``--offload --stream 2``, the same again,
-               plain; each engine serves them 4 times, a cold batch (drift
+               plain; each engine serves them 3 times, a cold batch (drift
                and its clean reference; the pinned host sets allocated)
-               and 3 steady ones (drift alone, everything reused). Every
+               and 2 steady ones (drift alone, everything reused). Every
                batch's launch counts are exact (3440 / 3440 / 560 / 0
                cold, half that steady) and its finals ``torch.equal`` to
                the first plain turn's batch of the same index (the flip
@@ -219,16 +220,40 @@ Phases, each printing one JSON line with its wall time:
                shapes they add and ``mha_flash`` at the UNet's two
                self-attention shapes, beside their bounds.
 11b. sharded -- the serve phase's 2 full-width DiT requests (its seeded
-               weights, drift at undervolt, 4 steps) in one process,
-               then on a (data 2, model 1) and a (data 1, model 2) mesh
-               of 2 spawned ranks sharing cuda:0 over gloo
-               (``serving.sharded``): every rank's latents (on int32
+               weights, drift at undervolt, 3 steps, step 2 faulted) in
+               one process, where each must correct elements, then on a
+               (data 2, model 1) and a (data 1, model 2) mesh, each of 2
+               spawned ranks, the 4 ranks run together sharing cuda:0
+               over gloo (``serving.sharded``): every rank's latents (on
+               int32
                views), detection heatmaps, corrected counts, monitor
                state, billed joules and launch counts equal the one
                process's; per rank the wall, the peak memory and the
-               collectives a batch. Then the SMOKE ``--sharded`` CLI
-               under ``python -m torch.distributed.run`` (2 ranks) exits
-               0 and prints the mesh line once.
+               collectives a batch. Beside the ranks, the SMOKE
+               ``--sharded`` CLI under ``python -m torch.distributed.run``
+               (2 ranks) exits 0 and prints the mesh line once.
+11c. sharded_lm -- the sharded engine's language-model buckets (a
+               bucket runs whole on every rank, each layer's weights
+               sharded at rest and gathered at its boundary): full-width
+               olmo-1b (the ar phase's weights) serves 2 stat_abft
+               requests of 4 tokens at window 2 in one process, then
+               every other LM family at SMOKE (gemma2-9b, glm4-9b,
+               gemma3-27b, deepseek-moe-16b, kimi-k2-1t-a32b,
+               mamba2-370m, hymba-1.5b) 2 requests of 6 tokens at window
+               3 in stat_abft and in faulty, beside the SMOKE ``--sharded
+               --arch olmo-1b`` CLI on 2 ranks (exit 0, the mesh line and
+               each request's line once). Then all of it on a (data 2,
+               model 1) and a (data 1, model 2) mesh, each of 2 spawned
+               ranks, the 4 ranks run together sharing cuda:0 over gloo:
+               every rank's results, field for field, its monitor and its
+               launch counts equal the one
+               process's; olmo-1b's launches are exact (105
+               ``fault_inject`` launches a faulted step, 16 attentions a
+               prefill), it detects, rolls back and matches the clean
+               tokens. Per rank: the wall and the wall per token, the
+               collectives and the bytes gathered an evaluation (the
+               bytes summed over the mesh must be the weights' gather
+               buffers, evaluation by evaluation), held and peak memory.
 12. train   -- training (``train.steps``, ``optim.adamw``,
                ``checkpoint.manager``): one SMOKE arch per family
                (olmo-1b, deepseek-moe-16b, mamba2-370m, hymba-1.5b,
@@ -270,9 +295,10 @@ Phases, each printing one JSON line with its wall time:
                and backward calls a step on every rank. Per rank: ms,
                collectives and peak memory a step, save and restore
                seconds. Then, in the same ranks, full-width
-               deepseek-moe-16b cut to TS_MOE_LAYERS layers takes 2
-               steps on (data 2, model 1), each MoE layer routing the
-               global batch (``moe.moe_layer``): each reduced gradient
+               deepseek-moe-16b cut to TS_MOE_LAYERS layers takes
+               TS_MOE_STEPS steps on (data 2, model 1), each MoE layer
+               routing the global batch (``moe.moe_layer``): each
+               reduced gradient
                within TS_GRAD_RTOL of the twin's at the mesh's params
                (rank 0's half alone failing it); every MoE layer's
                gathered tokens the same bits on both ranks, this rank's
@@ -281,11 +307,11 @@ Phases, each printing one JSON line with its wall time:
                per-rank route would drop and the global route keeps,
                counted; TS_MOE_LAYERS attention launches and backward
                calls a step; per rank ms, collectives and peak memory a
-               step. Then the SMOKE CLI, ``--model-parallel 2`` and
-               ``--arch deepseek-moe-16b`` on (2, 1), each under
-               ``python -m torch.distributed.run`` (2 ranks), both
-               started together: each exits 0 and prints its mesh line
-               once.
+               step. Beside the ranks, the SMOKE CLI,
+               ``--model-parallel 2`` and ``--arch deepseek-moe-16b`` on
+               (2, 1), each under ``python -m torch.distributed.run`` (2
+               ranks), both started with the ranks: each exits 0 and
+               prints its mesh line once.
 13. roofline -- three card paths: the full-width DiT's drift evaluation
                at bucket 2 (``dryrun.drift_sample_step``), full-width
                olmo-1b's train step at batch 8, seq 128, and its
@@ -318,6 +344,7 @@ raises and exits non-zero.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -330,7 +357,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "reference", "serve", "offload",
           "sched", "ar", "lm", "moe", "ssm", "baselines", "families",
-          "sharded", "train", "train_sharded", "roofline", "examples")
+          "sharded", "sharded_lm", "train", "train_sharded", "roofline",
+          "examples")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, int8 and bf16
 # tensor-core rates, float32 rate outside the tensor cores; read from
@@ -367,7 +395,10 @@ FAMILY_ARCHS = ("pixart-alpha", "sd15-unet")
 # logits are bit-equal (measured); a ring one slot off must exceed it.
 MIXED_LOGITS_LIMIT = 0.0
 OFFLOAD_INTERVAL = 2        # refresh interval and stream window
-STEADY_BATCHES = 3          # batches after an offload engine's first
+STEADY_BATCHES = 2          # batches after an offload engine's first
+# decode steps of the per-step timing pass of each LM (``_ar_step_ms``):
+# steps 2 to 7 are timed, fewer than the requests' 16 for the time limit
+STEP_MS_STEPS = 8
 TIMERS = set()          # which timer produced the kernel times
 ENERGY_SOURCE = "perfmodel: modeled paper accelerator, not this card"
 
@@ -1966,7 +1997,9 @@ def _offload_smoke(torch):
                 corrected_cpu=xb, commits=cb, commit_bytes=nb, previews=pb)
 
 
-SCHED_TURNS = ("on", "off", "on", "off")   # telemetry and recorder
+# telemetry and recorder on, then off; one turn each for the whole
+# script's time limit
+SCHED_TURNS = ("on", "off")
 AUTO_BATCHES = 4
 # Wall-clock samples and the build label: all an exposition may differ by.
 WALL_METRICS = ("drift_engine_uptime_seconds", "drift_clock_skew_ratio")
@@ -2496,12 +2529,13 @@ def _ar_step_ms(torch, eng, arch, cfg):
     from repro_torch.serving import ar
     (_, weights), = eng.servable_for(arch)._weights.values()
     tokens = ar.prompt_tokens(cfg, [0, 1], eng.device)
-    schedule = dvfs.fine_grained_schedule(AR_STEPS + 1, dvfs.UNDERVOLT,
+    schedule = dvfs.fine_grained_schedule(STEP_MS_STEPS + 1,
+                                          dvfs.UNDERVOLT,
                                           nominal_steps=eng.nominal_steps)
     out = {}
     for mode in ("clean", "faulty", "stat_abft"):
-        fns = ar.make_decoder(cfg, ar.DecodeConfig(AR_STEPS + 1, AR_WINDOW,
-                                                   mode,
+        fns = ar.make_decoder(cfg, ar.DecodeConfig(STEP_MS_STEPS + 1,
+                                                   AR_WINDOW, mode,
                                                    eng.monitor_target_ber),
                               schedule=schedule)
         src = fault.PhiloxFlipSource(3, 0, eng.device)
@@ -2509,7 +2543,7 @@ def _ar_step_ms(torch, eng, arch, cfg):
         tok, cache = fns.prefill(weights, tokens)
         torch.cuda.synchronize()
         times = []
-        for i in range(1, AR_STEPS):
+        for i in range(1, STEP_MS_STEPS):
             t0 = time.perf_counter()
             tok, cache, monitor, *_ = fns.step(weights, cache, tok, i,
                                                monitor, src, 1.0)
@@ -2517,7 +2551,7 @@ def _ar_step_ms(torch, eng, arch, cfg):
             if i >= eng.nominal_steps:
                 times.append(1e3 * (time.perf_counter() - t0))
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fns.step(weights, cache, tok, AR_STEPS, monitor, src, 1.0)
+            fns.step(weights, cache, tok, STEP_MS_STEPS, monitor, src, 1.0)
             torch.cuda.synchronize()
         kernels = sum(ev.count for ev in prof.key_averages()
                       if getattr(ev, "self_device_time_total",
@@ -3217,9 +3251,9 @@ def phase_train(torch, smi):
 
 
 # ------------------------------------------- training across ranks (slice 14)
-# full-width olmo-1b cut 16 -> TS_LAYERS layers (0.64 B params), which
+# full-width olmo-1b cut 16 -> TS_LAYERS layers (0.37 B params), which
 # keeps the whole script inside its time limit with the MoE part
-TS_ARCH, TS_LAYERS, TS_SEED, TS_WORLD = "olmo-1b", 8, 60, 2
+TS_ARCH, TS_LAYERS, TS_SEED, TS_WORLD = "olmo-1b", 4, 60, 2
 # the (2, 1) mesh's gradient (a half batch per rank, summed and halved)
 # against the one-process twin's at the same params, bf16 activations:
 # each leaf within TS_GRAD_RTOL of its largest magnitude plus 1e-4 of the
@@ -3232,8 +3266,9 @@ TS_GRAD_RTOL, TS_LOSS_RTOL = 1e-2, 1e-3
 TS_JOIN_S = 900
 TS_CLI_MESH = "[train] olmo-1b-smoke on mesh {'data': 1, 'model': 2}"
 # the MoE part: full-width deepseek-moe-16b cut 28 -> TS_MOE_LAYERS layers
-# (1.60 B params), the same batches and limits, on (data 2, model 1)
-TS_MOE_ARCH, TS_MOE_LAYERS = "deepseek-moe-16b", 2
+# (1.60 B params), the same batches and limits, on (data 2, model 1);
+# one step, for the whole script's time limit
+TS_MOE_ARCH, TS_MOE_LAYERS, TS_MOE_STEPS = "deepseek-moe-16b", 2, 1
 TS_MOE_CLI_MESH = ("[train] deepseek-moe-smoke on mesh {'data': 2, "
                    "'model': 1}")
 
@@ -3365,8 +3400,9 @@ def _saved_leaves(torch, path: Path):
 
 def _ts_moe(torch, mesh, run_step):
     """The MoE part of a train_sharded rank: TS_MOE_ARCH at full width cut
-    to TS_MOE_LAYERS layers, 2 AdamW steps on ``mesh`` (data 2, model 1),
-    each MoE layer routing the global batch (``moe.moe_layer``). Before
+    to TS_MOE_LAYERS layers, TS_MOE_STEPS AdamW steps on ``mesh`` (data 2,
+    model 1), each MoE layer routing the global batch (``moe.moe_layer``).
+    Before
     each step rank 0 takes the twin's gradient at the mesh's params
     (``_ts_twin_at``: the whole batch, then rank 0's half alone, which
     must fail the limit); the reduced gradient must pass it. In each step
@@ -3391,7 +3427,8 @@ def _ts_moe(torch, mesh, run_step):
     ocfg = OptimConfig(lr=3e-4, warmup_steps=max(TRAIN_STEPS // 20, 1),
                        total_steps=TRAIN_STEPS)
     dcfg = synthetic.for_model(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=TS_SEED)
-    batches = [synthetic.batch_at(dcfg, i, device="cuda") for i in range(2)]
+    batches = [synthetic.batch_at(dcfg, i, device="cuda")
+               for i in range(TS_MOE_STEPS)]
     t0 = t = time.perf_counter()
     state = sharding.shard_state(
         steps.init_train_state(cfg, ocfg, TS_SEED, "cuda"), mesh)
@@ -3428,7 +3465,7 @@ def _ts_moe(torch, mesh, run_step):
     k = cfg.top_k
     t_global = batches[0]["tokens"][:, :-1].numel()    # the MoE's T
     fields = ("flat_e", "rank", "keep", "slot")
-    for i in range(2):
+    for i in range(TS_MOE_STEPS):
         # the twin's launches compare, and count on no path; its routes
         # of the whole batch are kept (the half batch's are not)
         held = counters["flash_attention"].launches, fk.backward_calls
@@ -3744,10 +3781,10 @@ def phase_train_sharded(torch, smi):
     from the restored state. Every step launches TS_LAYERS attentions and
     backward calls on every rank, counted from the first mesh step to the
     last. Then, in the same ranks, the MoE part (``_ts_moe``), counted
-    from its first step to its last. Then the SMOKE CLI, ``--model-parallel
-    2`` and ``--arch deepseek-moe-16b`` on (2, 1), each under ``python -m
-    torch.distributed.run`` (2 ranks, cuda:0) and both started together,
-    must exit 0 and print its mesh line once."""
+    from its first step to its last. Beside the ranks, started with them,
+    the SMOKE CLI, ``--model-parallel 2`` and ``--arch deepseek-moe-16b``
+    on (2, 1), each under ``python -m torch.distributed.run`` (2 ranks,
+    cuda:0), must exit 0 and print its mesh line once."""
     import shutil
     import torch.multiprocessing as mp
     gc.collect()
@@ -3755,36 +3792,8 @@ def phase_train_sharded(torch, smi):
     tmp = ROOT / "build" / "train_sharded"
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir(parents=True)
-    ctx = mp.get_context("spawn")
-    t0 = time.perf_counter()
-    procs = [ctx.Process(target=_ts_rank, args=(r, TS_WORLD, str(tmp)))
-             for r in range(TS_WORLD)]
-    for p in procs:
-        p.start()
-    try:
-        for p in procs:
-            p.join(TS_JOIN_S)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-    codes = [p.exitcode for p in procs]
-    if codes != [0] * TS_WORLD:
-        raise AssertionError(f"train_sharded ranks exited {codes}")
-    command_s = time.perf_counter() - t0
-    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
-             for r in range(TS_WORLD)]
-    shutil.rmtree(tmp, ignore_errors=True)
-    launches, bwd = {}, 0
-    for rec in ranks:
-        if not (rec["restored_bit_equal"] and rec["step3_bit_equal"]):
-            raise AssertionError(f"train_sharded rank {rec['rank']}: {rec}")
-        _add_launches(launches, rec.pop("launches"))
-        bwd += rec.pop("backward_calls")
-
     # the SMOKE launcher, olmo-1b on (1, 2) and deepseek-moe-16b on
-    # (2, 1), both runs started together
+    # (2, 1), both started with the ranks
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     clis = [(line, subprocess.Popen(
@@ -3795,34 +3804,62 @@ def phase_train_sharded(torch, smi):
         cwd=ROOT)) for line, args in (
             (TS_CLI_MESH, ["--model-parallel", "2", "--steps", "3"]),
             (TS_MOE_CLI_MESH, ["--arch", TS_MOE_ARCH, "--steps", "2"]))]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_ts_rank, args=(r, TS_WORLD, str(tmp)))
+             for r in range(TS_WORLD)]
     try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(TS_JOIN_S)
+        command_s = time.perf_counter() - t0
         outs = [(line, p.communicate(timeout=TS_JOIN_S), p.returncode)
                 for line, p in clis]
+        cli_s = time.perf_counter() - t0
     finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
         for _, p in clis:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * TS_WORLD:
+        raise AssertionError(f"train_sharded ranks exited {codes}")
     for line, (out, err), code in outs:
         if code != 0 or out.count(line) != 1 or \
                 out.count("[train] done") != 1:
             raise AssertionError(f"train_sharded CLI exited {code}:\n"
                                  f"{out[-2000:]}\n{err[-2000:]}")
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+             for r in range(TS_WORLD)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches, bwd = {}, 0
+    for rec in ranks:
+        if not (rec["restored_bit_equal"] and rec["step3_bit_equal"]):
+            raise AssertionError(f"train_sharded rank {rec['rank']}: {rec}")
+        _add_launches(launches, rec.pop("launches"))
+        bwd += rec.pop("backward_calls")
     moe_ranks = [rec.pop("moe") for rec in ranks]
     return dict(arch=TS_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                 world=TS_WORLD, card=smi, command_s=command_s, ranks=ranks,
                 moe=dict(arch=TS_MOE_ARCH, layers=TS_MOE_LAYERS,
                          batch=TRAIN_BATCH, seq=TRAIN_SEQ, ranks=moe_ranks),
                 launches=launches, backward_calls=bwd,
-                cli=dict(wall_s=time.perf_counter() - t0,
-                         mesh_lines=[TS_CLI_MESH, TS_MOE_CLI_MESH]),
+                cli=dict(wall_s=cli_s,
+                         mesh_lines=[TS_CLI_MESH, TS_MOE_CLI_MESH],
+                         note="started with the ranks; wall_s to the "
+                              "later of their ends and the ranks'"),
                 energy=[],
                 note="ms: host wall of one train step ended by a "
                      "synchronize (the first includes warm-up); "
                      "peak_mem_bytes: max_memory_allocated over that step "
                      "in the rank's process; collectives: the rank's "
                      "calls that step; twin_s: rank 0's one-process twin "
-                     "and its update checks (rank 1 waits)")
+                     "and its update checks (rank 1 waits); the SMOKE CLI "
+                     "ran beside the ranks' start")
 
 
 # ----------------------------------------------- decode paths (slice 13)
@@ -4087,9 +4124,10 @@ DECODE_PATHS = {"olmo-1b": ("drift_decode", "ar+drift", _drift_decode),
 
 
 # ------------------------------------------------------ sharded serving
-# denoising steps of the sharded phase's requests (10 until the
-# train_sharded phase needed its time; steps 2 and 3 are faulted)
-SHARDED_STEPS = 4
+# denoising steps of the sharded phase's requests, cut to keep the whole
+# script inside its time limit: step 2 is faulted (steps 0 and 1 run at
+# the nominal point), so the ranks hold corrected counts to one process
+SHARDED_STEPS = 3
 SHARDED_ARGV = ["--arch", ARCH, "--no-smoke", "--batch", str(BUCKET),
                 "--steps", str(SHARDED_STEPS), "--requests", "2", "--op",
                 "undervolt", "--mode", "drift", "--device", "cuda"]
@@ -4112,28 +4150,48 @@ def _sharded_view(torch, eng, results):
                  float(mon.ema_ber)))
 
 
-def _sharded_rank(rank: int, world: int, model_parallel: int,
-                  tmp: str) -> None:
-    """One rank of the sharded phase (a spawned process): the serve
-    phase's full-width DiT request pair on a ShardedDriftServeEngine,
-    ranks sharing cuda:0 over gloo; saves what it served and measured."""
+def _sharded_rank(rank: int, world: int, model_parallel: int, tmp: str,
+                  kind: str) -> None:
+    """One rank of the sharded phase (``kind`` "dit") or of the sharded_lm
+    phase ("lm") on a (data, model) mesh of model axis ``model_parallel``,
+    a spawned process; ranks share cuda:0 over gloo. Saves what it served
+    and measured, and the seconds from building the mesh to its last run
+    (``mesh_s``)."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import get_config
     from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.launch import serve
-    from repro_torch.models import dit
     from repro_torch.serving.sharded import ShardedDriftServeEngine
 
     torch.cuda.set_device(0)
+    t0 = time.perf_counter()
     mesh = mesh_lib.make_serving_mesh(
         model_parallel, device="cuda", init_method=f"file://{tmp}/rdzv",
         rank=rank, world_size=world, timeout_s=SHARDED_JOIN_S)
+
+    def make(arch, smoke):
+        return ShardedDriftServeEngine(mesh=mesh, arch=arch, smoke=smoke,
+                                       bucket=BUCKET, device="cuda")
+    if kind == "dit":
+        rec = _sharded_dit(torch, make(ARCH, False), mesh)
+    else:
+        rec = dict(full=_sharded_lm_full(torch, make, mesh),
+                   smoke=_sharded_lm_smoke(torch, make))
+    rec.update(rank=rank, mesh=dict(mesh.shape), backend=mesh.backend,
+               mesh_s=time.perf_counter() - t0)
+    torch.save(rec, f"{tmp}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def _sharded_dit(torch, eng, mesh):
+    """A sharded rank's DiT run: the serve phase's full-width request pair
+    on ``eng`` with its seeded weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import dit
+
     dev = torch.device("cuda")
     cfg = get_config(ARCH)
-    eng = ShardedDriftServeEngine(mesh=mesh, arch=ARCH, smoke=False,
-                                  bucket=BUCKET, device="cuda")
     eng.set_params(ARCH, False,
                    _perturb(torch, dit.init_params(cfg, 11, dev), cfg, 12,
                             dev))
@@ -4146,13 +4204,11 @@ def _sharded_rank(rank: int, world: int, model_parallel: int,
     res, launches, wall = _serve_counted(torch, serve, eng, SHARDED_ARGV,
                                          counters)
     rec = _sharded_view(torch, eng, res)
-    rec.update(rank=rank, mesh=dict(mesh.shape), backend=mesh.backend,
-               launches=launches, wall_s=wall, held_bytes=held,
+    rec.update(launches=launches, wall_s=wall, held_bytes=held,
                peak_mem_bytes=torch.cuda.max_memory_allocated(),
                collectives_per_batch=mesh.collectives / eng.stats.batches,
                batches=eng.stats.batches)
-    torch.save(rec, f"{tmp}/rank{rank}.pt")
-    dist.destroy_process_group()
+    return rec
 
 
 def _equal_view(torch, got, want) -> bool:
@@ -4166,21 +4222,96 @@ def _equal_view(torch, got, want) -> bool:
     return True
 
 
+def _spawn_ranks(torch, root: Path, kind: str):
+    """SHARDED_WORLD ranks of ``kind`` (``_sharded_rank``) on a (data 2,
+    model 1) mesh and as many on a (data 1, model 2) mesh, all spawned
+    together, each mesh's ranks over a ``file://`` rendezvous of their
+    own under ``root``: every mesh's records, rank by rank, and the
+    command's seconds. A rank that exits non-zero, or does not join
+    within SHARDED_JOIN_S, fails the phase."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    splits = (1, SHARDED_WORLD)
+    for mp_ in splits:
+        (root / f"model{mp_}").mkdir(parents=True)
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_sharded_rank,
+                         args=(r, SHARDED_WORLD, mp_,
+                               str(root / f"model{mp_}"), kind))
+             for mp_ in splits for r in range(SHARDED_WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(SHARDED_JOIN_S)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * len(procs):
+        raise AssertionError(f"sharded {kind} ranks (model axes "
+                             f"{splits}, {SHARDED_WORLD} ranks each) "
+                             f"exited {codes}")
+    return ([[torch.load(root / f"model{mp_}" / f"rank{r}.pt",
+                         weights_only=False)
+              for r in range(SHARDED_WORLD)] for mp_ in splits],
+            time.perf_counter() - t0)
+
+
+def _sharded_cli(args):
+    """The SMOKE ``launch.serve --sharded`` under ``python -m
+    torch.distributed.run`` (SHARDED_WORLD ranks on cuda:0), started."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(SHARDED_WORLD), "-m",
+         "repro_torch.launch.serve", "--sharded", *args, "--device", "cuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+
+
+def _stop_cli(cli) -> None:
+    """Stop ``cli`` (``_sharded_cli``): the launcher stops its ranks."""
+    cli.terminate()
+    try:
+        cli.communicate(timeout=30)
+    except subprocess.TimeoutExpired:
+        cli.kill()
+        cli.communicate()
+
+
+def _check_cli(cli, lines) -> None:
+    """``cli`` (``_sharded_cli``) must exit 0 within SHARDED_JOIN_S and
+    print each of ``lines`` once."""
+    try:
+        out, err = cli.communicate(timeout=SHARDED_JOIN_S)
+    except subprocess.TimeoutExpired:
+        _stop_cli(cli)
+        raise AssertionError(f"sharded CLI {cli.args[-6:]} did not finish "
+                             f"in {SHARDED_JOIN_S} s")
+    if cli.returncode != 0 or any(out.count(s) != 1 for s in lines):
+        raise AssertionError(f"sharded CLI exited {cli.returncode}, each of "
+                             f"{lines} once wanted:\n{out[-2000:]}\n"
+                             f"{err[-2000:]}")
+
+
 def phase_sharded(torch, smi):
     """Serving across ranks (``serving.sharded``): the serve phase's 2
     full-width DiT-XL/2-512 requests (bucket 2, SHARDED_STEPS steps, drift
-    at undervolt, its seeded weights) in one process, then on a (data 2,
-    model 1) and a (data 1, model 2) mesh of 2 spawned ranks that share
-    cuda:0 over gloo (NCCL refuses two ranks on one card). Every rank's
+    at undervolt, its seeded weights) in one process, each correcting
+    elements, then on a (data 2, model 1) and a (data 1, model 2) mesh,
+    each of 2 spawned ranks, the 4 ranks run together sharing cuda:0 over
+    gloo (NCCL refuses two ranks on one card). Every rank's
     latents, heatmap of detections, corrected counts, monitor state and
     billed joules equal the single process's (latents on their int32
     views), and so do its launch counts, zeroed just before and read just
     after each run. Per rank: wall, peak memory over the run and the
-    collectives a batch. Then the SMOKE CLI ``--sharded`` under ``python
-    -m torch.distributed.run`` (2 ranks, cuda:0) must exit 0 and print
-    the mesh line."""
+    collectives a batch. Beside the ranks, the SMOKE CLI ``--sharded``
+    under ``python -m torch.distributed.run`` (2 ranks, cuda:0) must exit
+    0 and print the mesh line."""
     import shutil
-    import torch.multiprocessing as mp
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import dit
@@ -4199,37 +4330,27 @@ def phase_sharded(torch, smi):
         torch, serve, eng, SHARDED_ARGV, counters)
     single = _sharded_view(torch, eng, res)
     single_peak = torch.cuda.max_memory_allocated()
+    if not all(r["corrected"] > 0 for r in single["results"]):
+        raise AssertionError("sharded: one process corrected "
+                             f"{[r['corrected'] for r in single['results']]}")
     del eng, res
     gc.collect()
     torch.cuda.empty_cache()
 
     root = ROOT / "build" / "sharded"
     shutil.rmtree(root, ignore_errors=True)
-    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    mesh_line = "[serve] mesh {'data': 2, 'model': 1} backend gloo"
+    cli = _sharded_cli(["--steps", "3"])
+    try:
+        per_mesh, command_s = _spawn_ranks(torch, root, "dit")
+    except BaseException:
+        _stop_cli(cli)
+        raise
+    _check_cli(cli, [mesh_line])
+    cli_s = time.perf_counter() - t0
     meshes, total = {}, {}
-    for mp_ in (1, SHARDED_WORLD):
-        tmp = root / f"model{mp_}"
-        tmp.mkdir(parents=True)
-        t0 = time.perf_counter()
-        procs = [ctx.Process(target=_sharded_rank,
-                             args=(r, SHARDED_WORLD, mp_, str(tmp)))
-                 for r in range(SHARDED_WORLD)]
-        for p in procs:
-            p.start()
-        try:
-            for p in procs:
-                p.join(SHARDED_JOIN_S)
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-        codes = [p.exitcode for p in procs]
-        if codes != [0] * SHARDED_WORLD:
-            raise AssertionError(f"sharded ranks (model {mp_}) exited "
-                                 f"{codes}")
-        recs = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
-                for r in range(SHARDED_WORLD)]
+    for recs in per_mesh:
         for rec in recs:
             if not _equal_view(torch, rec, single):
                 raise AssertionError(f"sharded rank {rec['rank']} on "
@@ -4242,24 +4363,11 @@ def phase_sharded(torch, smi):
             _add_launches(total, rec["launches"])
         name = "data{data}_model{model}".format(**recs[0]["mesh"])
         meshes[name] = dict(
-            command_s=time.perf_counter() - t0, backend=recs[0]["backend"],
-            ranks=[{k: r[k] for k in ("rank", "wall_s", "held_bytes",
-                                      "peak_mem_bytes",
+            backend=recs[0]["backend"],
+            ranks=[{k: r[k] for k in ("rank", "mesh_s", "wall_s",
+                                      "held_bytes", "peak_mem_bytes",
                                       "collectives_per_batch", "batches",
                                       "launches")} for r in recs])
-
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    cli = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", str(SHARDED_WORLD), "-m",
-         "repro_torch.launch.serve", "--sharded", "--steps", "3",
-         "--device", "cuda"], capture_output=True, text=True,
-        timeout=SHARDED_JOIN_S, env=env, cwd=ROOT)
-    mesh_line = "[serve] mesh {'data': 2, 'model': 1} backend gloo"
-    if cli.returncode != 0 or cli.stdout.count(mesh_line) != 1:
-        raise AssertionError(f"sharded CLI exited {cli.returncode}:\n"
-                             f"{cli.stdout[-2000:]}\n{cli.stderr[-2000:]}")
     return dict(arch=ARCH, bucket=BUCKET, steps=SHARDED_STEPS,
                 world=SHARDED_WORLD, card=smi,
                 single=dict(wall_s=single_wall, peak_mem_bytes=single_peak,
@@ -4267,16 +4375,301 @@ def phase_sharded(torch, smi):
                             corrected=[r["corrected"]
                                        for r in single["results"]],
                             monitor=single["monitor"]),
-                meshes=meshes, launches=total,
-                cli=dict(wall_s=time.perf_counter() - t0,
-                         mesh_line=mesh_line),
+                meshes=meshes, command_s=command_s, launches=total,
+                cli=dict(wall_s=cli_s, mesh_line=mesh_line,
+                         note="run beside the spawned ranks"),
                 energy=[],
                 note="wall_s: host wall of one serve.main run (drift and "
                      "its clean reference) ended by a synchronize; "
                      "peak_mem_bytes: max_memory_allocated over that run "
                      "in the rank's process; launches: the rank's own "
                      "counters; the phase's launches sum every rank of "
-                     "both meshes")
+                     "both meshes; mesh_s: the rank's seconds from "
+                     "building the mesh to its last run, beside the other "
+                     "mesh's ranks; command_s: the 4 ranks' command, both "
+                     "meshes run together, while the CLI ran beside them")
+
+
+# ---------------------------------------------- sharded language models
+# full-width olmo-1b's request pair: 4 tokens give 2 faulted decode steps
+# above the engine's nominal_steps = 2, each gathering every layer
+SHARDED_LM_STEPS = 4
+SHARDED_LM_WINDOW = 2
+SHARDED_LM_ARGV = ["--arch", AR_ARCH, "--no-smoke", "--batch", str(BUCKET),
+                   "--requests", "2", "--steps", str(SHARDED_LM_STEPS),
+                   "--rollback-interval", str(SHARDED_LM_WINDOW), "--op",
+                   "undervolt", "--mode", "stat_abft", "--device", "cuda"]
+# every other LM family at SMOKE, stat_abft then faulty on one engine
+SHARDED_LM_SMOKE = ("gemma2-9b", "glm4-9b", "gemma3-27b", "deepseek-moe-16b",
+                    "kimi-k2-1t-a32b", "mamba2-370m", "hymba-1.5b")
+SHARDED_LM_SMOKE_STEPS, SHARDED_LM_SMOKE_WINDOW = 6, 3
+
+
+def _lm_view(eng, results):
+    """What a sharded rank must reproduce: every field of every result
+    (tokens, detections, rollbacks, evaluations, joules and their ledger,
+    the monitor after the batch), and the engine's monitor."""
+    mon = eng.monitor
+    return dict(results=[dataclasses.asdict(r) for r in results],
+                monitor=(int(mon.n_updates), int(mon.op_index),
+                         float(mon.ema_ber)))
+
+
+def _gather_bytes(torch, weights) -> int:
+    """The bytes one evaluation sums over the mesh to gather ``weights``
+    (``transformer.Weights``): each weight of rank >= 1 (those
+    ``shard_tree`` shards) in its 512-byte-aligned region of a gather
+    buffer (``constraints._gather_shards``)."""
+    from repro_torch.tree import tree_leaves
+    leaves = tree_leaves([weights.embed, weights.layers, weights.final_norm,
+                          weights.lm_head])
+    return sum(-(-t.numel() * t.element_size() // 512) * 512 for t in leaves
+               if isinstance(t, torch.Tensor) and t.ndim >= 1)
+
+
+def _sharded_lm_full(torch, make, mesh=None):
+    """Full-width olmo-1b through ``serve.main`` (SHARDED_LM_ARGV) on
+    ``make(AR_ARCH, False)`` with the ar phase's weights
+    (``transformer.init_weights`` on the card, seed 21): the view, the
+    launches zeroed just before and read just after, the wall, the
+    evaluations of every decode batch (stat_abft's and its clean
+    reference's), held and peak memory; on a mesh also the collectives
+    and the bytes summed over it (``mesh.sum_bytes``) an evaluation,
+    which must be ``_gather_bytes`` of the weights. The engine is freed
+    before it returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.serving import ar
+
+    cfg = get_config(AR_ARCH)
+    eng = make(AR_ARCH, False)
+    weights = transformer.init_weights(cfg, 21, torch.device("cuda"))
+    per_eval = _gather_bytes(torch, weights)
+    eng.set_params(AR_ARCH, False, weights)
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    decode, evals = ar.decode_batch, []
+
+    def recording_decode(*args, **kw):
+        out = decode(*args, **kw)
+        evals.append(out.n_model_evals)
+        return out
+    summed = [0]
+    if mesh is not None:
+        sum_bytes = mesh.sum_bytes
+
+        def counting_sum_bytes(full, group=None):
+            summed[0] += full.numel() * full.element_size()
+            return sum_bytes(full, group=group)
+        mesh.sum_bytes = counting_sum_bytes
+        mesh.collectives = 0
+    torch.cuda.reset_peak_memory_stats()
+    ar.decode_batch = recording_decode
+    try:
+        res, launches, wall = _serve_counted(torch, serve, eng,
+                                             SHARDED_LM_ARGV, _counters())
+    finally:
+        ar.decode_batch = decode
+        if mesh is not None:
+            del mesh.sum_bytes
+    n_evals = sum(evals)
+    out = dict(view=_lm_view(eng, res), launches=launches, wall_s=wall,
+               tokens=sum(len(r.tokens) for r in res), evals=evals,
+               held_bytes=held,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               energy=check_energy("sharded_lm", f"{AR_ARCH} stat_abft",
+                                   res))
+    out["wall_per_token_s"] = wall / out["tokens"]
+    if mesh is not None:
+        if summed[0] != per_eval * n_evals:
+            raise AssertionError(f"sharded_lm: {summed[0]} bytes summed over "
+                                 f"the mesh in {n_evals} evaluations, not "
+                                 f"{per_eval} each")
+        out.update(collectives_per_eval=mesh.collectives / n_evals,
+                   gathered_bytes_per_eval=per_eval,
+                   gathered_gb_per_s_of_wall=summed[0] / wall / 1e9)
+    del eng, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_lm_smoke(torch, make):
+    """Each SHARDED_LM_SMOKE arch at SMOKE through ``serve.main``, 2
+    requests at bucket 2, SHARDED_LM_SMOKE_STEPS tokens, window
+    SHARDED_LM_SMOKE_WINDOW, stat_abft then faulty at undervolt on one
+    engine: per "arch mode" the view, the launches zeroed just before and
+    read just after, and the checked ledgers."""
+    from repro_torch.launch import serve
+    counters = _counters()
+    out = {}
+    for arch in SHARDED_LM_SMOKE:
+        eng = make(arch, True)
+        for mode in ("stat_abft", "faulty"):
+            argv = ["--arch", arch, "--batch", str(BUCKET), "--requests",
+                    "2", "--steps", str(SHARDED_LM_SMOKE_STEPS),
+                    "--rollback-interval", str(SHARDED_LM_SMOKE_WINDOW),
+                    "--op", "undervolt", "--mode", mode, "--device", "cuda"]
+            res, launches, _ = _serve_counted(torch, serve, eng, argv,
+                                              counters)
+            out[f"{arch} {mode}"] = dict(
+                view=_lm_view(eng, res), launches=launches,
+                energy=check_energy("sharded_lm", f"{arch} {mode}", res))
+    return out
+
+
+def _check_lm_single(full, smoke) -> None:
+    """One process's sharded_lm runs, before any rank is held to them:
+    full-width olmo-1b's exact launches (SHARDED_LM_STEPS - 2 faulted
+    steps of 105 ``fault_inject`` launches; 16 attention launches in
+    each of 2 prefills, stat_abft's and its clean reference's),
+    detections, rollbacks, token match 1.0, replays billed; each SMOKE
+    arch's stat_abft back on the clean tokens, detecting and rolling
+    back where it has a protected GEMM (mamba2-370m has none), its
+    faulty run never rolling back; every arch's kernels launched."""
+    from repro_torch.configs import get_config
+    cfg = get_config(AR_ARCH)
+    faulted = SHARDED_LM_STEPS - 2        # engine.nominal_steps = 2
+    want = {"abft_matmul": 0, "rollback_correct": 0,
+            "flash_attention": 2 * cfg.n_layers,
+            "fault_inject": faulted * (cfg.n_layers - 1) * 7}
+    if full["launches"] != want:
+        raise AssertionError(f"sharded_lm {AR_ARCH} launches "
+                             f"{full['launches']} != {want}")
+    for r in full["view"]["results"]:
+        if not (len(r["tokens"]) == SHARDED_LM_STEPS
+                and r["ar_detections"] > 0 and r["ar_rollbacks"] >= 1
+                and r["token_match_vs_clean"] == 1.0
+                and r["n_model_evals"] > SHARDED_LM_STEPS
+                and r["energy_breakdown"]["compute_replay"] > 0):
+            raise AssertionError(f"sharded_lm {AR_ARCH} request: {r}")
+    for key, run in smoke.items():
+        arch, mode = key.split()
+        protected = arch != "mamba2-370m"
+        if run["launches"]["fault_inject"] == 0 and protected:
+            raise AssertionError(f"sharded_lm {key}: no fault_inject launch")
+        for r in run["view"]["results"]:
+            ok = (len(r["tokens"]) == SHARDED_LM_SMOKE_STEPS
+                  and (r["ar_rollbacks"] == 0 if mode == "faulty" else
+                       r["token_match_vs_clean"] == 1.0
+                       and (r["ar_detections"] > 0
+                            and r["ar_rollbacks"] >= 1) == protected))
+            if not ok:
+                raise AssertionError(f"sharded_lm {key} request: {r}")
+
+
+def phase_sharded_lm(torch, smi):
+    """The sharded engine's language-model buckets (``serving.sharded``:
+    a bucket runs whole on every rank, each layer's weights, sharded at
+    rest, gathered at its boundary). In one process, full-width olmo-1b
+    (the ar phase's weights) serves 2 stat_abft requests of
+    SHARDED_LM_STEPS tokens at window SHARDED_LM_WINDOW through the CLI's
+    ``main``; then every other LM family at SMOKE (SHARDED_LM_SMOKE) 2
+    requests of SHARDED_LM_SMOKE_STEPS tokens in stat_abft and in faulty,
+    while the SMOKE ``--sharded --arch olmo-1b`` CLI runs on 2 ranks
+    under ``torch.distributed.run`` (exit 0, the mesh line and each
+    request's line once). Then the same on a (data 2, model 1) and a
+    (data 1, model 2) mesh, each of 2 spawned ranks, the 4 ranks run
+    together sharing cuda:0 over gloo: every rank's results, field for
+    field, and monitor equal the one
+    process's, and so do its launch counts. Per rank: the wall, the wall
+    per token, the collectives and the bytes gathered per evaluation,
+    held and peak memory."""
+    import shutil
+    from repro_torch.serving import DriftServeEngine
+
+    def make(arch, smoke):
+        return DriftServeEngine(arch=arch, smoke=smoke, bucket=BUCKET,
+                                device="cuda")
+    full = _sharded_lm_full(torch, make)
+    t0 = time.perf_counter()
+    cli = _sharded_cli(["--arch", AR_ARCH, "--steps",
+                        str(SHARDED_LM_STEPS)])
+    try:
+        smoke = _sharded_lm_smoke(torch, make)
+    except BaseException:
+        _stop_cli(cli)
+        raise
+    cli_lines = ["[serve] mesh {'data': 2, 'model': 1} backend gloo",
+                 "  req 0 (", "  req 1 ("]
+    _check_cli(cli, cli_lines)
+    cli_s = time.perf_counter() - t0
+    _check_lm_single(full, smoke)
+
+    root = ROOT / "build" / "sharded_lm"
+    shutil.rmtree(root, ignore_errors=True)
+    per_mesh, command_s = _spawn_ranks(torch, root, "lm")
+    meshes, total = {}, {}
+    for recs in per_mesh:
+        for rec in recs:
+            where = f"sharded_lm rank {rec['rank']} on {rec['mesh']}"
+            if rec["backend"] != "gloo":
+                raise AssertionError(f"{where}: backend {rec['backend']}")
+            if rec["smoke"].keys() != smoke.keys():
+                raise AssertionError(f"{where} served {list(rec['smoke'])}")
+            runs = {AR_ARCH: (rec["full"], full), **{
+                k: (v, smoke[k]) for k, v in rec["smoke"].items()}}
+            for key, (got, want) in runs.items():
+                if got["view"] != want["view"]:
+                    raise AssertionError(f"{where}: {key} differs from one "
+                                         "process")
+                if got["launches"] != want["launches"]:
+                    raise AssertionError(f"{where}: {key} launches "
+                                         f"{got['launches']} != "
+                                         f"{want['launches']}")
+                _add_launches(total, got["launches"])
+        name = "data{data}_model{model}".format(**recs[0]["mesh"])
+        meshes[name] = dict(backend=recs[0]["backend"],
+                            ranks=[dict(rank=r["rank"], mesh_s=r["mesh_s"], **{
+                                k: r["full"][k] for k in (
+                                    "wall_s", "wall_per_token_s", "tokens",
+                                    "evals", "collectives_per_eval",
+                                    "gathered_bytes_per_eval",
+                                    "gathered_gb_per_s_of_wall",
+                                    "held_bytes", "peak_mem_bytes",
+                                    "launches")}) for r in recs])
+    energy = full.pop("energy") + [e for run in smoke.values()
+                                   for e in run.pop("energy")]
+    return dict(
+        arch=AR_ARCH, bucket=BUCKET, steps=SHARDED_LM_STEPS,
+        window=SHARDED_LM_WINDOW, world=SHARDED_WORLD, card=smi,
+        single={k: full[k] for k in ("wall_s", "wall_per_token_s", "tokens",
+                                     "evals", "held_bytes",
+                                     "peak_mem_bytes", "launches")},
+        requests=[{k: r[k] for k in ("request_id", "tokens",
+                                     "ar_detections", "ar_rollbacks",
+                                     "n_model_evals", "token_match_vs_clean",
+                                     "energy_j")}
+                  for r in full["view"]["results"]],
+        monitor=full["view"]["monitor"],
+        smoke={k: dict(launches=v["launches"],
+                       detections=[r["ar_detections"]
+                                   for r in v["view"]["results"]],
+                       rollbacks=[r["ar_rollbacks"]
+                                  for r in v["view"]["results"]])
+               for k, v in smoke.items()},
+        meshes=meshes, command_s=command_s, launches=total,
+        cli=dict(wall_s=cli_s, lines=cli_lines,
+                 note="run beside the one process's SMOKE archs"),
+        energy=energy,
+        note="wall_s: host wall of one serve.main run (stat_abft and its "
+             "clean reference) ended by a synchronize; tokens: the "
+             "requests' tokens; evals: each decode batch's evaluations "
+             "(stat_abft's, then its clean reference's); "
+             "gathered_bytes_per_eval: the gather buffers one evaluation "
+             "sums over the mesh, checked against the bytes mesh.sum_bytes "
+             "summed; gathered_gb_per_s_of_wall: all of them over the "
+             "run's wall, not a profile of the gathers; peak_mem_bytes: "
+             "max_memory_allocated over the run in the rank's process; "
+             "launches: the rank's own counters; the phase's launches sum "
+             "every rank of both meshes, olmo-1b's and the SMOKE archs'; "
+             "mesh_s: the rank's seconds from building the mesh to its "
+             "last run; every rank's numbers with the other mesh's ranks "
+             "beside it; command_s: the 4 ranks' command, both meshes run "
+             "together")
 
 
 # ----------------------------------------------------------- roofline
@@ -4456,8 +4849,8 @@ def kernel_summary(kernels_out, path_launches, backward_calls):
     """One row per TPU kernel of the repo. ``launches`` sums the counts
     of the paths that ran (``launches_by_path``). ``mha_flash`` launches
     nothing of its own: its row carries the ``flash_attention`` launches
-    of the ar, lm, moe, ssm, train and train_sharded paths, all made
-    through it, and the train paths' backward calls (the plain version's
+    of the ar, lm, moe, ssm, sharded_lm, train and train_sharded paths,
+    all made through it, and the train paths' backward calls (the plain version's
     gradient, recomputed; ``backward_calls_by_path``). The composites keep no count
     (``launches`` null): each call's launches are counted under the
     kernels it calls."""
@@ -4530,11 +4923,11 @@ def kernel_summary(kernels_out, path_launches, backward_calls):
                  mha["library_ms"],
                  counted="flash_attention",
                  paths=("ar", "ar+drift", "lm", "lm+mixed", "moe", "ssm",
-                        "train", "train_sharded"),
+                        "sharded_lm", "train", "train_sharded"),
                  note="the flash_attention launches of the ar, ar+drift, "
-                      "lm, lm+mixed, moe, ssm, train and train_sharded "
-                      "paths, each made through mha_flash; not a kernel "
-                      "of its own"),
+                      "lm, lm+mixed, moe, ssm, sharded_lm, train and "
+                      "train_sharded paths, each made through mha_flash; "
+                      "not a kernel of its own"),
              backward_calls=sum(backward_calls.values()) if backward_calls
              else None, backward_calls_by_path=backward_calls,
              lm_shapes=[{k: r.get(k) for k in (
@@ -4611,8 +5004,8 @@ def main(argv=None) -> int:
         elif phase == "reference":
             rec.update(phase_reference(torch))
         elif phase in ("serve", "offload", "sched", "ar", "lm", "moe",
-                       "ssm", "baselines", "families", "sharded", "train",
-                       "train_sharded"):
+                       "ssm", "baselines", "families", "sharded",
+                       "sharded_lm", "train", "train_sharded"):
             out = (phase_serve(torch) if phase == "serve"
                    else phase_offload(torch, smi) if phase == "offload"
                    else phase_sched(torch, smi) if phase == "sched"
@@ -4622,6 +5015,8 @@ def main(argv=None) -> int:
                    else phase_ssm(torch) if phase == "ssm"
                    else phase_baselines(torch) if phase == "baselines"
                    else phase_sharded(torch, smi) if phase == "sharded"
+                   else phase_sharded_lm(torch, smi)
+                   if phase == "sharded_lm"
                    else phase_train(torch, smi) if phase == "train"
                    else phase_train_sharded(torch, smi)
                    if phase == "train_sharded"

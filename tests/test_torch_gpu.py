@@ -4,7 +4,7 @@ checkpoint-offload store's side-stream copies into pinned memory, a
 drain through the telemetry front end's ``/events`` with offload on, the
 bf16-only LM weights (``transformer.init_weights``), the MoE routing,
 the SSD blocks, ``DriftDecode`` and the windowed decode, and the sharded
-DiT on 2 ranks sharing the card over gloo, on the card.
+DiT and MoE LM on 2 ranks sharing the card over gloo, on the card.
 
 Marked ``gpu``: each test skips without a CUDA device. This module imports
 no JAX, so it runs on a machine that has only PyTorch:
@@ -944,6 +944,72 @@ def test_sharded_dit_on_card_bit_equal(cuda, tmp_path, model_parallel):
         assert got["monitor"] == want["monitor"]
         for a, b in zip(got["latents"], want["latents"]):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _serve_card_moe(eng):
+    """SMOKE deepseek-moe-16b, 2 requests at bucket 2, 6 tokens, window
+    3, stat_abft then faulty: every result whole, and the monitor."""
+    out = []
+    for mode in ("stat_abft", "faulty"):
+        for i in range(2):
+            eng.submit(steps=6, mode=mode, op="undervolt", seed=i,
+                       rollback_interval=3)
+        out += [dataclasses.asdict(r) for r in eng.run()]
+    return dict(results=out, monitor=(int(eng.monitor.n_updates),
+                                      int(eng.monitor.op_index),
+                                      float(eng.monitor.ema_ber)))
+
+
+def _card_moe_rank(rank: int, tmp: str) -> None:
+    """One of 2 ranks sharing cuda:0 over gloo on a (data 1, model 2)
+    mesh: the SMOKE MoE LM served (a spawned process)."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serving.sharded import ShardedDriftServeEngine
+    mesh = mesh_lib.make_serving_mesh(
+        2, device="cuda", init_method=f"file://{tmp}/rdzv", rank=rank,
+        world_size=2, timeout_s=300)
+    out = _serve_card_moe(ShardedDriftServeEngine(
+        mesh=mesh, arch="deepseek-moe-16b", bucket=2, device="cuda"))
+    out.update(backend=mesh.backend, mesh=dict(mesh.shape),
+               collectives=mesh.collectives)
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_sharded_moe_lm_on_card_equal(cuda, tmp_path):
+    """SMOKE deepseek-moe-16b (its expert stacks split on the model axis
+    at rest, gathered at each layer) served on 2 ranks sharing cuda:0
+    over gloo as a (1, 2) mesh: every rank's results, field for field
+    (tokens, detections, rollbacks, evaluations, joules, ledgers), and
+    its monitor equal one process's on the card."""
+    from repro_torch.serving import DriftServeEngine
+    import torch.multiprocessing as mp
+    want = _serve_card_moe(DriftServeEngine(arch="deepseek-moe-16b",
+                                            bucket=2, device="cuda"))
+    assert all(r["ar_detections"] > 0 and r["ar_rollbacks"] >= 1
+               and r["token_match_vs_clean"] == 1.0
+               for r in want["results"] if r["mode"] == "stat_abft")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_card_moe_rank, args=(r, str(tmp_path)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(300)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    assert [p.exitcode for p in procs] == [0, 0]
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+        assert (got.pop("backend"), got.pop("mesh")) == (
+            "gloo", {"data": 1, "model": 2})
+        assert got.pop("collectives") > 0
+        assert got == want
 
 
 def _card_train_rank(rank: int, tmp: str) -> None:
