@@ -20,7 +20,7 @@
 Phases, each printing one JSON line with its wall time:
 
 1. device   -- the card (nvidia-smi name and power limit), torch and CUDA.
-2. build    -- compile the four CUDA kernels from ``src/repro_torch/
+2. build    -- compile the five CUDA kernels from ``src/repro_torch/
                kernels/csrc`` (one nvcc each, in parallel); registers and
                spill bytes of every compiled kernel (``ptxas -v``).
 3. kernels  -- each kernel against its plain PyTorch version on the card,
@@ -52,7 +52,15 @@ Phases, each printing one JSON line with its wall time:
                causal (bf16 and f32, within tolerance; one kernel on the
                (B, S, H, D) inputs in place), and the composites
                ``stat_abft_matmul`` and ``drift_gemm`` at one DiT GEMM
-               shape (bit-equal). Then the GQA models' attention calls
+               shape (bit-equal). Then ``drift_gemm_fused``, the drift
+               paths' one kernel a protected GEMM, at the unpadded shapes
+               they give it: the DiT's seven, PixArt's M = 240 and the
+               UNet's M = 154 text GEMMs, and ``DriftDecode``'s one-tile
+               shapes; every output bit-equal to the plain version at BER
+               3e-3 (union, with a checkpoint; cross, without) and at BER
+               0 (no mask), timed in the first setting beside its bound
+               (the checkpoint read where masked, as this run's masks
+               need). Then the GQA models' attention calls
                (``LM_ATTN``: gemma2-9b's prefill at (2, 8, 16/8, 256)
                with the softcap of 50 and window 4096 or none, a binding
                window at (1, 8192, 16/8, 256), gemma3-27b's prefill
@@ -102,7 +110,11 @@ Phases, each printing one JSON line with its wall time:
                DiT-XL/2-512 engine (28 layers, random seeded weights): 2
                requests in drift/undervolt, then the same seeds in faulty
                mode. The launch counters are zeroed just before and read
-               just after; the counts must be exact. Then, counted on
+               just after; the counts must be exact: every drift
+               evaluation (the clean reference is drift at BER 0) one
+               ``drift_gemm_fused`` launch a protected GEMM, every faulty
+               one an ``abft_matmul``, no ``rollback_correct``. Then,
+               counted on
                their own the same way, the same seeds in drift/undervolt
                with ``--taylorseer --precision int8-body4``: it and its
                TaylorSeer clean reference compute steps 0, 3, 6 and 9.
@@ -158,8 +170,8 @@ Phases, each printing one JSON line with its wall time:
                time per decode step and a profiled request. Then 16
                ``DriftDecode`` steps on the same weights (8-token
                prompts, the undervolt BER table, refresh interval 4):
-               exactly 112 ``abft_matmul`` and 112 ``rollback_correct``
-               launches a step (7 GEMMs x 16 layers at M = 2), a
+               exactly 112 ``drift_gemm_fused`` launches a step (7 GEMMs
+               x 16 layers at M = 2) and no other GEMM kernel, a
                (16, 2, n_out) store, finite logits, ms per step.
 9. lm       -- the same for full-width gemma2-9b (42 layers, d 3584, 16
                heads of 256 over 8 KV heads, windows of 4096 on alternate
@@ -188,8 +200,8 @@ Phases, each printing one JSON line with its wall time:
                earlier engine is freed: the expert FFNs are unprotected,
                so 108 fault_inject launches (27 faulted layers x the 4
                attention projections) per faulted decode step, 28
-               attentions per prefill, no abft_matmul or
-               rollback_correct launch.
+               attentions per prefill, no abft_matmul,
+               drift_gemm_fused or rollback_correct launch.
 9c. ssm     -- full-width mamba2-370m (48 SSD layers, d 1024; 367.6 M
                parameters, 0.74 GB in bf16) and then hymba-1.5b (32
                layers of attention, 25 heads of 64 over 5, windows of 1024
@@ -205,8 +217,8 @@ Phases, each printing one JSON line with its wall time:
                undervolt for 10 steps in thundervolt, approx_abft, dmr
                and stat_abft through the CLI: 1720 ``abft_matmul`` and
                280 attention launches per run (the first run also
-               computes the clean reference: twice that, and 1720
-               rollbacks; no baseline launches the rollback kernel),
+               computes the clean reference, drift at BER 0: 1720
+               ``drift_gemm_fused`` launches; no baseline launches it),
                dmr's finals ``torch.equal`` to the clean reference's;
                per mode PSNR against clean, corrected elements and the
                run wall, and one evaluation's ``extra_compute_flops`` /
@@ -786,7 +798,7 @@ def phase_kernels_ar(torch, reps: int):
     """The autoregressive slice's kernel and composites on the card."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
-    from repro_torch.core import fault
+    from repro_torch.core import fault, quant
     from repro_torch.kernels import fault_inject as fik
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ops
@@ -942,15 +954,22 @@ def phase_kernels_ar(torch, reps: int):
     want = ops.drift_gemm_plain(x, w, ckpt, dflips)
     torch.cuda.synchronize()
     err = _check_equal("drift_gemm", got, want)
-    work = ops.work(m, kk, n)
-    dbytes, dops = work["bytes"], work["int8_ops"]
+    # the kernel's work on the quantized operands, with the checkpoint
+    # read where this run's masks need it, and x, w read as f32
+    xq, wq = quant.quantize(x, axis=None), quant.quantize(w, axis=1)
+    masked = int(ops.drift_gemm_fused(xq.q, wq.q, dflips, xq.scale,
+                                      wq.scale.reshape(-1), ckpt, THRESHOLD,
+                                      valid=(m, n))[3].sum())
+    work = ops.work(m, kk, n, flip_words=dflips.numel(), ckpt_reads=masked)
+    dbytes = work["bytes"] + 3 * (m * kk + kk * n)
+    dops = work["int8_ops"]
     t_b, t_o = dbytes / HBM_BYTES_PER_S, dops / INT8_OPS_PER_S
     ring = ring_of((x, w, ckpt, dflips), dbytes)
     drift_row = dict(shape=[m, kk, n], flagged_tiles=int(got.n_flagged_tiles),
                      max_abs_err=err, ring=len(ring),
                      ms=device_ms(ops.drift_gemm, ring, reps),
                      kernel_ms=device_ms(ops.drift_gemm, ring, reps,
-                                         ("abft_matmul", "rollback_correct")),
+                                         "drift_gemm"),
                      wall_ms=time_ms(ops.drift_gemm, ring, reps),
                      plain_ms=device_ms(ops.drift_gemm_plain, ring,
                                         max(1, reps // 4)),
@@ -960,8 +979,9 @@ def phase_kernels_ar(torch, reps: int):
     del ring
     emit({"phase": "kernels", "kernel": "drift_gemm", "bit_equal": True,
           **drift_row,
-          "note": "ms is every kernel of the composite (quantize, pads, "
-                  "dequantize included); kernel_ms its two CUDA kernels"})
+          "note": "ms is every kernel of the composite (the quantization "
+                  "included); kernel_ms its one CUDA kernel, "
+                  "drift_gemm_fused"})
 
     # DriftDecode's projections: 2 valid rows in one 32-row tile.
     dd_abft, dd_rb = [], []
@@ -980,6 +1000,114 @@ def phase_kernels_ar(torch, reps: int):
                       f"{BUCKET}: valid rows {BUCKET} of a 32-row tile, "
                       "the rest zero as the path pads them"})
     return fi_rows, mha_rows, stat_row, drift_row, (dd_abft, dd_rb)
+
+
+# (label, M, K, N) unpadded, as the fused kernel takes them: the GEMMs the
+# PixArt and UNet drift paths add to the DiT's, at PixArt's M = 240 (120
+# text tokens) and the UNet's M = 154 (77), each of bucket 2.
+FUSED_FAMILY_GEMMS = (("pixart text", 240, 4096, 1152),
+                      ("pixart xattn.k/v", 240, 1152, 1152),
+                      ("unet cross.k/v 640", 154, 768, 640),
+                      ("unet cross.k/v 1280", 154, 768, 1280))
+
+
+def _fused_row(torch, g, src, site, name, mkn, reps):
+    """``drift_gemm_fused`` at one unpadded GEMM shape: every output
+    bit-equal to its plain version at BER 3e-3 plus a bit-31 flip (union
+    with a checkpoint; cross without one) and at BER 0 (no mask, union,
+    with a checkpoint); then timed in the first setting. The bound counts
+    the checkpoint's reads where this run's mask needs them."""
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    m, k, n = mkn
+    aq = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    bq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                       dtype=torch.int8)
+    flips = src(site, (m, n), 3e-3)
+    flips[m // 2, n // 3] = -2 ** 31
+    sx = torch.rand((), generator=g, device=dev) * 1e-2 + 1e-3
+    sw = torch.rand((n,), generator=g, device=dev) * 1e-2 + 1e-3
+    ckpt = torch.randn((m, n), generator=g, device=dev)
+    err, counts = 0.0, {}
+    for label, fl, ck, union in (("union", flips, ckpt, True),
+                                 ("cross", flips, None, False),
+                                 ("ber 0", None, ckpt, True)):
+        got = ops.drift_gemm_fused(aq, bq, fl, sx, sw, ck, THRESHOLD,
+                                   union=union, valid=(m, n))
+        want = ops.drift_gemm_fused_plain(aq, bq, fl, sx, sw, ck, THRESHOLD,
+                                          union=union, valid=(m, n))
+        torch.cuda.synchronize()
+        err = max(err, _check_equal(f"drift_gemm_fused {name} ({m}x{k}x{n})"
+                                    f" {label}", got, want))
+        counts[label] = got[3]
+    if int(counts["ber 0"].sum()) != 0:
+        raise AssertionError(f"drift_gemm_fused {name}: masks at BER 0")
+    masked = int(counts["union"].sum())
+    work = ops.work(m, k, n, flip_words=m * n, ckpt_reads=masked)
+    bytes_, iops = work["bytes"], work["int8_ops"]
+    t_b, t_o = bytes_ / HBM_BYTES_PER_S, iops / INT8_OPS_PER_S
+    ring = ring_of((aq, bq, flips, sx, sw, ckpt), bytes_ + 4 * m * n)
+
+    def fused(a, b, f, x, w, c):
+        return ops.drift_gemm_fused(a, b, f, x, w, c, THRESHOLD,
+                                    valid=(m, n))
+
+    def plain(a, b, f, x, w, c):
+        return ops.drift_gemm_fused_plain(a, b, f, x, w, c, THRESHOLD,
+                                          valid=(m, n))
+    row = dict(name=name, m=m, k=k, n=n, max_abs_err=err,
+               masked_elems=masked,
+               flagged_tiles=int((counts["union"] > 0).sum()),
+               ring=len(ring),
+               ms=device_ms(fused, ring, reps, "drift_gemm"),
+               wall_ms=time_ms(fused, ring, reps),
+               plain_ms=device_ms(plain, ring, max(1, reps // 4)),
+               bound_ms=1e3 * max(t_b, t_o),
+               bound_by="bytes" if t_b >= t_o else "operations",
+               library_ms=None)
+    del ring
+    return row
+
+
+def phase_kernels_fused(torch, reps: int):
+    """``drift_gemm_fused`` at the drift paths' shapes (``_fused_row``):
+    the DiT's seven GEMMs (``path_gemms``, unpadded), PixArt's and the
+    UNet's text GEMMs (``FUSED_FAMILY_GEMMS``) and ``DriftDecode``'s
+    olmo-1b projections at M = 2 (``decode_gemms``). Returns the three
+    lists of rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import fault
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(20261018)
+    src = fault.PhiloxFlipSource(base_seed=10, batch_index=0, device=dev)
+    dit_rows, fam_rows, dd_rows = [], [], []
+    for i, (name, _, k, _, per_eval, (m, n)) in enumerate(
+            path_gemms(get_config(ARCH), BUCKET)):
+        dit_rows.append(dict(_fused_row(
+            torch, g, src, fault.FaultSite(4, i, name), name, (m, k, n),
+            reps), per_eval=per_eval))
+    for i, (name, m, k, n) in enumerate(FUSED_FAMILY_GEMMS):
+        fam_rows.append(_fused_row(torch, g, src,
+                                   fault.FaultSite(5, i, name), name,
+                                   (m, k, n), reps))
+    for i, (name, _, k, _, per_layer, (m, n)) in enumerate(
+            decode_gemms(get_config(AR_ARCH), BUCKET)):
+        dd_rows.append(dict(_fused_row(
+            torch, g, src, fault.FaultSite(6, i, name), name, (m, k, n),
+            reps), per_layer=per_layer))
+    emit({"phase": "kernels", "kernel": "drift_gemm_fused",
+          "bit_equal": True,
+          "settings": ["BER 3e-3 union + ckpt", "BER 3e-3 cross",
+                       "BER 0 union + ckpt"],
+          "shapes": dit_rows, "family_shapes": fam_rows,
+          "decode_shapes": dd_rows,
+          "note": "unpadded (M, K, N) as the drift paths give them; ms is "
+                  "the kernel's device time, timed in the first setting; "
+                  "bound_ms counts the checkpoint where the run's masks "
+                  "read it; no PyTorch call computes this function"})
+    return dit_rows, fam_rows, dd_rows
 
 
 # The GQA language models' attention calls: (label, (B, S, H, Hkv, D),
@@ -1595,10 +1723,6 @@ def _reference_slice8(torch, engine, dit_params, lat):
 
 def phase_serve(torch):
     from repro_torch.configs import get_config
-    from repro_torch.kernels import abft_matmul as ak
-    from repro_torch.kernels import fault_inject as fik
-    from repro_torch.kernels import flash_attention as fk
-    from repro_torch.kernels import rollback_correct as rk
     from repro_torch.launch import serve
     from repro_torch.models import dit
     from repro_torch.serving import DriftServeEngine
@@ -1617,7 +1741,7 @@ def phase_serve(torch):
             "--steps", str(SERVE_STEPS), "--requests", "2", "--op",
             "undervolt", "--device", "cuda"]
     torch.cuda.reset_peak_memory_stats()
-    ak.launches = rk.launches = fk.launches = fik.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     drift = serve.main(argv + ["--mode", "drift"], engine=eng)
     torch.cuda.synchronize()
@@ -1626,14 +1750,15 @@ def phase_serve(torch):
     faulty = serve.main(argv + ["--mode", "faulty"], engine=eng)
     torch.cuda.synchronize()
     t_faulty = time.perf_counter() - t0
-    launches = {"abft_matmul": ak.launches, "rollback_correct": rk.launches,
-                "flash_attention": fk.launches, "fault_inject": fik.launches}
+    launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     gemms = sum(p[4] for p in path_gemms(cfg, BUCKET))        # 172
     evals = SERVE_STEPS
-    want = {"abft_matmul": gemms * evals * 3,
-            "rollback_correct": gemms * evals * 2,
+    # drift and its clean reference (drift at BER 0) run the fused
+    # kernel, faulty the ABFT kernel
+    want = {"abft_matmul": gemms * evals, "rollback_correct": 0,
+            "drift_gemm_fused": gemms * evals * 2,
             "flash_attention": cfg.n_layers * evals * 3, "fault_inject": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
@@ -1665,19 +1790,16 @@ def phase_serve(torch):
 
     # TaylorSeer + int8-body4, counted on its own: it and its clean
     # reference (TaylorSeer on, int8) each compute steps 0, 3, 6, 9.
-    ak.launches = rk.launches = fk.launches = fik.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     ts_res = serve.main(argv + ["--mode", "drift"] + TS_ARGS, engine=eng)
     torch.cuda.synchronize()
     t_ts = time.perf_counter() - t0
-    ts_launches = {"abft_matmul": ak.launches,
-                   "rollback_correct": rk.launches,
-                   "flash_attention": fk.launches,
-                   "fault_inject": fik.launches}
+    ts_launches = _launch_counts()
     peak = max(peak, torch.cuda.max_memory_allocated())
     ts_evals = len(range(0, SERVE_STEPS, 3))                   # 4
-    ts_want = {"abft_matmul": gemms * ts_evals * 2,
-               "rollback_correct": gemms * ts_evals * 2,
+    ts_want = {"abft_matmul": 0, "rollback_correct": 0,
+               "drift_gemm_fused": gemms * ts_evals * 2,
                "flash_attention": cfg.n_layers * ts_evals * 2,
                "fault_inject": 0}
     if ts_launches != ts_want:
@@ -1725,8 +1847,11 @@ def phase_serve(torch):
 
 def _profile_request(torch, eng, argv):
     """Device time by kernel over one more drift request of 3 steps (after
-    the counted run): where a served request's time goes on the card."""
+    the counted run): where a served request's time goes on the card, and
+    the device kernels a protected GEMM costs (every kernel of the request
+    over its protected GEMMs: 172 an evaluation, 6 evaluations)."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve
     argv = [a if a != str(SERVE_STEPS) else "3" for a in argv]
     argv += ["--mode", "drift", "--requests", "1", "--seed", "100"]
@@ -1745,20 +1870,31 @@ def _profile_request(torch, eng, argv):
     busy = sum(r[0] for r in rows) / 1e6
     fa = sum(r[0] for r in rows if "flash_attention" in r[1]) / 1e6
     ab = sum(r[0] for r in rows if "abft_matmul" in r[1]) / 1e6
+    dg = sum(r[0] for r in rows if "drift_gemm" in r[1]) / 1e6
+    n_kernels = sum(r[2] for r in rows)
+    gemms = 6 * sum(p[4] for p in path_gemms(get_config(ARCH), BUCKET))
     return dict(what="1 drift request, 3 steps, plus its clean reference "
                      "(6 evaluations)", wall_s=wall, device_busy_s=busy,
                 device_busy_share=busy / wall, flash_attention_s=fa,
                 flash_attention_share_of_busy=fa / busy if busy else None,
                 abft_matmul_s=ab,
                 abft_matmul_share_of_busy=ab / busy if busy else None,
-                n_kernels=sum(r[2] for r in rows),
+                drift_gemm_fused_s=dg,
+                drift_gemm_fused_share_of_busy=dg / busy if busy else None,
+                n_kernels=n_kernels, protected_gemms=gemms,
+                kernels_per_protected_gemm=n_kernels / gemms,
                 top=[dict(kernel=k[:80], device_s=us / 1e6, calls=c)
                      for us, k, c in rows[:12]])
 
 
-def _launch_counts(ak, rk, fk, fik):
-    return {"abft_matmul": ak.launches, "rollback_correct": rk.launches,
-            "flash_attention": fk.launches, "fault_inject": fik.launches}
+def _launch_counts():
+    """Every kernel's launches since the counters were zeroed."""
+    return {k: mod.launches for k, mod in _counters().items()}
+
+
+def _zero_launches():
+    for mod in _counters().values():
+        mod.launches = 0
 
 
 def phase_offload(torch, smi):
@@ -1768,10 +1904,6 @@ def phase_offload(torch, smi):
     import gc
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import abft_matmul as ak
-    from repro_torch.kernels import fault_inject as fik
-    from repro_torch.kernels import flash_attention as fk
-    from repro_torch.kernels import rollback_correct as rk
     from repro_torch.launch import serve
     from repro_torch.models import dit
     from repro_torch.serving import DriftServeEngine, OffloadConfig
@@ -1794,8 +1926,8 @@ def phase_offload(torch, smi):
     gemms = sum(p[4] for p in path_gemms(cfg, BUCKET))        # 172
 
     def want(evals):
-        return {"abft_matmul": gemms * evals,
-                "rollback_correct": gemms * evals,
+        return {"abft_matmul": 0, "rollback_correct": 0,
+                "drift_gemm_fused": gemms * evals,
                 "flash_attention": cfg.n_layers * evals, "fault_inject": 0}
     wants = {"cold": want(SERVE_STEPS * 2), "steady": want(SERVE_STEPS)}
     commits = len(range(0, SERVE_STEPS, OFFLOAD_INTERVAL))      # 5
@@ -1833,7 +1965,7 @@ def phase_offload(torch, smi):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             start = torch.cuda.memory_allocated()
-            ak.launches = rk.launches = fk.launches = fik.launches = 0
+            _zero_launches()
             t0 = time.perf_counter()
             results = serve.main(argv + extra, engine=eng)
             torch.cuda.synchronize()
@@ -1841,7 +1973,7 @@ def phase_offload(torch, smi):
             b = dict(batch=batch, wall_s=wall, start_bytes=start,
                      peak_over_start_bytes=(torch.cuda.max_memory_allocated()
                                             - start),
-                     launches=_launch_counts(ak, rk, fk, fik),
+                     launches=_launch_counts(),
                      results=results)
             if b["launches"] != wants[batch]:
                 raise AssertionError(f"{label} {batch} launch counts "
@@ -2136,10 +2268,6 @@ def phase_sched(torch, smi):
     import tempfile
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import abft_matmul as ak
-    from repro_torch.kernels import fault_inject as fik
-    from repro_torch.kernels import flash_attention as fk
-    from repro_torch.kernels import rollback_correct as rk
     from repro_torch.models import dit
     from repro_torch.serving import (DeadlineScheduler, DriftServeEngine,
                                      EngineTelemetry, FlightRecorder,
@@ -2165,8 +2293,8 @@ def phase_sched(torch, smi):
           "projection": numbers, "admissions": want_adms})
 
     def want(evals):
-        return {"abft_matmul": gemms * evals,
-                "rollback_correct": gemms * evals,
+        return {"abft_matmul": 0, "rollback_correct": 0,
+                "drift_gemm_fused": gemms * evals,
                 "flash_attention": cfg.n_layers * evals, "fault_inject": 0}
 
     def bits(t):
@@ -2194,12 +2322,12 @@ def phase_sched(torch, smi):
                     raise AssertionError(f"{label}: admissions differ from "
                                          f"the CPU twin's: {adms}")
                 torch.cuda.synchronize()
-                ak.launches = rk.launches = fk.launches = fik.launches = 0
+                _zero_launches()
                 t0 = time.perf_counter()
                 results = sched.run()
                 torch.cuda.synchronize()
                 rec["run_wall_s"] = time.perf_counter() - t0
-            launches = _launch_counts(ak, rk, fk, fik)
+            launches = _launch_counts()
             evals = sum({r.batch_index: 2 * r.n_model_evals
                          for r in results}.values())
             if launches != want(evals):
@@ -2209,13 +2337,13 @@ def phase_sched(torch, smi):
             # server's thread (its clean samples cached: drift alone)
             for f in reqs[:2]:
                 sched.submit(**f)
-            ak.launches = rk.launches = fk.launches = fik.launches = 0
+            _zero_launches()
             rec["events_wall_s"], body = _get(server.url
                                               + "/events?interval=2")
             torch.cuda.synchronize()
             frames = _parse_sse(body)
             sse = [d for k, d in frames if k == "result"]
-            ev_launches = _launch_counts(ak, rk, fk, fik)
+            ev_launches = _launch_counts()
             if (len(sse) != 2 or frames[-1][0] != "end"
                     or ev_launches != want(sse[0]["n_model_evals"])):
                 raise AssertionError(f"{label} /events: {len(sse)} results,"
@@ -2283,7 +2411,7 @@ def phase_sched(torch, smi):
     eng.set_params(ARCH, False, params)
     ctrl = eng.telemetry.controller
     auto = []
-    ak.launches = rk.launches = fk.launches = fik.launches = 0
+    _zero_launches()
     for b in range(AUTO_BATCHES):
         idx = eng.auto_op_index()
         for s in (0, 1):
@@ -2297,7 +2425,7 @@ def phase_sched(torch, smi):
                          realized_ber=dict(ctrl.realized_ber),
                          corrected=r.batch_corrected_elems,
                          finite=bool(torch.isfinite(r.latents).all())))
-    auto_launches = _launch_counts(ak, rk, fk, fik)
+    auto_launches = _launch_counts()
     emit({"phase": "sched", "part": "auto", "target_ber":
           eng.monitor_target_ber, "batches": auto})
     return dict(card=smi, arch=ARCH, bucket=BUCKET, steps=SERVE_STEPS,
@@ -2377,10 +2505,6 @@ def _serve_ar(torch, arch, seed, path):
     clean ones. Peak memory is read over the init and over the two runs.
     The engine is freed before it returns."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import abft_matmul as ak
-    from repro_torch.kernels import fault_inject as fik
-    from repro_torch.kernels import flash_attention as fk
-    from repro_torch.kernels import rollback_correct as rk
     from repro_torch.launch import serve
     from repro_torch.models import transformer
     from repro_torch.serving import DriftServeEngine, ar
@@ -2414,7 +2538,7 @@ def _serve_ar(torch, arch, seed, path):
                             evals=out.n_model_evals))
         return out
     torch.cuda.reset_peak_memory_stats()
-    ak.launches = rk.launches = fk.launches = fik.launches = 0
+    _zero_launches()
     ar.decode_batch = recording_decode
     try:
         t0 = time.perf_counter()
@@ -2427,8 +2551,7 @@ def _serve_ar(torch, arch, seed, path):
         t_faulty = time.perf_counter() - t0
     finally:
         ar.decode_batch = decode
-    launches = {"fault_inject": fik.launches, "flash_attention": fk.launches,
-                "abft_matmul": ak.launches, "rollback_correct": rk.launches}
+    launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     # Layer 0 (the first-block class) and steps below nominal_steps run at
@@ -2444,7 +2567,8 @@ def _serve_ar(torch, arch, seed, path):
     prefills = 3                 # stat_abft, its clean reference, faulty
     want = {"fault_inject": 2 * faulted_steps * per_step,
             "flash_attention": prefills * (0 if ssm else cfg.n_layers),
-            "abft_matmul": 0, "rollback_correct": 0}
+            "abft_matmul": 0, "rollback_correct": 0,
+            "drift_gemm_fused": 0}
     if launches != want:
         raise AssertionError(f"{arch} launch counts {launches} != {want}")
     reqs = []
@@ -2614,9 +2738,11 @@ def _counters():
     from repro_torch.kernels import abft_matmul as ak
     from repro_torch.kernels import fault_inject as fik
     from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops
     from repro_torch.kernels import rollback_correct as rk
     return {"abft_matmul": ak, "rollback_correct": rk,
-            "flash_attention": fk, "fault_inject": fik}
+            "drift_gemm_fused": ops, "flash_attention": fk,
+            "fault_inject": fik}
 
 
 def _add_launches(total, launches):
@@ -2628,7 +2754,8 @@ def phase_baselines(torch):
     """The full-width DiT-XL/2-512 serves the same 2 seeds at undervolt for
     10 steps in each Fig 12 baseline through the CLI, counters zeroed
     around each run. The first run also computes the clean reference
-    (drift at BER 0); no baseline launches the rollback kernel. dmr's
+    (drift at BER 0, the fused drift kernel); no baseline launches it.
+    dmr's
     finals must equal the clean reference's bit for bit (the same
     arithmetic on the same kernels: c ^ flips is the clean accumulator).
     Then one evaluation per mode, drift included, at the first undervolted
@@ -2656,8 +2783,8 @@ def phase_baselines(torch):
         res, launches, wall = _serve_counted(
             torch, serve, eng, argv + ["--mode", mode], counters)
         runs = 1 if i else 2                  # + the clean reference
-        want = {"abft_matmul": gemms * SERVE_STEPS * runs,
-                "rollback_correct": gemms * SERVE_STEPS * (runs - 1),
+        want = {"abft_matmul": gemms * SERVE_STEPS, "rollback_correct": 0,
+                "drift_gemm_fused": gemms * SERVE_STEPS * (runs - 1),
                 "flash_attention": cfg.n_layers * SERVE_STEPS * runs,
                 "fault_inject": 0}
         if launches != want:
@@ -2852,9 +2979,10 @@ def phase_families(torch, reps: int):
             res, launches, wall = _serve_counted(
                 torch, serve, eng, argv + ["--mode", mode], counters)
             passes = 2 if mode == "drift" else 1    # + clean reference
-            want = {"abft_matmul": gemms * SERVE_STEPS * passes,
-                    "rollback_correct": (gemms * SERVE_STEPS * 2
-                                         if mode == "drift" else 0),
+            drift = mode == "drift"
+            want = {"abft_matmul": 0 if drift else gemms * SERVE_STEPS,
+                    "rollback_correct": 0,
+                    "drift_gemm_fused": gemms * SERVE_STEPS * 2 * drift,
                     "flash_attention": attn * SERVE_STEPS * passes,
                     "fault_inject": 0}
             if launches != want:
@@ -3895,9 +4023,10 @@ def _drift_decode(torch, eng, arch, cfg):
     tokens, then AR_STEPS protected decode steps at the undervolt BER
     table (steps below ``nominal_steps`` and layer 0 at BER 0), refresh
     interval AR_WINDOW, greedy tokens. Every protected projection runs
-    through ``abft_matmul`` and ``rollback_correct`` at M = 2 padded to
-    one 32-row tile: exactly 7 x 16 launches of each a step for olmo-1b
-    (``phase_kernels_ar`` holds both kernels bit-equal at these shapes).
+    through ``drift_gemm_fused`` at M = 2 inside one 32-row tile: exactly
+    7 x 16 launches a step for olmo-1b, and no ``abft_matmul`` or
+    ``rollback_correct`` (the ``kernels`` phase holds the fused kernel
+    bit-equal at these shapes).
     Counters zeroed just before the prefill and read after the last
     step; ms per step (synchronized)."""
     from repro_torch.core import dvfs, fault
@@ -3945,10 +4074,11 @@ def _drift_decode(torch, eng, arch, cfg):
         restore()
     launches = {k: m.launches for k, m in counters.items()}
     gemms = cfg.n_layers * {"moe": 4, "ssm": 0}.get(cfg.family, 7)
-    want_step = {"abft_matmul": gemms, "rollback_correct": gemms,
-                 "flash_attention": 0, "fault_inject": 0}
+    want_step = {"abft_matmul": 0, "rollback_correct": 0,
+                 "drift_gemm_fused": gemms, "flash_attention": 0,
+                 "fault_inject": 0}
     if any(s != want_step for s in per_step) or prefill_launches != {
-            "abft_matmul": 0, "rollback_correct": 0,
+            "abft_matmul": 0, "rollback_correct": 0, "drift_gemm_fused": 0,
             "flash_attention": cfg.n_layers, "fault_inject": 0}:
         raise AssertionError(f"{arch} DriftDecode launches: prefill "
                              f"{prefill_launches}, steps {per_step}")
@@ -4043,7 +4173,7 @@ def _mixed_decode(torch, eng, arch, cfg):
                note="ms: host wall per step ended by a synchronize; the "
                     "means leave out the first step")
     emit({"phase": "lm", "part": "mixed_decode", **rec})
-    want = {"abft_matmul": 0, "rollback_correct": 0,
+    want = {"abft_matmul": 0, "rollback_correct": 0, "drift_gemm_fused": 0,
             "flash_attention": cfg.n_layers, "fault_inject": 0}
     if prefill_launches != want or launches != want:
         raise AssertionError(f"{arch} mixed decode launches: prefill "
@@ -4533,7 +4663,7 @@ def _check_lm_single(full, smoke) -> None:
     from repro_torch.configs import get_config
     cfg = get_config(AR_ARCH)
     faulted = SHARDED_LM_STEPS - 2        # engine.nominal_steps = 2
-    want = {"abft_matmul": 0, "rollback_correct": 0,
+    want = {"abft_matmul": 0, "rollback_correct": 0, "drift_gemm_fused": 0,
             "flash_attention": 2 * cfg.n_layers,
             "fault_inject": faulted * (cfg.n_layers - 1) * 7}
     if full["launches"] != want:
@@ -4747,9 +4877,9 @@ def phase_roofline(torch, smi):
     """Three card paths (``_roof_serve``, ``_roof_train``, ``_roof_ar``),
     each: (a) counted on meta tensors through ``op_analysis.analyze``;
     (b) counted again on the card with its tensors and kernels under the
-    same counter, FLOPs, int8 ops and bytes equal to (a)'s (both come
-    from shapes); (c) timed, synchronised, the median of ROOFLINE_REPS
-    calls after a warm-up; (d) its roofline on ``perfmodel.hw.H100_SXM``
+    same counter, FLOPs, int8 ops, bytes and each kernel's calls equal to
+    (a)'s (both come from shapes); (c) timed, synchronised, the median of
+    ROOFLINE_REPS calls after a warm-up; (d) its roofline on ``perfmodel.hw.H100_SXM``
     (``launch.roofline.roofline_row``): the dominant term, the bound and
     the share bound / measured, which must not pass
     ROOFLINE_SHARE_LIMIT."""
@@ -4761,7 +4891,7 @@ def phase_roofline(torch, smi):
                                    **dryrun.to_meta(kw))
         card = op_analysis.analyze(fn, *args, **kw)
         torch.cuda.synchronize()
-        for key in ("flops", "int8_ops", "bytes"):
+        for key in ("flops", "int8_ops", "bytes", "kernels"):
             if meta[key] != card[key]:
                 raise AssertionError(f"roofline {name}: {key} on meta "
                                      f"{meta[key]} != on the card "
@@ -4855,7 +4985,8 @@ def kernel_summary(kernels_out, path_launches, backward_calls):
     (``launches`` null): each call's launches are counted under the
     kernels it calls."""
     (abft_rows, rb_rows, fl_rows, fi_rows, mha_rows, stat_row, drift_row,
-     (dd_abft, dd_rb), lm_rows) = kernels_out
+     (dd_abft, dd_rb), (fused_rows, fused_fam, dd_fused),
+     lm_rows) = kernels_out
 
     def launches(name, paths=None):
         by = {p: c[name] for p, c in path_launches.items()
@@ -4884,7 +5015,7 @@ def kernel_summary(kernels_out, path_launches, backward_calls):
         out = {k: sum(r[k] * r[per_key] for r in live)
                / sum(r[per_key] for r in live)
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")
-               if k in live[0]}
+               if live[0].get(k) is not None}
         out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
         return out
 
@@ -4910,6 +5041,14 @@ def kernel_summary(kernels_out, path_launches, backward_calls):
                  "mean per launch over one DiT-XL evaluation's 172 GEMMs "
                  "at bucket 2; decode_shapes: DriftDecode's", None),
              decode_shapes=decode_shapes(dd_rb)),
+        dict(row("drift_gemm_fused", csrc + "drift_gemm.cu",
+                 "src/repro/kernels/ops.py:44",
+                 mix(fused_rows, "per_eval"), "bytes",
+                 "mean per launch over one DiT-XL evaluation's 172 GEMMs "
+                 "at bucket 2, unpadded; family_shapes: PixArt's and the "
+                 "UNet's text GEMMs; decode_shapes: DriftDecode's", None),
+             family_shapes=decode_shapes(fused_fam),
+             decode_shapes=decode_shapes(dd_fused)),
         row("flash_attention", csrc + "flash_attention.cu",
             "src/repro/kernels/flash_attention.py:71", fl, fl["bound_by"],
             "one launch through mha_flash on the DiT's (2, 1024, 16, 72) "
@@ -4943,8 +5082,9 @@ def kernel_summary(kernels_out, path_launches, backward_calls):
             fi["library_ms"]),
         composite("drift_gemm", "src/repro_torch/kernels/ops.py",
                   "src/repro/kernels/ops.py:44", drift_row,
-                  "one call, 2048x1152x1152 f32; on no serving path",
-                  ("abft_matmul", "rollback_correct")),
+                  "one call, 2048x1152x1152 f32 (quantization "
+                  "included); the serving path runs its kernel from "
+                  "ExecContext", ("drift_gemm_fused",)),
         composite("stat_abft_matmul", "src/repro_torch/kernels/stat_abft.py",
                   "src/repro/kernels/stat_abft.py:103", stat_row,
                   "one call, 2048x1152x1152 int8, 128-wide row tiles; on "
@@ -5000,7 +5140,8 @@ def main(argv=None) -> int:
         elif phase == "kernels":
             kernels_out = (phase_kernels(torch, args.reps)
                            + phase_kernels_ar(torch, args.reps)
-                           + (phase_kernels_lm(torch, args.reps),))
+                           + (phase_kernels_fused(torch, args.reps),
+                              phase_kernels_lm(torch, args.reps)))
         elif phase == "reference":
             rec.update(phase_reference(torch))
         elif phase in ("serve", "offload", "sched", "ar", "lm", "moe",

@@ -47,7 +47,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     from repro_torch.configs import get_config
-    from repro_torch.core import abft, dvfs, exec_ctx
+    from repro_torch.core import abft, dvfs, exec_ctx, quant
+    from repro_torch.kernels import abft_matmul, ops
     from repro_torch.models import dit
     from repro_torch.models.attention import full_attention
     from repro_torch.serving import (DriftServeEngine, EngineTelemetry,
@@ -81,7 +82,7 @@ def main(argv=None) -> int:
             first[cat] = dict(cur, **ev)
 
     orig_matmul = exec_ctx.ExecContext.matmul
-    orig_rb = exec_ctx.rollback_correct
+    orig_fused = exec_ctx.drift_gemm_fused
     orig_ln, orig_attn = dit.layernorm, dit.mha_flash
 
     def matmul(self, x, w, *, name, rclass=dvfs.CLASS_BODY):
@@ -104,12 +105,21 @@ def main(argv=None) -> int:
                  **cur.get("rollback", {}))
         return y
 
-    def rollback_correct(y, ckpt, row_diff, col_diff, thr, union=True,
+    def drift_gemm_fused(aq, bq, flips, sx, sw, ckpt, thr, union=True,
                          valid=None):
-        out, count = orig_rb(y, ckpt, row_diff, col_diff, thr, union=union,
-                             valid=valid)
+        out = orig_fused(aq, bq, flips, sx, sw, ckpt, thr, union=union,
+                         valid=valid)
+        # the product before the splice, which the fused kernel keeps in
+        # registers: the ABFT kernel's c on the padded operands, dequantized
         m, n = valid
-        yv, cv, ov = y[:m, :n], ckpt[:m, :n], out[:m, :n]
+        mp, np_ = ops.padded_shape(m, n)
+        fl = (torch.zeros((mp, np_), dtype=torch.int32, device=aq.device)
+              if flips is None else ops._pad2(flips, mp, np_))
+        c = abft_matmul.abft_matmul(ops._pad2(aq, mp, aq.shape[1]),
+                                    ops._pad2(bq, bq.shape[0], np_), fl)[0]
+        yv = quant.dequantize_matmul(c[:m, :n], sx, sw.reshape(1, -1))
+        cv = torch.zeros_like(yv) if ckpt is None else ckpt
+        ov, row_diff = out[0], out[1]
         if bad(yv):
             note("gemm_product", nonfinite=bad(yv),
                  flagged_rows=int(abft._exceeds(
@@ -123,7 +133,7 @@ def main(argv=None) -> int:
                 from_product=int((o_bad & y_bad).sum()),
                 from_checkpoint=int((o_bad & ~y_bad).sum()),
                 product_nonfinite_masked=int((y_bad & ~o_bad).sum()))
-        return out, count
+        return out
 
     def layernorm(x, *a, **k):
         out = orig_ln(x, *a, **k)
@@ -160,7 +170,7 @@ def main(argv=None) -> int:
         return out
 
     exec_ctx.ExecContext.matmul = matmul
-    exec_ctx.rollback_correct = rollback_correct
+    exec_ctx.drift_gemm_fused = drift_gemm_fused
     dit.layernorm, dit.mha_flash = layernorm, mha_flash
     steps = []
     with torch.no_grad():

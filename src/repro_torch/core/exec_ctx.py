@@ -8,10 +8,14 @@ correction strategy: ``float_clean``, ``clean``, ``faulty``, ``drift``
 and the Fig 12 baselines ``thundervolt``, ``approx_abft``, ``dmr`` and
 ``stat_abft`` (``core.baselines``).
 
-Every quantized GEMM runs through the hand-written ABFT kernel
-(``kernels.abft_matmul``), and ``drift`` also through the rollback kernel
-(``kernels.rollback_correct``); both take their plain versions on the CPU.
-The baselines need no second pass: the full-row and full-column checksum
+``drift`` runs each quantized GEMM through one hand-written kernel,
+``kernels.ops.drift_gemm_fused``, from the unpadded int8 operands to the
+corrected f32 output: the faulty ABFT product, the checksum differences,
+the dequantisation and the rollback splice, with the per-tile masked
+counts the statistics read. Every other quantized mode runs the ABFT
+kernel (``kernels.abft_matmul``), because it needs the int32 product
+itself. Both take their plain versions on the CPU. The baselines need no
+second pass: the full-row and full-column checksum
 differences of ``detect_int`` are sums of the kernel's per-tile ones
 (mod 2^32), the per-tile flag of ``tile_error_mask`` is the
 any of its rows and columns (``abft.tile_flags``), and the clean
@@ -58,7 +62,7 @@ from repro_torch.core import baselines, fault, quant, rollback
 from repro_torch.core.dvfs import CLASS_BODY, N_CLASSES
 from repro_torch.distributed import constraints
 from repro_torch.kernels.abft_matmul import TILE, abft_matmul
-from repro_torch.kernels.rollback_correct import rollback_correct
+from repro_torch.kernels.ops import drift_gemm_fused
 
 MODES = ("float_clean", "clean", "faulty", "drift",
          "thundervolt", "approx_abft", "dmr", "stat_abft")
@@ -129,9 +133,11 @@ class ExecContext:
             "gemm_words": 0}
 
     # ------------------------------------------------------------------
-    def _flips(self, name: str, shape, ber: float, device) -> torch.Tensor:
+    def _flips(self, name: str, shape, ber: float,
+               device) -> Optional[torch.Tensor]:
+        """The GEMM's flip mask, or None (nothing drawn) at BER 0."""
         if not ber > 0.0:
-            return torch.zeros(tuple(shape), dtype=torch.int32, device=device)
+            return None
         if self.flip_source is None:
             raise ValueError(f"GEMM {name!r} runs at BER {ber} but the "
                              "context has no flip source")
@@ -184,9 +190,12 @@ class ExecContext:
         ber = (float(self.ber_by_class[int(rclass)])
                if self.cfg.mode != "clean" else 0.0)
         flips = self._flips(name, (rows, n), ber, x2.device)
-        if rows != m:
+        if flips is not None and rows != m:
             flips = flips[lo:lo + m]
-        flips = _pad2(flips, mp, np_)
+        if self.cfg.mode == "drift":
+            return self._drift(name, xq, wq, flips, count)
+        flips = (torch.zeros((mp, np_), dtype=torch.int32, device=x2.device)
+                 if flips is None else _pad2(flips, mp, np_))
         # The kernel zero-fills a ragged last K slab, so K needs no padding.
         c, act_row, exp_row, act_col, exp_col = abft_matmul(
             _pad2(xq.q, mp, k), _pad2(wq.q, k, np_), flips)
@@ -208,23 +217,7 @@ class ExecContext:
             self._bump("gemm_words", m * n)
 
         mode = self.cfg.mode
-        if mode == "drift":
-            ckpt = rollback.effective_checkpoint(y, self.state_in.get(name),
-                                                 self.have_ckpt)
-            # The kernel counts the masked elements of the unpadded region;
-            # a tile is flagged exactly where its count is positive.
-            y_corr, tile_count = rollback_correct(
-                _pad2(y, mp, np_), _pad2(ckpt, mp, np_), row_diff, col_diff,
-                abft_cfg.threshold, union=abft_cfg.mask_policy != "cross",
-                valid=(m, n))
-            y = y_corr[:m, :n]
-            # DRAM cost: one repacked-tile read per flagged tile.
-            tile_bytes = abft_cfg.tile_m * abft_cfg.tile_n * 4
-            cost = baselines.RecoveryCost(
-                0.0, (tile_count > 0).float().sum() * tile_bytes,
-                tile_count.sum())
-            self._write_ckpt(name, y)
-        elif mode in ("thundervolt", "approx_abft"):
+        if mode in ("thundervolt", "approx_abft"):
             # detect_int's report: the column differences summed over the
             # M tiles as the rows' over the N tiles.
             report = abft_lib.report_from_diffs(
@@ -248,9 +241,35 @@ class ExecContext:
                                                     abft_cfg),
                     tile_elems=abft_cfg.tile_m * abft_cfg.tile_n, k_dim=k)
         if count:
-            self._bump("corrected_elems", cost.corrected_elems)
-            self._bump("extra_compute_flops", cost.extra_compute_flops)
-            self._bump("extra_dram_bytes", cost.extra_dram_bytes)
+            self._bump_cost(cost)
+        return y
+
+    def _drift(self, name: str, xq: quant.QTensor, wq: quant.QTensor,
+               flips: Optional[torch.Tensor], count: bool) -> torch.Tensor:
+        """``drift`` in one kernel launch: the unpadded operands, the mask
+        as drawn (None at BER 0) and the effective checkpoint (None for
+        zeros) in; the corrected output, its checksum differences and the
+        masked elements of each tile inside the unpadded region out (a
+        tile is flagged exactly where its count is positive)."""
+        m, n = xq.q.shape[0], wq.q.shape[1]
+        abft_cfg = self.cfg.abft
+        ckpt = self.state_in.get(name) if self.have_ckpt else None
+        y, row_diff, _, tile_count = drift_gemm_fused(
+            xq.q, wq.q, None if flips is None else flips.contiguous(),
+            xq.scale, wq.scale.reshape(-1),
+            None if ckpt is None else ckpt.contiguous(), abft_cfg.threshold,
+            union=abft_cfg.mask_policy != "cross", valid=(m, n))
+        if count:
+            full_row = abft_lib.wrap_i32(row_diff.long().sum(1))[:m]
+            self._bump("detected_row_errors",
+                       abft_lib._exceeds(full_row, abft_cfg.threshold).sum())
+            self._bump("gemm_words", m * n)
+            # DRAM cost: one repacked-tile read per flagged tile.
+            tile_bytes = abft_cfg.tile_m * abft_cfg.tile_n * 4
+            self._bump_cost(baselines.RecoveryCost(
+                0.0, (tile_count > 0).float().sum() * tile_bytes,
+                tile_count.sum()))
+        self._write_ckpt(name, y)
         return y
 
     def bmm(self, a: torch.Tensor, b: torch.Tensor, *, name: str,
@@ -286,3 +305,8 @@ class ExecContext:
 
     def _bump(self, stat: str, v) -> None:
         self.stats[stat] = self.stats[stat] + v
+
+    def _bump_cost(self, cost: baselines.RecoveryCost) -> None:
+        self._bump("corrected_elems", cost.corrected_elems)
+        self._bump("extra_compute_flops", cost.extra_compute_flops)
+        self._bump("extra_dram_bytes", cost.extra_dram_bytes)

@@ -25,8 +25,8 @@ from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("abft_matmul", "rollback_correct", "flash_attention",
-           "fault_inject")
+KERNELS = ("abft_matmul", "rollback_correct", "drift_gemm",
+           "flash_attention", "fault_inject")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

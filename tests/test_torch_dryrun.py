@@ -31,6 +31,7 @@ from repro_torch.core import fault
 from repro_torch.kernels import abft_matmul as tak
 from repro_torch.kernels import fault_inject as tfi
 from repro_torch.kernels import flash_attention as tfk
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import rollback_correct as trk
 from repro_torch.launch import dryrun, mesh as mesh_lib, op_analysis as H
 from repro_torch.launch import roofline
@@ -152,6 +153,11 @@ def _wrapper_calls():
                         tak.work(m, k, n)),
         "rollback_correct": (trk.rollback_correct, (c, ck, rd, cd, 1024),
                              {}, trk.work(m, n)),
+        "drift_gemm_fused": (tops.drift_gemm_fused,
+                             (aq, bq, flips, torch.tensor(0.01),
+                              torch.ones(n), ck, 1024),
+                             dict(valid=(m, n)),
+                             tops.work(m, k, n, flip_words=m * n)),
         "fault_inject": (tfi.fault_inject, (c, flips), {},
                          tfi.work(m * n)),
         "mha_flash": (tfk.mha_flash, (q, kv, kv),
@@ -196,7 +202,7 @@ def test_attn_pairs_closed_form():
 def test_dit_drift_evaluation_meta_equals_cpu():
     """One SMOKE DiT drift evaluation (``dryrun.drift_sample_step``) on
     meta tensors counts exactly what it counts on CPU tensors; every GEMM
-    goes through the ABFT and rollback kernels."""
+    goes through the fused drift kernel, one launch each."""
     cfg = configs.get_config("dit-xl-512", smoke=True)
     g = torch.Generator()
     g.manual_seed(3)
@@ -212,8 +218,7 @@ def test_dit_drift_evaluation_meta_equals_cpu():
     for key in ("flops", "int8_ops", "bytes", "kernels"):
         assert cpu[key] == meta[key], key
     gemms = 4 + 6 * cfg.n_layers        # embeddings + 6 a block
-    assert meta["kernels"] == {"abft_matmul": gemms,
-                               "rollback_correct": gemms,
+    assert meta["kernels"] == {"drift_gemm_fused": gemms,
                                "flash_attention": cfg.n_layers}
 
 

@@ -428,11 +428,138 @@ def test_drift_gemm_matches_plain_on_card(cuda):
     fl = _flips(rng, ops.padded_shape(70, 90), p=0.05)
     flips = torch.from_numpy(fl.view(np.int32))
     args = [t.to(cuda) for t in (x, w, ck, flips)]
+    n0 = ops.launches
     got = ops.drift_gemm(*args)
+    assert ops.launches == n0 + 1
     want = ops.drift_gemm_plain(*args)
     for g, w_ in zip(got, want):
         assert torch.equal(g, w_)
     assert int(got.n_flagged_tiles) > 0
+
+
+# (M, K, N) unpadded: the DiT's body GEMMs, PixArt's M = 240 and the UNet's
+# M = 154 text GEMMs, a DriftDecode one-tile shape (olmo-1b's gate/up at
+# bucket 2), and two ragged ones (K % 16 != 0: the word-by-word path; a
+# ragged M and N on the vector path)
+FUSED_SHAPES = [(2048, 1152, 1152), (2048, 1152, 4608), (2048, 4608, 1152),
+                (240, 4096, 1152), (154, 768, 640), (2, 2048, 8192),
+                (70, 50, 90), (45, 96, 100)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_ckpt", [True, False])
+@pytest.mark.parametrize("union", [True, False])
+@pytest.mark.parametrize("ber", [0.0, 3e-3])
+@pytest.mark.parametrize("m,k,n", FUSED_SHAPES)
+def test_drift_gemm_fused_matches_plain_on_card(cuda, m, k, n, ber, union,
+                                                with_ckpt):
+    """One launch; out (on its int32 view), the checksum differences and
+    the tile counts ``torch.equal`` to the plain version, with flips over
+    the unpadded region (BER 3e-3 plus a bit-31 flip) or none (BER 0)."""
+    rng = np.random.default_rng(m + k + n)
+    aq = torch.from_numpy(_int8(rng, (m, k))).to(cuda)
+    bq = torch.from_numpy(_int8(rng, (k, n))).to(cuda)
+    flips = None
+    if ber:
+        fl = _flips(rng, (m, n), p=ber)
+        fl[m // 2, n // 3] = np.uint32(1 << 31)
+        flips = torch.from_numpy(fl.view(np.int32)).to(cuda)
+    sx = torch.tensor(rng.uniform(1e-3, 1e-2), dtype=torch.float32,
+                      device=cuda)
+    sw = torch.from_numpy(rng.uniform(1e-3, 1e-2, n).astype(np.float32)
+                          ).to(cuda)
+    ck = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)
+                          ).to(cuda) if with_ckpt else None
+    args = (aq, bq, flips, sx, sw, ck, 1 << 10)
+    n0 = ops.launches
+    got = ops.drift_gemm_fused(*args, union=union, valid=(m, n))
+    torch.cuda.synchronize()
+    assert ops.launches == n0 + 1
+    want = ops.drift_gemm_fused_plain(*args, union=union, valid=(m, n))
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    for label, g, w_ in zip(("row_diff", "col_diff", "tile_count"), got[1:],
+                            want[1:]):
+        assert torch.equal(g, w_), label
+    assert (int(got[3].sum()) > 0) == bool(ber)
+
+
+@pytest.mark.gpu
+def test_drift_gemm_fused_flips_over_the_padded_grid_on_card(cuda):
+    """Flips over the padded (Mp, Np) grid, some in the padding (which
+    flag rows and columns inside), counted over the whole grid: all four
+    outputs ``torch.equal`` to the plain version, on both paths."""
+    for m, k, n in ((70, 50, 90), (45, 96, 100)):
+        rng = np.random.default_rng(m)
+        mp, np_ = ops.padded_shape(m, n)
+        aq = torch.from_numpy(_int8(rng, (m, k))).to(cuda)
+        bq = torch.from_numpy(_int8(rng, (k, n))).to(cuda)
+        fl = _flips(rng, (mp, np_), p=0.03)
+        fl[mp - 1, 3] = np.uint32(1 << 22)
+        args = (aq, bq, torch.from_numpy(fl.view(np.int32)).to(cuda),
+                torch.tensor(0.004, device=cuda), torch.ones(n, device=cuda),
+                torch.randn((m, n), device=cuda), 1 << 10)
+        got = ops.drift_gemm_fused(*args)
+        want = ops.drift_gemm_fused_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32))
+        for g, w_ in zip(got[1:], want[1:]):
+            assert torch.equal(g, w_)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["union", "cross"])
+def test_drift_context_launches_the_fused_kernel_on_card(cuda, policy):
+    """A drift ``ExecContext`` GEMM on the card launches ``drift_gemm_fused``
+    once and neither ``abft_matmul`` nor ``rollback_correct``; its output,
+    statistics and refreshed checkpoint equal, bit for bit, the sequence
+    it replaced run on the card (padded operands and mask, the ABFT
+    kernel, dequantize, the int64 differences, the rollback kernel)."""
+    from repro_torch.core import abft, fault, quant
+    from repro_torch.core.dvfs import CLASS_BODY, N_CLASSES
+    from repro_torch.core.exec_ctx import DriftSystemConfig, ExecContext
+    rng = np.random.default_rng(7)
+    m, k, n = 300, 1152, 640
+    x, w, ck = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)
+                                 ).to(cuda)
+                for s in ((m, k), (k, n), (m, n)))
+    bers = np.zeros((N_CLASSES,), np.float32)
+    bers[CLASS_BODY] = 3e-3
+    src = fault.PhiloxFlipSource(3, 0, cuda)
+    cfg = DriftSystemConfig(mode="drift",
+                            abft=abft.AbftConfig(mask_policy=policy))
+    ctx = ExecContext(cfg, flip_source=src, step=0, ber_by_class=bers,
+                      state_in={"g": ck.clone()}, have_ckpt=True)
+    n0 = (tak.launches, trk.launches, ops.launches)
+    y = ctx.matmul(x, w, name="g")
+    torch.cuda.synchronize()
+    assert (tak.launches - n0[0], trk.launches - n0[1],
+            ops.launches - n0[2]) == (0, 0, 1)
+
+    mp, np_ = ops.padded_shape(m, n)
+    xq, wq = quant.quantize(x, axis=None), quant.quantize(w, axis=1)
+    flips = ops._pad2(src(fault.FaultSite(0, 0, "g"), (m, n), 3e-3), mp,
+                      np_)
+    c, ar, er, ac, ec = tak.abft_matmul(ops._pad2(xq.q, mp, k),
+                                        ops._pad2(wq.q, k, np_), flips)
+    y0 = quant.dequantize_matmul(c[:m, :n], xq.scale,
+                                 wq.scale.reshape(1, -1))
+    rd = abft.wrap_i32(ar.long() - er.long())
+    cd = abft.wrap_i32(ac.long() - ec.long())
+    want, count = trk.rollback_correct(
+        ops._pad2(y0, mp, np_), ops._pad2(ck, mp, np_), rd, cd, 1 << 10,
+        union=policy == "union", valid=(m, n))
+    want = want[:m, :n]
+    full_row = abft.wrap_i32(rd.long().sum(1))[:m]
+    assert torch.equal(y.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(ctx.state_in["g"], want)
+    st = ctx.stats
+    assert int(st["detected_row_errors"]) == int(
+        abft._exceeds(full_row, 1 << 10).sum())
+    assert int(st["corrected_elems"]) == int(count.sum()) > 0
+    assert float(st["extra_dram_bytes"]) == float(
+        (count > 0).float().sum() * 4096)
+    assert st["gemm_words"] == m * n and st["extra_compute_flops"] == 0.0
 
 
 # --------------------------------------------------------------- offload
@@ -780,7 +907,8 @@ def test_drift_decode_on_card_matches_cpu(cuda, arch):
     masks (drawn on the CPU): 3 steps at BER 1e-2 (layer 0 at 0), refresh
     interval 2. Each layer's detected rows and corrected elements equal,
     greedy tokens equal, logits and the store within 1e-4; every
-    protected projection launched both kernels once."""
+    protected projection launched the fused drift kernel once, and
+    neither ``abft_matmul`` nor ``rollback_correct``."""
     from repro_torch.core import fault
     from repro_torch.core.exec_ctx import DriftSystemConfig
     from repro_torch.core.rollback import RollbackConfig
@@ -806,7 +934,7 @@ def test_drift_decode_on_card_matches_cpu(cuda, arch):
         logits, cache = transformer.prefill(cfg, w, prompts.to(dev), 12)
         tok = logits[:, -1:].argmax(-1)
         steps = []
-        n0 = (tak.launches, trk.launches)
+        n0 = (tak.launches, trk.launches, ops.launches)
         transformer.ExecContext = Recording
         try:
             for step in range(3):
@@ -821,12 +949,13 @@ def test_drift_decode_on_card_matches_cpu(cuda, arch):
                                for c in ctxs]))
         finally:
             transformer.ExecContext = base
-        launched = (tak.launches - n0[0], trk.launches - n0[1])
+        launched = (tak.launches - n0[0], trk.launches - n0[1],
+                    ops.launches - n0[2])
         out[dev.type] = (steps, {k: v.cpu() for k, v in store.items()},
                          launched)
     gemms = cfg.n_layers * (4 if cfg.family == "moe" else 7)
-    assert out["cuda"][2] == (3 * gemms, 3 * gemms)
-    assert out["cpu"][2] == (0, 0)
+    assert out["cuda"][2] == (0, 0, 3 * gemms)
+    assert out["cpu"][2] == (0, 0, 0)
     flagged = 0
     for (lg, tg, cg), (lc, tc, cc) in zip(out["cuda"][0], out["cpu"][0]):
         torch.testing.assert_close(lg, lc, atol=1e-4, rtol=0)
@@ -1080,10 +1209,10 @@ def test_sharded_train_on_card_bit_equal(cuda, tmp_path):
 
 @pytest.mark.gpu
 def test_op_counts_on_meta_equal_card(cuda):
-    """``op_analysis.analyze`` of one ``abft_matmul`` and one causal GQA
-    ``mha_flash`` call: FLOPs, int8 ops and bytes on meta tensors equal
-    those of the same call on the card with its kernel launched, and
-    equal the kernel's ``work``."""
+    """``op_analysis.analyze`` of one ``abft_matmul``, one
+    ``drift_gemm_fused`` and one causal GQA ``mha_flash`` call: FLOPs,
+    int8 ops and bytes on meta tensors equal those of the same call on the
+    card with its kernel launched, and equal the kernel's ``work``."""
     from repro_torch.launch import op_analysis
     rng = np.random.default_rng(41)
     m, k, n = 256, 320, 192
@@ -1092,13 +1221,20 @@ def test_op_counts_on_meta_equal_card(cuda):
     flips = torch.from_numpy(_flips(rng, (m, n)).view(np.int32))
     q = torch.randn((2, 64, 8, 64), dtype=torch.bfloat16)
     kv = torch.randn((2, 64, 2, 64), dtype=torch.bfloat16)
+    fused = (aq, bq, flips, torch.tensor(0.01), torch.ones(n),
+             torch.randn((m, n)), 1 << 10)
     calls = ((tak.abft_matmul, (aq, bq, flips), {}, tak.work(m, k, n)),
+             (ops.drift_gemm_fused, fused, dict(valid=(m, n)),
+              ops.work(m, k, n, flip_words=m * n)),
              (tfk.mha_flash, (q, kv, kv), dict(causal=True, window=24),
               tfk.work(2, 64, 8, 2, 64, 2, True, 24)))
     for fn, args, kw, work in calls:
-        n0 = tak.launches + tfk.launches
-        card = op_analysis.analyze(fn, *(a.to(cuda) for a in args), **kw)
-        assert tak.launches + tfk.launches == n0 + 1
-        meta = op_analysis.analyze(fn, *(a.to("meta") for a in args), **kw)
+        def on(dev):
+            return [a.to(dev) if isinstance(a, torch.Tensor) else a
+                    for a in args]
+        n0 = tak.launches + tfk.launches + ops.launches
+        card = op_analysis.analyze(fn, *on(cuda), **kw)
+        assert tak.launches + tfk.launches + ops.launches == n0 + 1
+        meta = op_analysis.analyze(fn, *on("meta"), **kw)
         for key in ("flops", "int8_ops", "bytes"):
             assert card[key] == meta[key] == work[key], (fn, key)

@@ -212,22 +212,22 @@ def test_drift_decode_matches_jax(arch, monkeypatch):
             rec.ctxs.append(self)
 
     real_mask = jabft.tile_error_mask
-    real_rb = exec_ctx_mod.rollback_correct
+    real_fused = exec_ctx_mod.drift_gemm_fused
 
     def jmask(*a, **kw):
         mask, flag = real_mask(*a, **kw)
         jrec.flags.append(np.asarray(flag))
         return mask, flag
 
-    def rb(*a, **kw):
-        y, count = real_rb(*a, **kw)
-        rec.flags.append((count > 0).numpy())
-        return y, count
+    def fused(*a, **kw):
+        out = real_fused(*a, **kw)
+        rec.flags.append((out[3] > 0).numpy())      # the tile counts
+        return out
 
     monkeypatch.setattr(jtf, "ExecContext", JCtx)
     monkeypatch.setattr(transformer, "ExecContext", Ctx)
     monkeypatch.setattr(jabft, "tile_error_mask", jmask)
-    monkeypatch.setattr(exec_ctx_mod, "rollback_correct", rb)
+    monkeypatch.setattr(exec_ctx_mod, "drift_gemm_fused", fused)
 
     jdcfg = JDriftCfg(mode="drift",
                       rollback=JRollbackCfg(interval=DRIFT_INTERVAL))
