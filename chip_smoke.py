@@ -20,9 +20,11 @@
 Phases, each printing one JSON line with its wall time:
 
 1. device   -- the card (nvidia-smi name and power limit), torch and CUDA.
-2. build    -- compile the five CUDA kernels from ``src/repro_torch/
+2. build    -- compile the six CUDA kernels from ``src/repro_torch/
                kernels/csrc`` (one nvcc each, in parallel); registers and
-               spill bytes of every compiled kernel (``ptxas -v``).
+               spill bytes of every compiled kernel (``ptxas -v``);
+               ``stat_abft``'s must show no spill and no wgmma that
+               ptxas serialized (C7518).
 3. kernels  -- each kernel against its plain PyTorch version on the card,
                at the shapes the serving path gives it: ``abft_matmul`` at
                the seven padded GEMM shapes of DiT-XL/2-512 at bucket 2
@@ -50,9 +52,15 @@ Phases, each printing one JSON line with its wall time:
                ten times ``--reps``, beside ``torch.bitwise_xor``), the
                prefill's attention call ``mha_flash`` at (2, 8, 16, 128)
                causal (bf16 and f32, within tolerance; one kernel on the
-               (B, S, H, D) inputs in place), and the composites
-               ``stat_abft_matmul`` and ``drift_gemm`` at one DiT GEMM
-               shape (bit-equal). Then ``drift_gemm_fused``, the drift
+               (B, S, H, D) inputs in place), ``stat_abft_matmul``'s
+               ``wgmma`` kernel at the DiT's three body GEMMs
+               (2048x1152x1152, x4608 and 2048x4608x1152), at M = 32 and
+               at K = 50 (bit-equal at thresholds 0 and ``THRESHOLD``,
+               with a bit-31 flip; at the DiT's shapes timed beside its
+               bound, the kernel alone and its int8 rate, and beside the
+               composite it replaced, which it must beat), and the
+               composite ``drift_gemm`` at one DiT GEMM shape
+               (bit-equal). Then ``drift_gemm_fused``, the drift
                paths' one kernel a protected GEMM, at the unpadded shapes
                they give it: the DiT's seven, PixArt's M = 240 and the
                UNet's M = 154 text GEMMs, and ``DriftDecode``'s one-tile
@@ -802,6 +810,7 @@ def phase_kernels_ar(torch, reps: int):
     from repro_torch.kernels import fault_inject as fik
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ops
+    from repro_torch.kernels import abft_matmul as ak
     from repro_torch.kernels import stat_abft as sk
     from repro_torch.models.attention import full_attention
     from repro_torch.serving.ar import PROMPT_LEN
@@ -906,45 +915,78 @@ def phase_kernels_ar(torch, reps: int):
                   "F.scaled_dot_product_attention(is_causal=True) on "
                   "(B, H, S, D) transposed views, in the row's dtype"})
 
-    # The composites, at the DiT's attention GEMM shape.
-    m, kk, n = 2048, 1152, 1152
-    aq = torch.randint(-127, 128, (m, kk), generator=g, device=dev,
-                       dtype=torch.int8)
-    bq = torch.randint(-127, 128, (kk, n), generator=g, device=dev,
-                       dtype=torch.int8)
-    flips = src(fault.FaultSite(2, 0, "stat"), (m, n), 3e-3)
-    flips[7, 9] = -2 ** 31
-    bn = 128
-    err = 0.0
-    for thr in (0, THRESHOLD):
-        got = sk.stat_abft_matmul(aq, bq, flips, thr, bm=bn, bn=bn)
-        want = sk.stat_abft_matmul_plain(aq, bq, flips, thr, bm=bn, bn=bn)
-        torch.cuda.synchronize()
-        err = max(err, _check_equal(f"stat_abft_matmul threshold {thr}",
-                                    got, want))
-    work = sk.work(m, kk, n, bn)
-    sbytes, sops = work["bytes"], work["int8_ops"]
-    ring = ring_of((aq, bq, flips), sbytes)
+    # stat_abft_matmul's kernel at the DiT's body shapes, timed, and at a
+    # short M, K % 16 != 0 and each row tile it takes, held bit-equal.
+    stat_shapes = []
+    for m, kk, n, bn in ((2048, 1152, 1152, 128), (2048, 1152, 4608, 128),
+                         (2048, 4608, 1152, 128), (32, 1152, 1152, 64),
+                         (96, 50, 384, 32)):
+        aq = torch.randint(-127, 128, (m, kk), generator=g, device=dev,
+                           dtype=torch.int8)
+        bq = torch.randint(-127, 128, (kk, n), generator=g, device=dev,
+                           dtype=torch.int8)
+        flips = src(fault.FaultSite(2, len(stat_shapes), "stat"), (m, n),
+                    3e-3)
+        flips[7, 9] = -2 ** 31                        # one bit-31 flip
+        bm = 32 if m % bn else bn
+        err = 0.0
+        for thr in (0, THRESHOLD):
+            got = sk.stat_abft_matmul(aq, bq, flips, thr, bm=bm, bn=bn)
+            want = sk.stat_abft_matmul_plain(aq, bq, flips, thr, bm=bm,
+                                             bn=bn)
+            torch.cuda.synchronize()
+            err = max(err, _check_equal(
+                f"stat_abft_matmul {m}x{kk}x{n} bn {bn} threshold {thr}",
+                got, want))
+        row = dict(shape=[m, kk, n], bn=bn, threshold_mag=THRESHOLD,
+                   flagged=int(got[1].sum()), max_abs_err=err)
+        if m == 2048:
+            work = sk.work(m, kk, n, bn)
+            sbytes, sops = work["bytes"], work["int8_ops"]
+            ring = ring_of((aq, bq, flips), sbytes)
 
-    def stat(a, b_, f):
-        return sk.stat_abft_matmul(a, b_, f, THRESHOLD, bm=bn, bn=bn)
+            def stat(a, b_, f):
+                return sk.stat_abft_matmul(a, b_, f, THRESHOLD, bm=bn, bn=bn)
 
-    def stat_plain(a, b_, f):
-        return sk.stat_abft_matmul_plain(a, b_, f, THRESHOLD, bm=bn, bn=bn)
-    t_b, t_o = sbytes / HBM_BYTES_PER_S, sops / INT8_OPS_PER_S
-    stat_row = dict(shape=[m, kk, n], bn=bn, threshold_mag=THRESHOLD,
-                    flagged=int(got[1].sum()), max_abs_err=err,
-                    ring=len(ring), ms=device_ms(stat, ring, reps),
-                    kernel_ms=device_ms(stat, ring, reps, "abft_matmul"),
-                    wall_ms=time_ms(stat, ring, reps),
-                    plain_ms=device_ms(stat_plain, ring, max(1, reps // 4)),
-                    bound_ms=1e3 * max(t_b, t_o),
-                    bound_by="bytes" if t_b >= t_o else "operations",
-                    library_ms=None)
-    del ring
+            def stat_plain(a, b_, f):
+                return sk.stat_abft_matmul_plain(a, b_, f, THRESHOLD, bm=bn,
+                                                 bn=bn)
+
+            def composite(a, b_, f):
+                return sk._stat_abft(ak.abft_matmul, a, b_, f, THRESHOLD,
+                                     bn, bn)
+
+            t_b, t_o = sbytes / HBM_BYTES_PER_S, sops / INT8_OPS_PER_S
+            row.update(
+                ring=len(ring), ms=device_ms(stat, ring, reps),
+                kernel_ms=device_ms(stat, ring, reps, "stat_abft_kernel"),
+                transpose_ms=device_ms(stat, ring, reps, "transpose_kernel"),
+                wall_ms=time_ms(stat, ring, reps),
+                plain_ms=device_ms(stat_plain, ring, max(1, reps // 4)),
+                composite_ms=device_ms(composite, ring, reps),
+                bound_ms=1e3 * max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations",
+                library_ms=None)
+            row.update(tops=2 * m * n * kk / (row["kernel_ms"] * 1e-3) / 1e12,
+                       share=row["bound_ms"] / row["ms"])
+            del ring
+            if not row["ms"] < row["composite_ms"]:
+                raise AssertionError(f"stat_abft_matmul {m}x{kk}x{n}: "
+                                     f"{row['ms']} ms, not below the "
+                                     f"composite's {row['composite_ms']}")
+        stat_shapes.append(row)
+    stat_row = dict(stat_shapes[0], shapes=stat_shapes)
     emit({"phase": "kernels", "kernel": "stat_abft_matmul",
-          "bit_equal": True, **stat_row})
+          "bit_equal": True, "shapes": stat_shapes,
+          "note": "ms is every kernel of the call (the transpose of B "
+                  "included), kernel_ms the wgmma kernel alone, "
+                  "transpose_ms the transpose; composite_ms the "
+                  "design it replaced (_stat_abft over abft_matmul); tops "
+                  "the kernel's int8 rate (2*M*N*K over kernel_ms); share "
+                  "bound_ms / ms; bit-equal at thresholds 0 and "
+                  f"{THRESHOLD}"})
 
+    m, kk, n = 2048, 1152, 1152
     x = torch.randn((m, kk), generator=g, device=dev)
     w = torch.randn((kk, n), generator=g, device=dev) / kk ** 0.5
     ckpt = torch.randn((m, n), generator=g, device=dev)
@@ -1759,7 +1801,8 @@ def phase_serve(torch):
     # kernel, faulty the ABFT kernel
     want = {"abft_matmul": gemms * evals, "rollback_correct": 0,
             "drift_gemm_fused": gemms * evals * 2,
-            "flash_attention": cfg.n_layers * evals * 3, "fault_inject": 0}
+            "flash_attention": cfg.n_layers * evals * 3, "fault_inject": 0,
+            "stat_abft_matmul": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     reqs = []
@@ -1801,7 +1844,7 @@ def phase_serve(torch):
     ts_want = {"abft_matmul": 0, "rollback_correct": 0,
                "drift_gemm_fused": gemms * ts_evals * 2,
                "flash_attention": cfg.n_layers * ts_evals * 2,
-               "fault_inject": 0}
+               "fault_inject": 0, "stat_abft_matmul": 0}
     if ts_launches != ts_want:
         raise AssertionError(f"TaylorSeer launch counts {ts_launches} != "
                              f"{ts_want}")
@@ -1928,7 +1971,8 @@ def phase_offload(torch, smi):
     def want(evals):
         return {"abft_matmul": 0, "rollback_correct": 0,
                 "drift_gemm_fused": gemms * evals,
-                "flash_attention": cfg.n_layers * evals, "fault_inject": 0}
+                "flash_attention": cfg.n_layers * evals, "fault_inject": 0,
+                "stat_abft_matmul": 0}
     wants = {"cold": want(SERVE_STEPS * 2), "steady": want(SERVE_STEPS)}
     commits = len(range(0, SERVE_STEPS, OFFLOAD_INTERVAL))      # 5
     windows = -(-SERVE_STEPS // OFFLOAD_INTERVAL) - 1            # 4
@@ -2295,7 +2339,8 @@ def phase_sched(torch, smi):
     def want(evals):
         return {"abft_matmul": 0, "rollback_correct": 0,
                 "drift_gemm_fused": gemms * evals,
-                "flash_attention": cfg.n_layers * evals, "fault_inject": 0}
+                "flash_attention": cfg.n_layers * evals, "fault_inject": 0,
+                "stat_abft_matmul": 0}
 
     def bits(t):
         return hashlib.sha256(t.view(torch.int32).cpu().numpy().tobytes()
@@ -2568,7 +2613,7 @@ def _serve_ar(torch, arch, seed, path):
     want = {"fault_inject": 2 * faulted_steps * per_step,
             "flash_attention": prefills * (0 if ssm else cfg.n_layers),
             "abft_matmul": 0, "rollback_correct": 0,
-            "drift_gemm_fused": 0}
+            "drift_gemm_fused": 0, "stat_abft_matmul": 0}
     if launches != want:
         raise AssertionError(f"{arch} launch counts {launches} != {want}")
     reqs = []
@@ -2740,9 +2785,10 @@ def _counters():
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ops
     from repro_torch.kernels import rollback_correct as rk
+    from repro_torch.kernels import stat_abft as sk
     return {"abft_matmul": ak, "rollback_correct": rk,
             "drift_gemm_fused": ops, "flash_attention": fk,
-            "fault_inject": fik}
+            "fault_inject": fik, "stat_abft_matmul": sk}
 
 
 def _add_launches(total, launches):
@@ -2786,7 +2832,7 @@ def phase_baselines(torch):
         want = {"abft_matmul": gemms * SERVE_STEPS, "rollback_correct": 0,
                 "drift_gemm_fused": gemms * SERVE_STEPS * (runs - 1),
                 "flash_attention": cfg.n_layers * SERVE_STEPS * runs,
-                "fault_inject": 0}
+                "fault_inject": 0, "stat_abft_matmul": 0}
         if launches != want:
             raise AssertionError(f"{mode} launch counts {launches} != "
                                  f"{want}")
@@ -2984,7 +3030,7 @@ def phase_families(torch, reps: int):
                     "rollback_correct": 0,
                     "drift_gemm_fused": gemms * SERVE_STEPS * 2 * drift,
                     "flash_attention": attn * SERVE_STEPS * passes,
-                    "fault_inject": 0}
+                    "fault_inject": 0, "stat_abft_matmul": 0}
             if launches != want:
                 raise AssertionError(f"{arch} {mode} launch counts "
                                      f"{launches} != {want}")
@@ -4076,10 +4122,11 @@ def _drift_decode(torch, eng, arch, cfg):
     gemms = cfg.n_layers * {"moe": 4, "ssm": 0}.get(cfg.family, 7)
     want_step = {"abft_matmul": 0, "rollback_correct": 0,
                  "drift_gemm_fused": gemms, "flash_attention": 0,
-                 "fault_inject": 0}
+                 "fault_inject": 0, "stat_abft_matmul": 0}
     if any(s != want_step for s in per_step) or prefill_launches != {
             "abft_matmul": 0, "rollback_correct": 0, "drift_gemm_fused": 0,
-            "flash_attention": cfg.n_layers, "fault_inject": 0}:
+            "flash_attention": cfg.n_layers, "fault_inject": 0,
+            "stat_abft_matmul": 0}:
         raise AssertionError(f"{arch} DriftDecode launches: prefill "
                              f"{prefill_launches}, steps {per_step}")
     shapes = {k: tuple(v.shape) for k, v in store.items()}
@@ -4174,7 +4221,8 @@ def _mixed_decode(torch, eng, arch, cfg):
                     "means leave out the first step")
     emit({"phase": "lm", "part": "mixed_decode", **rec})
     want = {"abft_matmul": 0, "rollback_correct": 0, "drift_gemm_fused": 0,
-            "flash_attention": cfg.n_layers, "fault_inject": 0}
+            "flash_attention": cfg.n_layers, "fault_inject": 0,
+            "stat_abft_matmul": 0}
     if prefill_launches != want or launches != want:
         raise AssertionError(f"{arch} mixed decode launches: prefill "
                              f"{prefill_launches}, total {launches}")
@@ -4665,7 +4713,8 @@ def _check_lm_single(full, smoke) -> None:
     faulted = SHARDED_LM_STEPS - 2        # engine.nominal_steps = 2
     want = {"abft_matmul": 0, "rollback_correct": 0, "drift_gemm_fused": 0,
             "flash_attention": 2 * cfg.n_layers,
-            "fault_inject": faulted * (cfg.n_layers - 1) * 7}
+            "fault_inject": faulted * (cfg.n_layers - 1) * 7,
+            "stat_abft_matmul": 0}
     if full["launches"] != want:
         raise AssertionError(f"sharded_lm {AR_ARCH} launches "
                              f"{full['launches']} != {want}")
@@ -5085,10 +5134,19 @@ def kernel_summary(kernels_out, path_launches, backward_calls):
                   "one call, 2048x1152x1152 f32 (quantization "
                   "included); the serving path runs its kernel from "
                   "ExecContext", ("drift_gemm_fused",)),
-        composite("stat_abft_matmul", "src/repro_torch/kernels/stat_abft.py",
-                  "src/repro/kernels/stat_abft.py:103", stat_row,
-                  "one call, 2048x1152x1152 int8, 128-wide row tiles; on "
-                  "no serving path", ("abft_matmul",)),
+        dict(row("stat_abft_matmul", csrc + "stat_abft.cu",
+                 "src/repro/kernels/stat_abft.py:103", stat_row,
+                 stat_row["bound_by"],
+                 "one call, 2048x1152x1152 int8, 128-wide row tiles, its "
+                 "transpose of B included; on no serving path (every "
+                 "path asserts 0 launches); shapes: the DiT's three body "
+                 "GEMMs", None),
+             composite_ms=stat_row["composite_ms"],
+             shapes=[{k: r[k] for k in (
+                 "shape", "bn", "max_abs_err", "ms", "kernel_ms",
+                 "transpose_ms", "plain_ms", "composite_ms", "bound_ms",
+                 "bound_by", "tops", "share") if k in r}
+                 for r in stat_row["shapes"] if "ms" in r]),
     ]
 
 
@@ -5137,6 +5195,12 @@ def main(argv=None) -> int:
             logs = _lib.build_all(ptxas_verbose=True)
             rec["built"] = sorted(logs)
             rec["ptxas"] = {n: ptxas_summary(log) for n, log in logs.items()}
+            spilled = [f for f in rec["ptxas"].get("stat_abft", [])
+                       if f.get("spill_stores") or f.get("spill_loads")]
+            serialized = "C7518" in logs.get("stat_abft", "")
+            if spilled or serialized:
+                raise AssertionError(f"stat_abft spills {spilled}, wgmma "
+                                     f"serialized by ptxas: {serialized}")
         elif phase == "kernels":
             kernels_out = (phase_kernels(torch, args.reps)
                            + phase_kernels_ar(torch, args.reps)

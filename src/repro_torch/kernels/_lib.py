@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("abft_matmul", "rollback_correct", "drift_gemm",
-           "flash_attention", "fault_inject")
+           "flash_attention", "fault_inject", "stat_abft")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

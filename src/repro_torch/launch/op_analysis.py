@@ -28,11 +28,11 @@ call: with a ``CountingMesh``, one rank.
   operand is read once).
 * kernels: each of the port's kernel wrappers (``abft_matmul``,
   ``rollback_correct``, ``drift_gemm_fused``, ``flash_attention``/
-  ``mha_flash``, ``fault_inject``) is counted at its kernel's own work,
-  the ``work(...)`` of its module (attention's causal pairs and windows
-  clipped; the fused drift GEMM's checkpoint reads, which only its masks
-  decide, not counted), through ``kernels._count``; the ops inside a
-  wrapper are not counted again.
+  ``mha_flash``, ``fault_inject``, ``stat_abft_matmul``) is counted at
+  its kernel's own work, the ``work(...)`` of its module (attention's
+  causal pairs and windows clipped; the fused drift GEMM's checkpoint
+  reads, which only its masks decide, not counted), through
+  ``kernels._count``; the ops inside a wrapper are not counted again.
   ``kernels`` in the report holds the calls of each.
 * collectives: a ``CountingMesh`` stands for one rank (rank 0 by
   default) of a mesh of any shape in one process and records what each

@@ -403,20 +403,98 @@ def test_mha_flash_gqa_is_one_kernel_on_card(cuda, d, ratio):
         assert "flash_attention" in kernels[0].key
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("blk,thr", [(128, 0), (32, 1 << 10)])
-def test_stat_abft_matmul_matches_plain_on_card(cuda, blk, thr):
-    rng = np.random.default_rng(blk)
-    aq = torch.from_numpy(_int8(rng, (128, 96))).to(cuda)
-    bq = torch.from_numpy(_int8(rng, (96, 256))).to(cuda)
-    fl = _flips(rng, (128, 256), p=0.02)
+STAT_THRESHOLDS = (0, 1 << 10, -1, 2 ** 31 - 1)
+
+
+def _stat_inputs(m, k, n, seed):
+    rng = np.random.default_rng(seed)
+    aq = torch.from_numpy(_int8(rng, (m, k)))
+    bq = torch.from_numpy(_int8(rng, (k, n)))
+    fl = _flips(rng, (m, n), p=0.02)
     fl[3, 5] = np.uint32(1 << 31)
-    flips = torch.from_numpy(fl.view(np.int32)).to(cuda)
-    got = stat_abft.stat_abft_matmul(aq, bq, flips, thr, bm=blk, bn=blk)
-    want = stat_abft.stat_abft_matmul_plain(aq, bq, flips, thr, bm=blk,
-                                            bn=blk)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    fl[m - 1, n - 1] = np.uint32(1 << 20)
+    return aq, bq, torch.from_numpy(fl.view(np.int32))
+
+
+def _stat_check(aq, bq, flips, bn, thresholds=STAT_THRESHOLDS):
+    """One launch a call, both outputs ``torch.equal`` to the plain
+    version at every threshold."""
+    bm = 32 if aq.shape[0] % bn else bn
+    for thr in thresholds:
+        n0, a0 = stat_abft.launches, tak.launches
+        got = stat_abft.stat_abft_matmul(aq, bq, flips, thr, bm=bm, bn=bn)
+        torch.cuda.synchronize()
+        assert (stat_abft.launches, tak.launches) == (n0 + 1, a0)
+        want = stat_abft.stat_abft_matmul_plain(aq, bq, flips, thr, bm=bm,
+                                                bn=bn)
+        assert torch.equal(got[0], want[0]), (thr, "c")
+        assert torch.equal(got[1], want[1]), (thr, "detected")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(128, 96, 256), (32, 96, 256),
+                                   (96, 50, 384), (32, 50, 128),
+                                   (2048, 1152, 1152), (2048, 1152, 4608),
+                                   (2048, 4608, 1152)])
+@pytest.mark.parametrize("blk", stat_abft.BN_TAKEN)
+def test_stat_abft_matmul_matches_plain_on_card(cuda, m, k, n, blk):
+    """The wgmma kernel at the DiT's body shapes, fewer rows than a CTA
+    (32, 96), K % 16 != 0 (50, zero-padded), every row tile it takes and
+    the thresholds 0, 1 << 10, -1 and 2^31 - 1, with a bit-31 flip."""
+    aq, bq, flips = (t.to(cuda) for t in _stat_inputs(m, k, n, m + k + n))
+    _stat_check(aq, bq, flips, blk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n,offset", [(50, 384, 0), (1152, 4608, 0),
+                                        (96, 256, 3)])
+def test_stat_abft_transpose_matches_plain_on_card(cuda, k, n, offset):
+    """The library's transpose of B to K-major, zero-padded to Kp, equal
+    to ``k_major_plain``; an operand off 16 bytes is copied first."""
+    rng = np.random.default_rng(k + n)
+    flat = torch.from_numpy(_int8(rng, (k * n + offset,))).to(cuda)
+    bq = flat[offset:].view(k, n)
+    kp = stat_abft.launch_args(bq.new_zeros((32, k)), bq, 32)[2]
+    got = stat_abft._k_major(bq, kp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, stat_abft.k_major_plain(bq, kp))
+
+
+@pytest.mark.gpu
+def test_stat_abft_matmul_wraps_at_k4608_on_card(cuda):
+    """Extreme +-127 operands at K = 4608, mostly +127: the row sums pass
+    2^31 and wrap mod 2^32."""
+    rng = np.random.default_rng(7)
+    pm = np.array([-127, 127], np.int8)
+    a = rng.choice(pm, size=(64, 4608), p=[0.1, 0.9])
+    b = rng.choice(pm, size=(4608, 256), p=[0.1, 0.9])
+    sums = (a.astype(np.int64) @ b.astype(np.int64)).reshape(64, 2, 128)
+    assert np.abs(sums.sum(2)).max() >= 2 ** 31
+    _, _, flips = _stat_inputs(64, 4608, 256, 7)
+    _stat_check(torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda),
+                flips.to(cuda), 128)
+
+
+@pytest.mark.gpu
+def test_stat_abft_matmul_is_one_kernel_on_card(cuda):
+    """The profiler sees the kernel and the copy of B to K-major, and no
+    ``abft_matmul``; a row tile the kernel does not take raises."""
+    aq, bq, flips = (t.to(cuda) for t in _stat_inputs(256, 1152, 384, 3))
+    stat_abft.stat_abft_matmul(aq, bq, flips, 0)         # loads the library
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        stat_abft.stat_abft_matmul(aq, bq, flips, 1 << 10)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0)) > 0]
+    if names:
+        assert sum("stat_abft_kernel" in nm for nm in names) == 1, names
+        assert not any("abft_matmul" in nm for nm in names), names
+        assert len(names) <= 2, names
+    with pytest.raises(ValueError, match="takes row tiles"):
+        stat_abft.stat_abft_matmul(aq, bq, flips, 0, bm=32, bn=96)
 
 
 @pytest.mark.gpu
