@@ -23,8 +23,9 @@ Phases, each printing one JSON line with its wall time:
 2. build    -- compile the six CUDA kernels from ``src/repro_torch/
                kernels/csrc`` (one nvcc each, in parallel); registers and
                spill bytes of every compiled kernel (``ptxas -v``);
-               ``stat_abft``'s must show no spill and no wgmma that
-               ptxas serialized (C7518).
+               ``stat_abft``'s and ``drift_gemm``'s (``WGMMA_KERNELS``)
+               must show no spill and no wgmma that ptxas serialized
+               (C7518).
 3. kernels  -- each kernel against its plain PyTorch version on the card,
                at the shapes the serving path gives it: ``abft_matmul`` at
                the seven padded GEMM shapes of DiT-XL/2-512 at bucket 2
@@ -54,8 +55,10 @@ Phases, each printing one JSON line with its wall time:
                causal (bf16 and f32, within tolerance; one kernel on the
                (B, S, H, D) inputs in place), ``stat_abft_matmul``'s
                ``wgmma`` kernel at the DiT's three body GEMMs
-               (2048x1152x1152, x4608 and 2048x4608x1152), at M = 32 and
-               at K = 50 (bit-equal at thresholds 0 and ``THRESHOLD``,
+               (2048x1152x1152, x4608 and 2048x4608x1152), at M = 32,
+               at K = 50 and at row tiles 96, 160, 256 and 384 (the
+               32-wide instance's residuals summed by a second launch;
+               64x1152x3840) (bit-equal at thresholds 0 and ``THRESHOLD``,
                with a bit-31 flip; at the DiT's shapes timed beside its
                bound, the kernel alone and its int8 rate, and beside the
                composite it replaced, which it must beat), and the
@@ -68,7 +71,11 @@ Phases, each printing one JSON line with its wall time:
                3e-3 (union, with a checkpoint; cross, without) and at BER
                0 (no mask), timed in the first setting beside its bound
                (the checkpoint read where masked, as this run's masks
-               need). Then the GQA models' attention calls
+               need): the call (its transpose of B to K-major, none at
+               M <= 64, where the kernel reads B in place, and the
+               ``wgmma`` kernel), each of the two alone, its int8 rate
+               and its share of the bound. Then the GQA models'
+               attention calls
                (``LM_ATTN``: gemma2-9b's prefill at (2, 8, 16/8, 256)
                with the softcap of 50 and window 4096 or none, a binding
                window at (1, 8192, 16/8, 256), gemma3-27b's prefill
@@ -420,6 +427,9 @@ STEADY_BATCHES = 2          # batches after an offload engine's first
 # steps 2 to 7 are timed, fewer than the requests' 16 for the time limit
 STEP_MS_STEPS = 8
 TIMERS = set()          # which timer produced the kernel times
+# the kernels with a wgmma mainloop: no spill, no wgmma that ptxas
+# serialized (C7518)
+WGMMA_KERNELS = ("stat_abft", "drift_gemm")
 ENERGY_SOURCE = "perfmodel: modeled paper accelerator, not this card"
 
 
@@ -916,11 +926,15 @@ def phase_kernels_ar(torch, reps: int):
                   "(B, H, S, D) transposed views, in the row's dtype"})
 
     # stat_abft_matmul's kernel at the DiT's body shapes, timed, and at a
-    # short M, K % 16 != 0 and each row tile it takes, held bit-equal.
+    # short M, K % 16 != 0 and row tiles with and without an instance of
+    # their own (96 to 384: the 32-wide instance's residuals summed by a
+    # second launch), held bit-equal.
     stat_shapes = []
     for m, kk, n, bn in ((2048, 1152, 1152, 128), (2048, 1152, 4608, 128),
                          (2048, 4608, 1152, 128), (32, 1152, 1152, 64),
-                         (96, 50, 384, 32)):
+                         (96, 50, 384, 32), (64, 1152, 3840, 96),
+                         (64, 1152, 3840, 160), (64, 1152, 3840, 256),
+                         (64, 1152, 3840, 384)):
         aq = torch.randint(-127, 128, (m, kk), generator=g, device=dev,
                            dtype=torch.int8)
         bq = torch.randint(-127, 128, (kk, n), generator=g, device=dev,
@@ -957,13 +971,20 @@ def phase_kernels_ar(torch, reps: int):
                                      bn, bn)
 
             t_b, t_o = sbytes / HBM_BYTES_PER_S, sops / INT8_OPS_PER_S
+            # the call and the composite in turns (call, composite,
+            # composite, call), each side's faster window kept: one
+            # window can read several times slow on the card
+            turns = [device_ms(fn, ring, reps)
+                     for fn in (stat, composite, composite, stat)]
             row.update(
-                ring=len(ring), ms=device_ms(stat, ring, reps),
+                ring=len(ring), ms=min(turns[0], turns[3]),
+                ms_turns=[turns[0], turns[3]],
                 kernel_ms=device_ms(stat, ring, reps, "stat_abft_kernel"),
                 transpose_ms=device_ms(stat, ring, reps, "transpose_kernel"),
                 wall_ms=time_ms(stat, ring, reps),
                 plain_ms=device_ms(stat_plain, ring, max(1, reps // 4)),
-                composite_ms=device_ms(composite, ring, reps),
+                composite_ms=min(turns[1], turns[2]),
+                composite_ms_turns=turns[1:3],
                 bound_ms=1e3 * max(t_b, t_o),
                 bound_by="bytes" if t_b >= t_o else "operations",
                 library_ms=None)
@@ -981,7 +1002,9 @@ def phase_kernels_ar(torch, reps: int):
           "note": "ms is every kernel of the call (the transpose of B "
                   "included), kernel_ms the wgmma kernel alone, "
                   "transpose_ms the transpose; composite_ms the "
-                  "design it replaced (_stat_abft over abft_matmul); tops "
+                  "design it replaced (_stat_abft over abft_matmul); ms "
+                  "and composite_ms the faster of two windows each, taken "
+                  "in turns (ms_turns, composite_ms_turns); tops "
                   "the kernel's int8 rate (2*M*N*K over kernel_ms); share "
                   "bound_ms / ms; bit-equal at thresholds 0 and "
                   f"{THRESHOLD}"})
@@ -1011,7 +1034,8 @@ def phase_kernels_ar(torch, reps: int):
                      max_abs_err=err, ring=len(ring),
                      ms=device_ms(ops.drift_gemm, ring, reps),
                      kernel_ms=device_ms(ops.drift_gemm, ring, reps,
-                                         "drift_gemm"),
+                                         ("drift_gemm_kernel",
+                                          "transpose_kernel")),
                      wall_ms=time_ms(ops.drift_gemm, ring, reps),
                      plain_ms=device_ms(ops.drift_gemm_plain, ring,
                                         max(1, reps // 4)),
@@ -1022,8 +1046,9 @@ def phase_kernels_ar(torch, reps: int):
     emit({"phase": "kernels", "kernel": "drift_gemm", "bit_equal": True,
           **drift_row,
           "note": "ms is every kernel of the composite (the quantization "
-                  "included); kernel_ms its one CUDA kernel, "
-                  "drift_gemm_fused"})
+                  "included); kernel_ms the two kernels of its "
+                  "drift_gemm_fused call (the transpose of B and the "
+                  "wgmma kernel)"})
 
     # DriftDecode's projections: 2 valid rows in one 32-row tile.
     dd_abft, dd_rb = [], []
@@ -1098,16 +1123,24 @@ def _fused_row(torch, g, src, site, name, mkn, reps):
     def plain(a, b, f, x, w, c):
         return ops.drift_gemm_fused_plain(a, b, f, x, w, c, THRESHOLD,
                                           valid=(m, n))
-    row = dict(name=name, m=m, k=k, n=n, max_abs_err=err,
-               masked_elems=masked,
+    kp, splits, slabs = ops.launch_plan(m, k, n)
+    in_place = ops.reads_b_in_place(m, bq)
+    row = dict(name=name, m=m, k=k, n=n, kp=kp, splits=splits,
+               b_in_place=in_place,
+               max_abs_err=err, masked_elems=masked,
                flagged_tiles=int((counts["union"] > 0).sum()),
                ring=len(ring),
-               ms=device_ms(fused, ring, reps, "drift_gemm"),
+               ms=device_ms(fused, ring, reps),
+               kernel_ms=device_ms(fused, ring, reps, "drift_gemm_kernel"),
+               transpose_ms=(0.0 if in_place else device_ms(
+                   fused, ring, reps, "transpose_kernel")),
                wall_ms=time_ms(fused, ring, reps),
                plain_ms=device_ms(plain, ring, max(1, reps // 4)),
                bound_ms=1e3 * max(t_b, t_o),
                bound_by="bytes" if t_b >= t_o else "operations",
                library_ms=None)
+    row.update(tops=2 * m * n * k / (row["kernel_ms"] * 1e-3) / 1e12,
+               share=row["bound_ms"] / row["ms"])
     del ring
     return row
 
@@ -1146,7 +1179,13 @@ def phase_kernels_fused(torch, reps: int):
           "shapes": dit_rows, "family_shapes": fam_rows,
           "decode_shapes": dd_rows,
           "note": "unpadded (M, K, N) as the drift paths give them; ms is "
-                  "the kernel's device time, timed in the first setting; "
+                  "the call's device time (the transpose of B to K-major "
+                  "and the wgmma kernel), kernel_ms and transpose_ms each "
+                  "alone (transpose_ms 0 where the kernel reads B in "
+                  "place, b_in_place: M <= 64), timed in the first "
+                  "setting; tops the kernel's "
+                  "int8 rate (2*M*N*K over kernel_ms); share bound_ms / "
+                  "ms; splits the CTAs along K a tile (ops.launch_plan); "
                   "bound_ms counts the checkpoint where the run's masks "
                   "read it; no PyTorch call computes this function"})
     return dit_rows, fam_rows, dd_rows
@@ -1892,7 +1931,9 @@ def _profile_request(torch, eng, argv):
     """Device time by kernel over one more drift request of 3 steps (after
     the counted run): where a served request's time goes on the card, and
     the device kernels a protected GEMM costs (every kernel of the request
-    over its protected GEMMs: 172 an evaluation, 6 evaluations)."""
+    over its protected GEMMs: 172 an evaluation, 6 evaluations; a
+    ``drift_gemm_fused`` call is the GEMM kernel, after a transpose of B
+    to K-major, ``transpose_s``, where M > 64)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -1914,6 +1955,7 @@ def _profile_request(torch, eng, argv):
     fa = sum(r[0] for r in rows if "flash_attention" in r[1]) / 1e6
     ab = sum(r[0] for r in rows if "abft_matmul" in r[1]) / 1e6
     dg = sum(r[0] for r in rows if "drift_gemm" in r[1]) / 1e6
+    tr = sum(r[0] for r in rows if "transpose_kernel" in r[1]) / 1e6
     n_kernels = sum(r[2] for r in rows)
     gemms = 6 * sum(p[4] for p in path_gemms(get_config(ARCH), BUCKET))
     return dict(what="1 drift request, 3 steps, plus its clean reference "
@@ -1924,6 +1966,9 @@ def _profile_request(torch, eng, argv):
                 abft_matmul_share_of_busy=ab / busy if busy else None,
                 drift_gemm_fused_s=dg,
                 drift_gemm_fused_share_of_busy=dg / busy if busy else None,
+                transpose_s=tr,
+                transpose_calls=sum(r[2] for r in rows
+                                    if "transpose_kernel" in r[1]),
                 n_kernels=n_kernels, protected_gemms=gemms,
                 kernels_per_protected_gemm=n_kernels / gemms,
                 top=[dict(kernel=k[:80], device_s=us / 1e6, calls=c)
@@ -5052,6 +5097,9 @@ def kernel_summary(kernels_out, path_launches, backward_calls):
                    bound_by=bound_by, library_ms=library_ms, per=per)
         if note:
             out["launches_note"] = note
+        for key in ("kernel_ms", "transpose_ms"):
+            if key in stats:
+                out[key] = stats[key]
         return out
 
     def composite(name, source, replaces, stats, per, kernels):
@@ -5063,7 +5111,8 @@ def kernel_summary(kernels_out, path_launches, backward_calls):
         live = [r for r in rows if r[per_key]]
         out = {k: sum(r[k] * r[per_key] for r in live)
                / sum(r[per_key] for r in live)
-               for k in ("ms", "plain_ms", "bound_ms", "library_ms")
+               for k in ("ms", "kernel_ms", "transpose_ms", "plain_ms",
+                         "bound_ms", "library_ms")
                if live[0].get(k) is not None}
         out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
         return out
@@ -5075,6 +5124,7 @@ def kernel_summary(kernels_out, path_launches, backward_calls):
     def decode_shapes(rows):
         return [{k: r[k] for k in ("name", "m", "k", "n", "valid",
                                    "per_layer", "max_abs_err", "ms",
+                                   "kernel_ms", "transpose_ms", "splits",
                                    "plain_ms", "bound_ms", "bound_by")
                  if k in r} for r in rows]
     return [
@@ -5195,12 +5245,14 @@ def main(argv=None) -> int:
             logs = _lib.build_all(ptxas_verbose=True)
             rec["built"] = sorted(logs)
             rec["ptxas"] = {n: ptxas_summary(log) for n, log in logs.items()}
-            spilled = [f for f in rec["ptxas"].get("stat_abft", [])
-                       if f.get("spill_stores") or f.get("spill_loads")]
-            serialized = "C7518" in logs.get("stat_abft", "")
-            if spilled or serialized:
-                raise AssertionError(f"stat_abft spills {spilled}, wgmma "
-                                     f"serialized by ptxas: {serialized}")
+            for name in WGMMA_KERNELS:
+                spilled = [f for f in rec["ptxas"].get(name, [])
+                           if f.get("spill_stores") or f.get("spill_loads")]
+                serialized = "C7518" in logs.get(name, "")
+                if spilled or serialized:
+                    raise AssertionError(f"{name} spills {spilled}, wgmma "
+                                         f"serialized by ptxas: "
+                                         f"{serialized}")
         elif phase == "kernels":
             kernels_out = (phase_kernels(torch, args.reps)
                            + phase_kernels_ar(torch, args.reps)

@@ -7,8 +7,9 @@ repo root (listed in ``.gitignore``):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o <name>-<hash>.so csrc/<name>.cu
 
-``<hash>`` covers the source and the flags, so an edited kernel rebuilds
-and an unchanged one is reused. ``build_all`` starts one ``nvcc`` per stale
+``<hash>`` covers the source, the headers of ``csrc`` (``*.cuh``, which the
+sources include) and the flags, so an edited kernel or header rebuilds and
+an unchanged one is reused. ``build_all`` starts one ``nvcc`` per stale
 source, all at once, and waits for them. Libraries load with ``ctypes``;
 every C launcher returns ``cudaGetLastError()`` after its launch and
 ``check`` raises on anything other than 0 (cudaSuccess). Nothing here
@@ -22,7 +23,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("abft_matmul", "rollback_correct", "drift_gemm",
@@ -52,8 +53,15 @@ def _nvcc() -> str:
                        "CUDA toolkit")
 
 
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the headers of ``csrc``."""
+    return [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+
+
 def source_hash(name: str) -> str:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

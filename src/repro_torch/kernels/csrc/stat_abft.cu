@@ -28,23 +28,18 @@
 //     2048x1152, three resident on an SM (72 KB of stages each): one wave
 //     on 132 SMs, and one CTA's epilogue streams while the others
 //     multiply.
-//   - K slabs of 128 bytes, one 128-byte swizzle row, in three stages
-//     (8 KB of A, 16 KB of B each), loaded by TMA and completed on
-//     mbarriers (full: the TMA's transaction bytes; empty: one arrival a
-//     warp after wgmma.wait_group says the slab was read). A slab's four
-//     wgmma run as one group, awaited before the slab is released: a
-//     group left in flight across the producer's branch made ptxas
-//     serialize every wgmma (C7518). Thread 0 issues the loads: a fifth,
-//     producer warp caps the registers at 128 a thread at three CTAs an
-//     SM (15 warps over four sub-partitions) and spilled. In one A/B
-//     test each on the card, a producer warp, 128x128 CTAs of two
-//     warpgroups, deeper rings at fewer CTAs an SM, clusters of 2 and 4
-//     CTAs sharing B by TMA multicast and an L2 prefetch of the flips
-//     were no faster.
+//   - The mainloop is sm90.cuh's (shared with drift_gemm.cu): K slabs
+//     of 128 bytes in three TMA stages on mbarriers, each slab's wgmma
+//     group awaited before the slab is released (C7518), thread 0 the
+//     producer. In one A/B test each on the card, a producer warp,
+//     128x128 CTAs of two warpgroups, deeper rings at fewer CTAs an SM,
+//     clusters of 2 and 4 CTAs sharing B by TMA multicast and an L2
+//     prefetch of the flips were no faster.
 //   - int8 wgmma reads A and B only K-major, and B arrives (K,N)
 //     row-major. The wrapper first launches this library's transpose of
-//     B into bt (N,Kp) (transpose_kernel: 16-byte accesses through a
-//     64x64 shared tile; K*N bytes each way, inside the timed call),
+//     B into bt (N,Kp) (sm90.cuh's transpose_kernel: 16-byte accesses
+//     through a 64x64 shared tile; K*N bytes each way, inside the timed
+//     call),
 //     several times faster than PyTorch's strided copy
 //     (bq.t().contiguous(), timed once on the card). The paths'
 //     weights quantised and transposed once per params (ROADMAP item 15
@@ -60,8 +55,11 @@
 //     one row: it loads 16 bytes of flips and stores 16 bytes of c, with
 //     streaming hints, all 16 of its loads issued before any is used. A
 //     bn-group's row sum is a per-thread sum and one shuffle (lane ^ 2).
-//     bn is a template parameter (32, 64, 128); the wrapper raises for
-//     any other.
+//     bn is a template parameter (32, 64, 128). Any other multiple of 32
+//     that divides N runs the 32-wide instance, which writes its uint32
+//     32-column residuals instead of flags, and group_kernel then sums
+//     each bn/32 of them mod 2^32 and thresholds the sum: two launches,
+//     no atomics.
 // On an H100 80GB HBM3 at 700 W (chip_smoke.py's kernels phase, the
 // final tree of the change that added it) it takes 0.0176 ms a call at
 // 2048x1152x1152 (38% of its bound; the composite it replaces 0.0630),
@@ -71,125 +69,11 @@
 // 0.0349-0.0363 ms, 685-718 int8 TOP/s. The epilogue does not overlap
 // the mainloop: the CTAs of a wave multiply together, then stream
 // together.
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 128;         // CTA tile
-constexpr int BK = 128;                  // K slab: one 128-byte swizzle row
-constexpr int STAGES = 3;
-constexpr int A_BYTES = BM * BK;         // 8 KB
-constexpr int B_BYTES = BN * BK;         // 16 KB
-constexpr int STAGE = A_BYTES + B_BYTES;
-constexpr int THREADS = 128;             // one warpgroup
-// the stages, 1024-byte aligned (the 128-byte swizzle's period), then
-// STAGES full and STAGES empty barriers
-constexpr int SMEM = 1024 + STAGES * STAGE + 16 * STAGES;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Spins until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 2-D tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// A K-major operand in shared memory, 128-byte swizzle: rows of 128 bytes,
-// 8-row groups 1024 bytes apart (SBO), LBO unused.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accumulator accesses across the
-// asynchronous wgmma's fence and wait.
-__device__ __forceinline__ void pin(uint32_t (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// d (64x128 s32) += a (64x32 s8, K-major) * b (32x128 s8, K-major)
-__device__ __forceinline__ void wgmma_m64n128k32(uint32_t (&d)[64],
-                                                 uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
-        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
-        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
-        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
-        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
+using namespace sm90;
 
 // wrap_i32(|r|) > thr, with |INT32_MIN| = INT32_MIN.
 __device__ __forceinline__ uint8_t exceeds(uint32_t s, long long thr) {
@@ -198,66 +82,21 @@ __device__ __forceinline__ uint8_t exceeds(uint32_t s, long long thr) {
   return (long long)mag > thr ? 1 : 0;
 }
 
-template <int BNG>
+// RESID (BNG = 32 only): the 32-column residuals are written as words
+// to resid (M, N / 32) instead of flags, for group_kernel to sum.
+template <int BNG, bool RESID>
 __global__ void __launch_bounds__(THREADS, 3)
 stat_abft_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_b,
                  const int32_t* __restrict__ flips, int M, int N, int Kp,
                  long long thr, int32_t* __restrict__ c,
-                 uint8_t* __restrict__ flags) {
+                 uint8_t* __restrict__ flags, uint32_t* __restrict__ resid) {
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t full = base + STAGES * STAGE;
-  const uint32_t empty = full + 8 * STAGES;
+  const uint32_t base = stage_base(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kt_n = (Kp + BK - 1) / BK;
-
-  // Thread 0 is the producer: it fills every stage, then refills each one
-  // as soon as the four warps have released it (the stage's empty
-  // barrier), while the other stages' slabs are in flight.
-  auto produce = [&](int kt) {
-    const int s = kt % STAGES;
-    mbar_expect_tx(full + 8 * s, STAGE);
-    const uint32_t dst = base + s * STAGE;
-    tma_load(dst, &map_a, full + 8 * s, kt * BK, m0);
-    tma_load(dst + A_BYTES, &map_b, full + 8 * s, kt * BK, n0);
-  };
-  if (tid == 0) {
-#pragma unroll
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, THREADS / 32);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int kt = 0; kt < STAGES && kt < kt_n; ++kt) produce(kt);
-  }
-  __syncthreads();
-
   uint32_t acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0;
-  for (int kt = 0; kt < kt_n; ++kt) {
-    const int s = kt % STAGES;
-    mbar_wait(full + 8 * s, (kt / STAGES) & 1);
-    const uint64_t da = smem_desc(base + s * STAGE);
-    const uint64_t db = smem_desc(base + s * STAGE + A_BYTES);
-    pin(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks)   // +32 bytes of K: +2 in 16 B
-      wgmma_m64n128k32(acc, da + 2 * ks, db + 2 * ks);
-    wgmma_commit();
-    // No group stays in flight across the producer's branch below: ptxas
-    // would serialize every wgmma of the loop (C7518).
-    wgmma_wait<0>();                       // slab kt has been read
-    pin(acc);
-    if (lane == 0) mbar_arrive(empty + 8 * s);
-    if (tid == 0 && kt + STAGES < kt_n) {
-      mbar_wait(empty + 8 * s, (kt / STAGES) & 1);
-      produce(kt + STAGES);
-    }
-  }
+  mainloop(&map_a, &map_b, base, m0, n0, 0, (Kp + BK - 1) / BK, acc);
 
   // Epilogue. acc[4j + e] holds row 16*warp + g (e = 0, 1) or + 8 (e = 2,
   // 3) at column 8j + 2*t4 + (e & 1). After the pair trade a lane holds
@@ -307,141 +146,82 @@ stat_abft_kernel(const __grid_constant__ CUtensorMap map_a,
   for (int i = 0; i < NG; ++i) {
     sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
     const int col = n0 + i * BNG;
-    if (t4 < 2 && row_ok && col < N)
-      flags[(size_t)row * nt + col / BNG] = exceeds(sum[i], thr);
+    if (t4 < 2 && row_ok && col < N) {
+      if (RESID)
+        resid[(size_t)row * nt + col / BNG] = sum[i];
+      else
+        flags[(size_t)row * nt + col / BNG] = exceeds(sum[i], thr);
+    }
   }
 }
 
-// bt (N, Kp) = b (K, N) transposed, zero past K: int8 through a 64x64
-// shared tile, one 16-byte load and one 16-byte store a thread (N % 16
-// == 0, Kp % 16 == 0, b and bt 16-byte aligned).
-constexpr int TT = 64, TPITCH = TT + 4;
-
+// flags (M, N / bn) = exceeds(the sum mod 2^32 of each `group` consecutive
+// 32-column residuals of resid (M, N / 32)), one thread a flag.
 __global__ void __launch_bounds__(256)
-transpose_kernel(const int8_t* __restrict__ b, int K, int N, int Kp,
-                 int8_t* __restrict__ bt) {
-  __shared__ __align__(16) uint8_t tile[TT * TPITCH];
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * TT, k0 = blockIdx.y * TT;
-  {                                        // 64 k rows x 4 chunks of n
-    const int r = tid >> 2, ch = tid & 3;
-    const int k = k0 + r, n = n0 + 16 * ch;
-    const uint4 v =
-        k < K && n < N
-            ? *reinterpret_cast<const uint4*>(b + (size_t)k * N + n)
-            : make_uint4(0, 0, 0, 0);
-    uint32_t* dst = reinterpret_cast<uint32_t*>(tile + r * TPITCH + 16 * ch);
-    dst[0] = v.x;
-    dst[1] = v.y;
-    dst[2] = v.z;
-    dst[3] = v.w;
-  }
-  __syncthreads();
-  const int r = tid >> 2, ch = tid & 3;    // 64 n rows x 4 chunks of k
-  const int n = n0 + r, k = k0 + 16 * ch;
-  const uint8_t* col = tile + 16 * ch * TPITCH + r;
-  uint32_t w[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    w[q] = (uint32_t)col[(4 * q) * TPITCH] |
-           (uint32_t)col[(4 * q + 1) * TPITCH] << 8 |
-           (uint32_t)col[(4 * q + 2) * TPITCH] << 16 |
-           (uint32_t)col[(4 * q + 3) * TPITCH] << 24;
-  if (n < N && k < Kp)
-    *reinterpret_cast<uint4*>(bt + (size_t)n * Kp + k) =
-        make_uint4(w[0], w[1], w[2], w[3]);
+group_kernel(const uint32_t* __restrict__ resid, int M, int nt32, int group,
+             long long thr, uint8_t* __restrict__ flags) {
+  const int ntg = nt32 / group;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)M * ntg) return;
+  const uint32_t* r = resid + (size_t)(i / ntg) * nt32 + (i % ntg) * group;
+  uint32_t s = 0;
+  for (int e = 0; e < group; ++e) s += r[e];
+  flags[i] = exceeds(s, thr);
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, through the runtime's entry-point query (no
-// -lcuda).
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (rows, kp) int8 row-major, boxes of BK x box_rows, 128-byte swizzle.
-bool k_major_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
-                 int rows, int kp, int box_rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)kp, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)kp};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <int BNG>
+template <int BNG, bool RESID>
 int launch(const CUtensorMap& ma, const CUtensorMap& mb, const int32_t* flips,
            int M, int N, int Kp, long long thr, int32_t* c, uint8_t* flags,
-           cudaStream_t st) {
+           uint32_t* resid, cudaStream_t st) {
   const cudaError_t e = cudaFuncSetAttribute(
-      stat_abft_kernel<BNG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM);
+      stat_abft_kernel<BNG, RESID>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  stat_abft_kernel<BNG><<<grid, THREADS, SMEM, st>>>(ma, mb, flips, M, N, Kp,
-                                                     thr, c, flags);
+  stat_abft_kernel<BNG, RESID><<<grid, THREADS, SMEM, st>>>(
+      ma, mb, flips, M, N, Kp, thr, c, flags, resid);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // a (M, Kp) and bt (N, Kp) int8 row-major, Kp % 16 == 0; flips and c
-// (M, N) int32; flags (M, N / bn) bytes; bn in {32, 64, 128}, N % bn == 0;
-// a, bt, flips and c 16-byte aligned (stat_abft.py's launch_args).
+// (M, N) int32; flags (M, N / bn) bytes; bn a multiple of 32 dividing N;
+// a, bt, flips and c 16-byte aligned (stat_abft.py's launch_args). bn
+// 32, 64 and 128 have an instance each; any other runs the 32-wide
+// instance into resid (M, N / 32) words, then group_kernel.
 extern "C" int stat_abft_launch(const void* a, const void* bt,
                                 const void* flips, int M, int N, int Kp,
                                 int bn, long long thr, void* c, void* flags,
-                                void* stream) {
-  if (M <= 0 || N <= 0 || Kp <= 0 || Kp % 16 ||
-      (bn != 32 && bn != 64 && bn != 128) || N % bn ||
-      (uintptr_t)a % 16 || (uintptr_t)bt % 16 || (uintptr_t)flips % 16 ||
-      (uintptr_t)c % 16)
+                                void* resid, void* stream) {
+  const bool own = bn == 32 || bn == 64 || bn == 128;
+  if (M <= 0 || N <= 0 || Kp <= 0 || Kp % 16 || bn <= 0 || bn % 32 ||
+      N % bn || (!own && resid == nullptr) || (uintptr_t)a % 16 ||
+      (uintptr_t)bt % 16 || (uintptr_t)flips % 16 || (uintptr_t)c % 16)
     return (int)cudaErrorInvalidValue;
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap ma, mb;
-  if (!k_major_map(enc, &ma, a, M, Kp, BM) ||
-      !k_major_map(enc, &mb, bt, N, Kp, BN))
-    return (int)cudaErrorInvalidValue;
+  const int e = operand_maps(a, bt, M, N, Kp, &ma, &mb);
+  if (e != 0) return e;
   cudaStream_t st = (cudaStream_t)stream;
   const int32_t* f = (const int32_t*)flips;
   int32_t* cc = (int32_t*)c;
   uint8_t* fl = (uint8_t*)flags;
-  if (bn == 32) return launch<32>(ma, mb, f, M, N, Kp, thr, cc, fl, st);
-  if (bn == 64) return launch<64>(ma, mb, f, M, N, Kp, thr, cc, fl, st);
-  return launch<128>(ma, mb, f, M, N, Kp, thr, cc, fl, st);
+  if (bn == 32)
+    return launch<32, false>(ma, mb, f, M, N, Kp, thr, cc, fl, nullptr, st);
+  if (bn == 64)
+    return launch<64, false>(ma, mb, f, M, N, Kp, thr, cc, fl, nullptr, st);
+  if (bn == 128)
+    return launch<128, false>(ma, mb, f, M, N, Kp, thr, cc, fl, nullptr, st);
+  uint32_t* r = (uint32_t*)resid;
+  const int e2 = launch<32, true>(ma, mb, f, M, N, Kp, thr, cc, fl, r, st);
+  if (e2 != 0) return e2;
+  const long long outs = (long long)M * (N / bn);
+  group_kernel<<<(unsigned)((outs + 255) / 256), 256, 0, st>>>(
+      r, M, N / 32, bn / 32, thr, fl);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int stat_abft_transpose_launch(const void* b, int K, int N, int Kp,
                                           void* bt, void* stream) {
-  if (K <= 0 || N <= 0 || Kp < K || Kp % 16 || N % 16 ||
-      (uintptr_t)b % 16 || (uintptr_t)bt % 16)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + TT - 1) / TT, (Kp + TT - 1) / TT);
-  transpose_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)b, K, N, Kp, (int8_t*)bt);
-  return (int)cudaGetLastError();
+  return transpose(b, K, N, Kp, bt, (cudaStream_t)stream);
 }

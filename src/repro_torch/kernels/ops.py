@@ -24,11 +24,20 @@ with ``c = (aq @ bq) ^ flips`` and the mask the union (or cross) of each
 ``abft_matmul`` -> ``rollback_correct`` over the zero-padded operands
 compute them. ``valid`` is the region whose masked elements
 ``tile_count`` counts (the padded grid by default). M, N and K are any
-sizes: the kernel masks the ragged edges itself, so no operand is
-padded. ``drift_gemm_fused_plain`` is today's sequence over the two
-kernels' plain versions; ``drift_gemm_fused`` takes it for CPU tensors
-only, and a CUDA tensor launches the kernel or raises. ``launches``
-counts kernel launches; ``work`` is the kernel's work, which
+sizes. The kernel's mainloop is ``wgmma`` fed by TMA on 64x128 CTA
+tiles (``BM``, ``BN``), which reads both operands K-major: a call
+zero-pads A's K to Kp, a multiple of 16, where K is not one (a copy),
+and the launcher transposes B into a (N, Kp) buffer first, a second
+kernel of the same call (``stat_abft.a_operand`` and
+``stat_abft.k_major_plain`` build both operands), except at M <= ``BM``,
+where the kernel reads B in place and transposes each K slab in shared
+memory (``reads_b_in_place``). At M <= ``BM`` the K slabs also split
+over several CTAs a tile, with int32 partials in a workspace
+(``launch_plan``). ``drift_gemm_fused_plain`` is today's sequence over
+the two kernels' plain versions; ``drift_gemm_fused`` takes it for CPU
+tensors only, and a CUDA tensor launches the kernel or raises.
+``launches`` counts calls, each one launch of the GEMM kernel (after its
+transpose of B where it has one); ``work`` is the kernel's work, which
 ``launch.op_analysis`` counts for each call and the card check's bound
 reads.
 
@@ -45,6 +54,7 @@ plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -55,13 +65,17 @@ from repro_torch.core.abft import wrap_i32
 from repro_torch.kernels import _count, _lib
 from repro_torch.kernels import abft_matmul as _abft
 from repro_torch.kernels import rollback_correct as _rc
+from repro_torch.kernels import stat_abft as _stat
 
 TILE = 32
+#: the kernel's CTA tile (BM x BN) and K slab (BK bytes)
+BM, BN, BK = 64, 128, 128
 launches = 0
 
-_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-             + [ctypes.c_void_p] * 5)
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
+             + [ctypes.c_void_p] * 7)
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 Valid = Optional[Tuple[int, int]]
 
@@ -161,13 +175,38 @@ def _check(aq, bq, flips, sx, sw, ckpt, valid):
         raise ValueError(f"valid region {valid} outside {(mp, np_)}")
 
 
+def launch_plan(m: int, k: int, n: int, sms: int = 132
+                ) -> Tuple[int, int, int]:
+    """(Kp, splits, slabs) for the CUDA launcher: K zero-padded to Kp, a
+    multiple of 16 (a tensor map's row stride), in K slabs of ``BK``; at
+    M <= ``BM`` (one row of CTAs) the slabs split into ``splits`` CTAs
+    along K of ``slabs`` slabs each, so that about ``sms`` CTAs stream
+    B; otherwise one split of every slab."""
+    kp = max(16, -(-k // 16) * 16)
+    total = -(-kp // BK)
+    if m > BM:
+        return kp, 1, total
+    tiles = -(-padded_shape(m, n)[1] // BN)
+    slabs = -(-total // min(total, -(-sms // tiles)))
+    return kp, -(-total // slabs), slabs
+
+
+def reads_b_in_place(m: int, bq: torch.Tensor) -> bool:
+    """True where the kernel reads ``bq (K, N)`` as it lies, transposing
+    each K slab in shared memory: M <= ``BM`` (one row of CTAs, where B's
+    bytes bind), N % 16 == 0 and ``bq`` 16-byte aligned (a tensor map's
+    row stride and base). Otherwise the call first transposes B into an
+    (N, Kp) buffer, a kernel of its own."""
+    return (m <= BM and bq.shape[1] % 16 == 0
+            and bq.data_ptr() % 16 == 0)
+
+
 def launch_args(aq, bq, flips, sw, ckpt, out) -> bool:
-    """``vec`` for the CUDA launcher: the 16-byte loads and stores need
-    K % 16 == 0, N % 4 == 0 and aligned pointers (every serving shape);
-    otherwise the kernel moves word by word."""
-    k, n = aq.shape[1], bq.shape[1]
-    ok = (k % 16 == 0 and n % 4 == 0 and aq.data_ptr() % 16 == 0
-          and bq.data_ptr() % 4 == 0 and out.data_ptr() % 16 == 0
+    """``vec`` for the CUDA launcher: the epilogue's 16-byte loads and
+    stores need N % 4 == 0 and aligned pointers (every serving shape);
+    otherwise it moves word by word. The mainloop takes any shape."""
+    n = bq.shape[1]
+    ok = (n % 4 == 0 and out.data_ptr() % 16 == 0
           and sw.data_ptr() % 16 == 0)
     if ckpt is not None:
         ok = ok and ckpt.data_ptr() % 16 == 0
@@ -191,10 +230,27 @@ def drift_gemm_fused(aq: torch.Tensor, bq: torch.Tensor,
                                  union, valid)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The split-K tile counters of ``stream``: zero, and left zero by
+    every launch (the last CTA of a tile resets its counter)."""
+    key = (dev.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                        device=dev)
+    return t
+
+
 def _drift_gemm_fused(aq, bq, flips, sx, sw, ckpt, threshold, union,
                       valid):
     global launches
-    m, n = aq.shape[0], bq.shape[1]
+    m, k = aq.shape
+    n = bq.shape[1]
     mp, np_ = padded_shape(m, n)
     mt, nt = mp // TILE, np_ // TILE
     shapes = ((m, n), (mp, nt), (mt, np_), (mt, nt))
@@ -217,14 +273,28 @@ def _drift_gemm_fused(aq, bq, flips, sx, sw, ckpt, threshold, union,
     vec = launch_args(aq, bq, flips, sw, ckpt, out)
     fn_ = _lib.function("drift_gemm", "drift_gemm_launch", _ARGTYPES)
     with torch.cuda.device(dev):
-        err = fn_(aq.data_ptr(), bq.data_ptr(),
+        kp, splits, slabs = launch_plan(m, k, n, _sm_count(dev.index))
+        stream = _lib.stream_of(dev)
+        a = _stat.a_operand(aq, kp)
+        bt = (None if reads_b_in_place(m, bq) else
+              torch.empty((n, kp), dtype=torch.int8, device=dev))
+        ws = tickets = None
+        if splits > 1:
+            tiles = -(-np_ // BN)
+            ws = torch.empty(tiles * splits * m * BN, dtype=torch.int32,
+                             device=dev)
+            tickets = _tickets(dev, stream, tiles)
+        err = fn_(a.data_ptr(), bq.data_ptr(),
+                  None if bt is None else bt.data_ptr(),
                   None if flips is None else flips.data_ptr(), fn, fm, fn,
                   sx.data_ptr(), sw.data_ptr(),
                   None if ckpt is None else ckpt.data_ptr(),
-                  int(threshold), int(bool(union)), m, n, aq.shape[1],
-                  int(vm), int(vn), int(vec), out.data_ptr(),
-                  row_diff.data_ptr(), col_diff.data_ptr(),
-                  tile_count.data_ptr(), _lib.stream_of(dev))
+                  int(threshold), int(bool(union)), m, n, k, kp, int(vm),
+                  int(vn), int(vec), slabs,
+                  None if ws is None else ws.data_ptr(),
+                  None if tickets is None else tickets.data_ptr(),
+                  out.data_ptr(), row_diff.data_ptr(), col_diff.data_ptr(),
+                  tile_count.data_ptr(), stream)
     _lib.check(err, "drift_gemm_fused")
     launches += 1
     return out, row_diff, col_diff, tile_count

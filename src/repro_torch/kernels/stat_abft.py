@@ -27,8 +27,10 @@ in the epilogue), which replaces the TPU function
 ``repro/kernels/stat_abft.py::stat_abft_matmul``. The kernel takes B
 K-major, so the wrapper first launches the library's transpose of
 ``bq`` (``k_major_plain`` is its plain version), and K zero-padded to a
-multiple of 16 (``a_operand``); it takes row tiles of ``bn`` in
-``BN_TAKEN`` and raises for any other. On the CPU it runs
+multiple of 16 (``a_operand``). Row tiles of ``bn`` in ``BN_TAKEN``
+run an instance of their own; any other multiple of 32 runs the 32-wide
+instance's residuals, then the library's sum of each ``bn // 32`` of them
+mod 2^32 and its threshold (``row_tile_plan``). On the CPU it runs
 ``stat_abft_matmul_plain``, the composite over the port's int8 ABFT
 kernel's plain version (32x32 checksum tiles): row tiles wider than 32
 sum their 32-column checksums mod 2^32, which is exact. ``launches``
@@ -54,13 +56,15 @@ ALPHA = 4.0
 #: absolute floor so all-zero rows don't flag their own rounding dust.
 TAU_FLOOR = 1e-6
 
-#: the row-tile widths the CUDA kernel takes (one instance each)
+#: the row-tile widths with a CUDA kernel instance of their own; any other
+#: multiple of 32 runs the 32-wide instance's residuals through a sum of
+#: each ``bn // 32`` of them (``row_tile_plan``)
 BN_TAKEN = (32, 64, 128)
 
 launches = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-             + [ctypes.c_longlong] + [ctypes.c_void_p] * 3)
+             + [ctypes.c_longlong] + [ctypes.c_void_p] * 4)
 _T_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
 
 
@@ -177,13 +181,22 @@ def stat_abft_matmul_plain(aq: torch.Tensor, bq: torch.Tensor,
 def launch_args(aq: torch.Tensor, bq: torch.Tensor,
                 bn: int) -> Tuple[int, int, int, int]:
     """(M, N, Kp, bn) for the CUDA launcher: K zero-padded to Kp, a
-    multiple of 16 (a tensor map's row stride), and ``bn`` the kernel
-    instance. Raises for a ``bn`` outside ``BN_TAKEN``."""
-    if bn not in BN_TAKEN:
-        raise ValueError(f"the CUDA kernel takes row tiles bn in "
-                         f"{BN_TAKEN}, got {bn}")
+    multiple of 16 (a tensor map's row stride). Raises for a ``bn`` that
+    is not a multiple of 32 dividing N."""
     m, k = aq.shape
-    return m, bq.shape[1], max(16, -(-k // 16) * 16), bn
+    n = bq.shape[1]
+    if bn <= 0 or bn % _abft.TILE or n % bn:
+        raise ValueError(f"row tile {bn} is not a multiple of "
+                         f"{_abft.TILE} that divides N = {n}")
+    return m, n, max(16, -(-k // 16) * 16), bn
+
+
+def row_tile_plan(bn: int) -> Tuple[int, int]:
+    """(instance, group): the kernel instance a row tile ``bn`` runs and
+    how many of its row-tile residuals each flag sums (1: the instance's
+    own flags, one launch; more: the 32-wide instance's residuals, then
+    the library's sum-and-threshold launch)."""
+    return (bn, 1) if bn in BN_TAKEN else (_abft.TILE, bn // _abft.TILE)
 
 
 def a_operand(aq: torch.Tensor, kp: int) -> torch.Tensor:
@@ -244,17 +257,21 @@ def _stat_abft_matmul(aq, bq, flips, threshold_mag, bm, bn):
     if aq.device.type != "cuda":
         raise ValueError(f"stat_abft_matmul: unsupported device {aq.device}")
     m, n, kp, bn = launch_args(aq, bq, bn)
+    group = row_tile_plan(bn)[1]
     dev = aq.device
     flips = flips.contiguous()
     if flips.data_ptr() % 16:
         flips = flips.clone()
     c = torch.empty((m, n), dtype=torch.int32, device=dev)
     detected = torch.empty((m, n // bn), dtype=torch.bool, device=dev)
+    resid = (None if group == 1 else
+             torch.empty((m, n // _abft.TILE), dtype=torch.int32, device=dev))
     fn = _lib.function("stat_abft", "stat_abft_launch", _ARGTYPES)
     with torch.cuda.device(dev):
         a, bt = a_operand(aq, kp), _k_major(bq, kp)
         err = fn(a.data_ptr(), bt.data_ptr(), flips.data_ptr(), m, n, kp, bn,
                  int(threshold_mag), c.data_ptr(), detected.data_ptr(),
+                 None if resid is None else resid.data_ptr(),
                  _lib.stream_of(dev))
     _lib.check(err, "stat_abft_matmul")
     launches += 1

@@ -27,9 +27,11 @@ from repro_torch.core import abft as abft_lib
 from repro_torch.core import fault, quant, rollback
 from repro_torch.core.dvfs import CLASS_BODY, N_CLASSES
 from repro_torch.core.exec_ctx import DriftSystemConfig, ExecContext
+from repro_torch.kernels import _lib
 from repro_torch.kernels import abft_matmul as tak
 from repro_torch.kernels import ops
 from repro_torch.kernels import rollback_correct as trk
+from repro_torch.kernels import stat_abft
 
 THR = 1 << 10
 # (M, K, N): test_torch_ar's ragged 70x50x90 (K % 16 != 0), a ragged M
@@ -224,20 +226,87 @@ def test_fused_raises_on_bad_inputs(case):
 
 
 def test_launch_args_take_vectors_on_serving_shapes():
-    """The 16-byte path needs K % 16 == 0, N % 4 == 0 and aligned
-    pointers; anything else moves word by word."""
+    """The epilogue's 16-byte path needs N % 4 == 0 and aligned out, sw,
+    checkpoint and flips; anything else moves word by word. K and A do
+    not enter: the kernel reads A through a tensor map over its (M, Kp)
+    copy, zero-padded where K % 16 != 0."""
     def vec(m, k, n, off=0, flips=True, ckpt=True):
         aq = torch.zeros(m * k + off, dtype=torch.int8)[off:].view(m, k)
         bq = torch.zeros((k, n), dtype=torch.int8)
         fl = torch.zeros((m, n), dtype=torch.int32) if flips else None
-        ck = torch.zeros((m, n)) if ckpt else None
+        ck = (torch.zeros(m * n + off)[off:].view(m, n) if ckpt else None)
         return ops.launch_args(aq, bq, fl, torch.ones(n), ck,
                                torch.empty((m, n)))
     assert vec(2048, 1152, 4608) and vec(2, 256, 1152, flips=False)
     assert vec(154, 320, 320, ckpt=False)
-    assert not vec(70, 50, 92)                     # K % 16
+    assert vec(70, 50, 92)                         # K % 16: A is padded
     assert not vec(64, 64, 90)                     # N % 4
-    assert not vec(64, 64, 64, off=4)              # A not 16-byte aligned
+    assert not vec(64, 64, 64, off=1)              # ckpt off 16 bytes
+
+
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 8192), (8192, 2048),
+                                 (256, 1152), (16, 1152), (50, 90)])
+@pytest.mark.parametrize("m", [1, 2, 31, 32, 33, 63, 64, 65, 154, 2048])
+def test_launch_plan_splits_k_at_one_cta_row(m, k, n):
+    """Kp is K rounded up to 16 (at least 16); above one row of CTAs
+    (M > 64) every CTA takes every K slab; at M <= 64 the slabs split
+    evenly, no split empty, into about as many CTAs as the card has SMs
+    (132) and no more splits than slabs."""
+    kp, splits, slabs = ops.launch_plan(m, k, n)
+    assert kp % 16 == 0 and kp >= max(k, 16) and kp - k < 16
+    total = -(-kp // ops.BK)
+    assert splits * slabs >= total > (splits - 1) * slabs
+    tiles = -(-ops.padded_shape(m, n)[1] // ops.BN)
+    if m > ops.BM:
+        assert (splits, slabs) == (1, total)
+    else:
+        want = min(total, -(-132 // tiles))        # the fewest to fill
+        assert tiles * (want - 1) < 132
+        assert slabs == -(-total // want) and want / 2 < splits <= want
+    if m <= ops.BM and (m, k, n) in ((2, 2048, 2048), (2, 2048, 8192),
+                                     (2, 8192, 2048)):
+        assert tiles * splits >= 128               # DriftDecode's GEMMs
+
+
+def test_b_is_read_in_place_at_one_cta_row():
+    """At M <= 64 with N % 16 == 0 and B 16-byte aligned the kernel reads
+    B as it lies; anywhere else the call transposes it first."""
+    def in_place(m, n, off=0):
+        flat = torch.zeros(64 * n + off, dtype=torch.int8)
+        return ops.reads_b_in_place(m, flat[off:].view(64, n))
+    assert in_place(2, 2048) and in_place(64, 8192) and in_place(1, 16)
+    assert not in_place(65, 2048)                  # two rows of CTAs
+    assert not in_place(2, 200)                    # N % 16
+    assert not in_place(2, 2048, off=8)            # B off 16 bytes
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES + [(2, 16, 48), (3, 1, 5)])
+def test_k_major_operands_match_numpy(m, k, n):
+    """The plain version of what the kernel multiplies: A (M, Kp) and B
+    K-major (N, Kp), zero past K, both contiguous."""
+    rng = np.random.default_rng(m * k + n)
+    a = rng.integers(-127, 128, (m, k), dtype=np.int8)
+    b = rng.integers(-127, 128, (k, n), dtype=np.int8)
+    kp = ops.launch_plan(m, k, n)[0]
+    got_a = stat_abft.a_operand(torch.from_numpy(a), kp)
+    got_b = stat_abft.k_major_plain(torch.from_numpy(b), kp)
+    assert got_a.is_contiguous() and got_b.is_contiguous()
+    np.testing.assert_array_equal(got_a.numpy(),
+                                  np.pad(a, ((0, 0), (0, kp - k))))
+    np.testing.assert_array_equal(got_b.numpy(),
+                                  np.pad(b.T, ((0, 0), (0, kp - k))))
+
+
+def test_kernel_library_is_built_from_its_sources():
+    """``csrc/drift_gemm.cu`` runs the shared ``wgmma`` + TMA mainloop of
+    ``sm90.cuh`` (in its build hash), its transpose of B and split K."""
+    assert "drift_gemm" in _lib.KERNELS
+    assert _lib.CSRC / "sm90.cuh" in _lib.sources("drift_gemm")
+    src = (_lib.CSRC / "drift_gemm.cu").read_text()
+    for needle in ('#include "sm90.cuh"', "mainloop(&map_a, &map_b",
+                   "transpose(b, K, N, Kp, bt, st)", "atomicAdd(tickets",
+                   "bar.sync %0, 64", 'extern "C" int drift_gemm_launch'):
+        assert needle in src, needle
 
 
 # ------------------------------------------------- ExecContext, drift mode

@@ -478,7 +478,7 @@ def test_stat_abft_matmul_wraps_at_k4608_on_card(cuda):
 @pytest.mark.gpu
 def test_stat_abft_matmul_is_one_kernel_on_card(cuda):
     """The profiler sees the kernel and the copy of B to K-major, and no
-    ``abft_matmul``; a row tile the kernel does not take raises."""
+    ``abft_matmul``."""
     aq, bq, flips = (t.to(cuda) for t in _stat_inputs(256, 1152, 384, 3))
     stat_abft.stat_abft_matmul(aq, bq, flips, 0)         # loads the library
     torch.cuda.synchronize()
@@ -493,8 +493,16 @@ def test_stat_abft_matmul_is_one_kernel_on_card(cuda):
         assert sum("stat_abft_kernel" in nm for nm in names) == 1, names
         assert not any("abft_matmul" in nm for nm in names), names
         assert len(names) <= 2, names
-    with pytest.raises(ValueError, match="takes row tiles"):
-        stat_abft.stat_abft_matmul(aq, bq, flips, 0, bm=32, bn=96)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn", [96, 160, 256, 384])
+def test_stat_abft_matmul_takes_every_row_tile_on_card(cuda, bn):
+    """A row tile without an instance of its own: the 32-wide instance's
+    residuals, summed in groups of bn / 32 and thresholded by a second
+    launch, ``torch.equal`` to the plain version at every threshold."""
+    aq, bq, flips = (t.to(cuda) for t in _stat_inputs(64, 1152, 3840, bn))
+    _stat_check(aq, bq, flips, bn)
 
 
 @pytest.mark.gpu
@@ -515,13 +523,19 @@ def test_drift_gemm_matches_plain_on_card(cuda):
     assert int(got.n_flagged_tiles) > 0
 
 
-# (M, K, N) unpadded: the DiT's body GEMMs, PixArt's M = 240 and the UNet's
-# M = 154 text GEMMs, a DriftDecode one-tile shape (olmo-1b's gate/up at
-# bucket 2), and two ragged ones (K % 16 != 0: the word-by-word path; a
-# ragged M and N on the vector path)
+# (M, K, N) unpadded: the DiT's body GEMMs, its patch (K = 16), final
+# (N = 16) and t.w1 (M = 2) GEMMs, PixArt's M = 240 and the UNet's M = 154
+# text GEMMs, DriftDecode's one-tile shapes (olmo-1b's gate/up and down
+# at bucket 2: split K, B read in place), both sides of the split-K
+# boundary (M = 64 and 65), and three
+# ragged ones (K % 16 != 0 and N % 4 != 0: the word-by-word path; a
+# ragged M and N on the vector path; K % 16 != 0 and N % 16 != 0 on the
+# vector path, B transposed byte by byte)
 FUSED_SHAPES = [(2048, 1152, 1152), (2048, 1152, 4608), (2048, 4608, 1152),
+                (2048, 16, 1152), (2048, 1152, 16), (2, 256, 1152),
                 (240, 4096, 1152), (154, 768, 640), (2, 2048, 8192),
-                (70, 50, 90), (45, 96, 100)]
+                (2, 8192, 2048), (64, 2048, 2048), (65, 2048, 2048),
+                (70, 50, 90), (45, 96, 100), (100, 40, 84)]
 
 
 @pytest.mark.gpu
@@ -565,8 +579,9 @@ def test_drift_gemm_fused_matches_plain_on_card(cuda, m, k, n, ber, union,
 def test_drift_gemm_fused_flips_over_the_padded_grid_on_card(cuda):
     """Flips over the padded (Mp, Np) grid, some in the padding (which
     flag rows and columns inside), counted over the whole grid: all four
-    outputs ``torch.equal`` to the plain version, on both paths."""
-    for m, k, n in ((70, 50, 90), (45, 96, 100)):
+    outputs ``torch.equal`` to the plain version, on both paths and
+    through split K."""
+    for m, k, n in ((70, 50, 90), (45, 96, 100), (2, 2048, 200)):
         rng = np.random.default_rng(m)
         mp, np_ = ops.padded_shape(m, n)
         aq = torch.from_numpy(_int8(rng, (m, k))).to(cuda)
@@ -583,6 +598,46 @@ def test_drift_gemm_fused_flips_over_the_padded_grid_on_card(cuda):
                            want[0].view(torch.int32))
         for g, w_ in zip(got[1:], want[1:]):
             assert torch.equal(g, w_)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(256, 1152, 384), (2, 2048, 2048),
+                                   (2, 2048, 200)])
+def test_drift_gemm_fused_is_transpose_and_kernel_on_card(cuda, m, k, n):
+    """One call runs the GEMM kernel once, after one transpose of B where
+    it does not read B in place (M > 64, or N % 16 != 0), with split K
+    (M = 2) as without; it counts one launch, and calls in a row stay
+    equal to the plain version (the split's tile counters are left
+    zero)."""
+    rng = np.random.default_rng(m)
+    args = (torch.from_numpy(_int8(rng, (m, k))).to(cuda),
+            torch.from_numpy(_int8(rng, (k, n))).to(cuda),
+            torch.from_numpy(_flips(rng, (m, n), p=0.01).view(np.int32)
+                             ).to(cuda),
+            torch.tensor(0.004, device=cuda), torch.ones(n, device=cuda),
+            torch.randn((m, n), device=cuda), 1 << 10)
+    want = ops.drift_gemm_fused_plain(*args)
+    ops.drift_gemm_fused(*args)                     # loads the library
+    torch.cuda.synchronize()
+    n0 = ops.launches
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = [ops.drift_gemm_fused(*args) for _ in range(3)]
+        torch.cuda.synchronize()
+    assert ops.launches == n0 + 3
+    for out in got:
+        for g, w_ in zip(out, want):
+            assert torch.equal(g.view(torch.int32), w_.view(torch.int32))
+    counts = {e.key: e.count for e in prof.key_averages()
+              if getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0)) > 0}
+    in_place = ops.reads_b_in_place(m, args[1])
+    assert in_place == (m <= 64 and n % 16 == 0)
+    if counts:
+        assert sorted(counts.values()) == [3] * (1 if in_place else 2), counts
+        assert sum("drift_gemm_kernel" in nm for nm in counts) == 1, counts
+        assert sum("transpose_kernel" in nm for nm in counts) == (
+            0 if in_place else 1), counts
 
 
 @pytest.mark.gpu

@@ -97,14 +97,22 @@ def test_launch_args_pick_instance_and_pad(bn, k, kp):
     a = torch.zeros((96, k), dtype=torch.int8)
     b = torch.zeros((k, 384), dtype=torch.int8)
     assert stat_abft.launch_args(a, b, bn) == (96, 384, kp, bn)
+    assert stat_abft.row_tile_plan(bn) == (bn, 1)
 
 
 @pytest.mark.parametrize("bn", [96, 160, 256])
 def test_launch_args_raise_for_other_row_tiles(bn):
+    """A row tile without an instance of its own runs the 32-wide one and
+    sums its residuals in groups of bn / 32; only a width that is no
+    multiple of 32, or does not divide N, raises."""
     a = torch.zeros((32, 64), dtype=torch.int8)
-    b = torch.zeros((64, 3 * 256), dtype=torch.int8)
-    with pytest.raises(ValueError, match="takes row tiles"):
-        stat_abft.launch_args(a, b, bn)
+    b = torch.zeros((64, 3840), dtype=torch.int8)
+    assert stat_abft.launch_args(a, b, bn) == (32, 3840, 64, bn)
+    assert stat_abft.row_tile_plan(bn) == (32, bn // 32)
+    with pytest.raises(ValueError, match="row tile"):
+        stat_abft.launch_args(a, b, bn + 16)
+    with pytest.raises(ValueError, match="row tile"):
+        stat_abft.launch_args(a, b[:, :3 * bn + 32], bn)
 
 
 def test_operands_are_k_major_and_zero_padded():
@@ -167,11 +175,15 @@ def test_op_counter_counts_one_stat_abft_kernel(device):
 
 def test_kernel_library_is_built_from_its_source():
     """``_lib`` builds ``csrc/stat_abft.cu`` with the other kernels; its
-    mainloop is TMA loads and ``wgmma`` on the int8 tensor cores."""
+    mainloop (in the shared header ``sm90.cuh``, which enters the build
+    hash) is TMA loads and ``wgmma`` on the int8 tensor cores."""
     assert "stat_abft" in _lib.KERNELS
-    src = (_lib.CSRC / "stat_abft.cu").read_text()
+    paths = _lib.sources("stat_abft")
+    assert _lib.CSRC / "sm90.cuh" in paths
+    src = "".join(p.read_text() for p in paths)
     for needle in ("wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8",
                    "cp.async.bulk.tensor.2d", "mbarrier.try_wait.parity",
+                   '#include "sm90.cuh"', "group_kernel<<<",
                    'extern "C" int stat_abft_launch',
                    'extern "C" int stat_abft_transpose_launch'):
         assert needle in src, needle
