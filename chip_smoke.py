@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases device,build,sched
     python3 chip_smoke.py --phases device,build,baselines
     python3 chip_smoke.py --phases device,build,families
+    python3 chip_smoke.py --phases device,build,resilience
     python3 chip_smoke.py --phases device,build,kernels,train
     python3 chip_smoke.py --phases device,build,sharded
     python3 chip_smoke.py --phases device,build,sharded_lm
@@ -246,6 +247,22 @@ Phases, each printing one JSON line with its wall time:
                drift request each; then ``abft_matmul`` at the GEMM
                shapes they add and ``mha_flash`` at the UNet's two
                self-attention shapes, beside their bounds.
+11a. resilience -- the paper's Sec 4 analysis
+               (``examples.resilience_study``) at full-width
+               DiT-XL/2-512 from ``tiny_model``'s recipe (random weights
+               drawn on the card, the adaLN and final weights perturbed),
+               bucket 2, 10 steps: the clean reference, Fig 4's bits
+               RES_BITS, Fig 5's faulted steps RES_STEPS, Fig 6's sites
+               RES_SITES and Fig 7's three trajectories, each sample's
+               launches exact (1720 ``abft_matmul`` a faulty sample, 1720
+               ``drift_gemm_fused`` a clean one, 280 attentions each), the
+               clean reference and the first faulty sample also under the
+               op counter, whose kernel calls must equal the launches (no
+               plain version ran); the clean reference against itself
+               lpips 0, psnr at the clamp, ssim 1. Whether each of the
+               four phenomena shows is recorded, not asserted. Then every
+               probe whole at SMOKE and 4 steps on the card and on the
+               CPU with the same CPU-drawn masks, within the RES_ limits.
 11b. sharded -- the serve phase's 2 full-width DiT requests (its seeded
                weights, drift at undervolt, 3 steps, step 2 faulted) in
                one process, where each must correct elements, then on a
@@ -349,10 +366,10 @@ Phases, each printing one JSON line with its wall time:
                5 after a warm-up) and printed with its dominant term,
                bound on ``perfmodel.hw.H100_SXM`` and share bound /
                measured, which must not pass 1.05.
-14. examples -- ``python -m repro_torch.examples.quickstart`` and
-               ``drift_serve --requests 2 --batch 2 --steps 3`` on the
-               card at SMOKE, as subprocesses started together: each
-               must exit 0.
+14. examples -- ``python -m repro_torch.examples.quickstart``,
+               ``drift_serve --requests 2 --batch 2 --steps 3`` and
+               ``resilience_study --probe bits`` on the card at SMOKE, as
+               subprocesses started together: each must exit 0.
 
 Every DiT and olmo-1b result carries the perfmodel's attribution; each
 must bill a ledger whose ``ledger_total`` equals its ``energy_j`` bit for
@@ -384,8 +401,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "reference", "serve", "offload",
           "sched", "ar", "lm", "moe", "ssm", "baselines", "families",
-          "sharded", "sharded_lm", "train", "train_sharded", "roofline",
-          "examples")
+          "resilience", "sharded", "sharded_lm", "train", "train_sharded",
+          "roofline", "examples")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, int8 and bf16
 # tensor-core rates, float32 rate outside the tensor cores; read from
@@ -3120,6 +3137,295 @@ def phase_families(torch, reps: int):
                      "the UNet's self-attention, library_ms bf16 SDPA")
 
 
+# ---------------------------------------------- resilience (slice 21)
+# The paper's Sec 4 probes (``examples.resilience_study``) at full width,
+# a subset of each sweep: Fig 4's bits, Fig 5's faulted steps, Fig 6's
+# sites; Fig 7's three trajectories whole.
+RES_BITS = (0, 10, 30)
+RES_STEPS = (0, 8)
+RES_SITES = ("embed", 0, 27)
+# SMOKE card against CPU, every probe whole at RES_SMOKE_STEPS steps, the
+# step count of the CPU tests against the reference
+# (``tests/test_torch_resilience.py``), and their limits: lpips, ssim and
+# clip within RES_RTOL relative plus RES_ATOL; psnr as the mean squared
+# error it encodes (4 * 10^(-psnr / 10), latents in [-1, 1]) within
+# RES_RTOL relative plus RES_MSE_ATOL, since near clean a tiny gap moves it
+# by many dB; each trajectory value within RES_TRAJ_ATOL; non-finite on
+# one side only fails. The f32 model's int8 products are exact and the
+# rest sums in other orders; from step 4 of 10 on, a rounding that tips
+# an int8 level grows through the chain (card against CPU, and the port
+# against the reference alike, up to ~4e-2 on a trajectory by step 9),
+# which 4 steps mostly stay ahead of. At 4 steps a jump of that kind
+# still shows in a sample or two whose faults are large (on the H100: 2
+# of 23 samples, 3.2e-3 at most, every other number within ~1e-6): at
+# most RES_TIPPED_MAX samples may leave the limits above ("tipped"),
+# each number of theirs within RES_TIP_ATOL.
+RES_SMOKE_STEPS = 4
+RES_RTOL, RES_ATOL, RES_MSE_ATOL, RES_TRAJ_ATOL = 1e-3, 1e-6, 1e-7, 1e-4
+RES_TIPPED_MAX, RES_TIP_ATOL = 3, 1e-2
+# the clean reference scored against itself: psnr at the 1e-12 clamp
+RES_CLAMP_PSNR = 10 * math.log10(4 / 1e-12)
+
+
+class _KernelTally:
+    """A ``kernels._count`` counter that tallies each wrapper's kernel
+    calls and nothing else: no dispatch mode, so it costs nothing. A call
+    on the card counts here and at its launch; a plain version would
+    count here alone."""
+
+    def __init__(self):
+        self.kernels = {}
+
+    def add_kernel(self, name, work):
+        self.kernels[name] = self.kernels.get(name, 0) + 1
+
+    def paused(self):
+        import contextlib
+        return contextlib.nullcontext()
+
+
+def _res_want(cfg, mode: str, steps: int):
+    """Launches of one sample of the class-conditional DiT: every
+    protected GEMM of every evaluation one ``abft_matmul`` (faulty) or
+    one ``drift_gemm_fused`` (clean: drift at BER 0), one attention a
+    block."""
+    gemms = (6 * cfg.n_layers + 4) * steps
+    return {"abft_matmul": gemms * (mode == "faulty"),
+            "rollback_correct": 0,
+            "drift_gemm_fused": gemms * (mode == "clean"),
+            "flash_attention": cfg.n_layers * steps,
+            "fault_inject": 0, "stat_abft_matmul": 0}
+
+
+def _res_study(torch, rs, cfg, params, inputs, bits, steps, sites,
+               flip_source, n: int, check=None):
+    """The four probes on ``(cfg, params, inputs)`` at ``n`` steps: the
+    clean reference first, then each point and trajectory as its own
+    sample. ``check(label, mode, fn)`` runs each sample (the launch
+    checks on the card); None runs it as it is."""
+    run = check or (lambda label, mode, fn: fn())
+    run("clean reference", "clean",
+        lambda: rs.clean_reference(cfg, params, inputs, n))
+    out = dict(bits={}, steps={}, blocks={}, selfheal={})
+    for bit in bits:
+        out["bits"][bit] = run(f"bit {bit}", "faulty", lambda: rs.bit_sweep(
+            cfg, params, inputs, [bit], n, flip_source)[bit])
+    for step in steps:
+        out["steps"][step] = run(f"step {step}", "faulty", lambda: rs.
+                                 step_sweep(cfg, params, inputs, [step], n,
+                                            flip_source)[step])
+    for site in sites:
+        out["blocks"][site] = run(f"site {site}", "faulty", lambda: rs.
+                                  block_sweep(cfg, params, inputs, [site], n,
+                                              flip_source)[site])
+    heal = {"clean": ("clean", None), **{
+        name: ("faulty", rs.schedule_single_step(ber, rs.HEAL_STEP, n))
+        for name, ber in rs.HEAL_BERS}}
+    for name, (mode, sched) in heal.items():
+        out["selfheal"][name] = run(
+            f"selfheal {name}", mode, lambda: rs.trajectory(
+                cfg, params, inputs, mode, sched, n, flip_source))
+    return out
+
+
+def _res_gaps(got, want):
+    """``got`` (card) against ``want`` (CPU): per metric the largest gap
+    and where; the samples outside the RES_ limits but within
+    RES_TIP_ATOL ("tipped"); and what fails: a number outside both, or
+    more than RES_TIPPED_MAX tipped samples."""
+    import numpy as np
+    gaps, bad, tipped = {}, [], {}
+
+    def close(where, key, a, b, rtol, atol):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        if not (np.array_equal(np.isfinite(a), np.isfinite(b))
+                and np.array_equal(np.isnan(a), np.isnan(b))):
+            bad.append(f"{where} {key}: card {a}, CPU {b}: finite on one "
+                       "side")
+            return
+        fin = np.isfinite(a)
+        gap = np.abs(a[fin] - b[fin])
+        if gap.size and gap.max() >= gaps.get(key, (0.0,))[0]:
+            gaps[key] = (float(gap.max()), where)
+        if (gap > RES_TIP_ATOL).any():
+            bad.append(f"{where} {key}: card {a}, CPU {b}")
+        elif (gap > atol + rtol * np.abs(b[fin])).any():
+            tipped.setdefault(where, {})[key] = float(gap.max())
+
+    def mse(psnr):
+        return 4.0 * 10.0 ** (-np.float64(psnr) / 10.0)
+    for probe in ("bits", "steps", "blocks"):
+        for point, q in want[probe].items():
+            g, where = got[probe][point], f"{probe} {point}"
+            for key in ("lpips", "ssim", "clip"):
+                close(where, key, g[key], q[key], RES_RTOL, RES_ATOL)
+            close(where, "mse", mse(g["psnr"]), mse(q["psnr"]), RES_RTOL,
+                  RES_MSE_ATOL)
+    for name, traj in want["selfheal"].items():
+        close(f"selfheal {name}", "trajectory", got["selfheal"][name],
+              traj, 0, RES_TRAJ_ATOL)
+    if len(tipped) > RES_TIPPED_MAX:
+        bad.append(f"{len(tipped)} samples outside the limits: {tipped}")
+    return gaps, tipped, bad
+
+
+def _res_view(out) -> dict:
+    """The probes' numbers as JSON: quality per point, trajectories."""
+    return {probe: {str(k): ([float(x) for x in v] if probe == "selfheal"
+                             else {m: float(x) for m, x in v.items()})
+                    for k, v in out[probe].items()} for probe in out}
+
+
+def _res_phenomena(rs, out) -> dict:
+    """Whether a run shows each of the paper's Sec 4 phenomena (recorded,
+    never asserted: the weights are random): the lpips of every bit at
+    or below the ABFT threshold bit under half the top bit's; the first
+    faulted step's lpips above the last's; the embeddings' and block 0's
+    above the deepest block's; the small error's trajectory healed."""
+    from repro_torch.core.abft import AbftConfig
+    bits, steps, sites = out["bits"], out["steps"], out["blocks"]
+    low = [k for k in bits if k <= AbftConfig().threshold_bit]
+    s = sorted(steps)
+    deep = max(k for k in sites if k != "embed")
+    heal = rs.heal_summary(out["selfheal"])
+    return dict(
+        low_bits_harmless=bool(max(bits[k]["lpips"] for k in low)
+                               < 0.5 * bits[max(bits)]["lpips"]),
+        early_steps_fragile=bool(steps[s[0]]["lpips"]
+                                 > steps[s[-1]]["lpips"]),
+        embed_and_first_block_fragile=bool(
+            min(sites["embed"]["lpips"], sites[0]["lpips"])
+            > sites[deep]["lpips"]),
+        small_errors_heal=heal["small_err"]["healed"], heal=heal)
+
+
+def phase_resilience(torch, smi):
+    """The paper's Sec 4 resilience analysis (``examples.resilience_study``)
+    on the card. At full width, ``configs/dit_xl_512.py::FULL`` from
+    ``tiny_model``'s recipe (random init, the adaLN and final weights
+    perturbed; drawn on the card) at bucket 2, 10 DDIM steps: the clean
+    reference, Fig 4 at RES_BITS, Fig 5 at RES_STEPS, Fig 6 at RES_SITES
+    and Fig 7's three trajectories, masks drawn on the card. Each sample
+    runs with the counters zeroed just before and read just after, its
+    launches exact (``_res_want``) and equal to the kernel calls the op
+    counter's hook (``kernels._count``, ``_KernelTally``) saw: every call
+    reached its CUDA launch, none ran a plain version. The clean
+    reference against itself gives lpips 0, psnr at the clamp and ssim
+    1; every full-width number is finite or NaN. Whether each of the four
+    phenomena shows is recorded, not asserted. Then every probe whole at
+    SMOKE and RES_SMOKE_STEPS steps on the card and on the CPU, with the
+    same params, inputs and CPU-drawn masks: the card's numbers within
+    the RES_ limits of the CPU's, launches exact on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import fault
+    from repro_torch.examples import resilience_study as rs
+    from repro_torch.kernels import _count
+
+    total, timings, walls = {}, {}, {}
+
+    def counted(cfg, steps):
+        def run(label, mode, fn):
+            _zero_launches()
+            tally = _KernelTally()
+            t0 = time.perf_counter()
+            _count.COUNTER = tally
+            try:
+                out = fn()
+            finally:
+                _count.COUNTER = None
+            torch.cuda.synchronize()
+            timings[f"{cfg.name} {label}"] = time.perf_counter() - t0
+            got = _launch_counts()
+            want = _res_want(cfg, mode, steps)
+            if got != want:
+                raise AssertionError(f"resilience {cfg.name} {label}: "
+                                     f"launches {got} != {want}")
+            if tally.kernels != {k: v for k, v in got.items() if v}:
+                raise AssertionError(f"resilience {cfg.name} {label}: "
+                                     f"kernel calls {tally.kernels} != "
+                                     f"launches {got}")
+            _add_launches(total, got)
+            return out
+        return run
+
+    # full width
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, params = rs.tiny_model(ARCH, "cuda", smoke=False)
+    inputs = rs.sample_inputs(cfg, rs.BATCH, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    full = _res_study(torch, rs, cfg, params, inputs, RES_BITS, RES_STEPS,
+                      RES_SITES, fault.PhiloxFlipSource(rs.SEED + 2, 0,
+                                                        "cuda"),
+                      rs.STEPS, counted(cfg, rs.STEPS))
+    peak = torch.cuda.max_memory_allocated()
+    ref = rs.clean_reference(cfg, params, inputs, rs.STEPS)
+    self_q = rs.quality_vs_clean(ref, cfg, params, inputs, rs.STEPS)
+    if not (self_q["lpips"] == 0.0
+            and abs(self_q["psnr"] - RES_CLAMP_PSNR) < 1e-3
+            and abs(self_q["ssim"] - 1.0) < 1e-6):
+        raise AssertionError(f"resilience: clean against itself {self_q}")
+    walls["full"] = time.perf_counter() - t0
+    view = _res_view(full)
+    bad = [(p, k) for p, rows in view.items() for k, v in rows.items()
+           for x in (v if p == "selfheal" else v.values())
+           if not (math.isfinite(x) or math.isnan(x))]
+    if bad:
+        raise AssertionError(f"resilience: infinite numbers at {bad}")
+    phen = _res_phenomena(rs, full)
+    emit({"phase": "resilience", "part": "full", "card": smi, "arch": ARCH,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "tokens": cfg.tokens, "bucket": rs.BATCH, "steps": rs.STEPS,
+          "setup_s": setup_s, "peak_mem_bytes": peak,
+          "clean_vs_itself": self_q, "probes": view, "phenomena": phen})
+    rs.clear_clean_cache()
+    del params, inputs, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # SMOKE, card against CPU
+    smoke_cfg = get_config(ARCH, smoke=True)
+    sites = ("embed", *range(smoke_cfg.n_layers))
+    n = RES_SMOKE_STEPS
+    smoke = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        c, p = rs.tiny_model(ARCH, dev)
+        smoke[dev] = _res_study(
+            torch, rs, c, p, rs.sample_inputs(c, rs.BATCH, device=dev),
+            rs.BITS, range(0, n, 2), sites,
+            fault.PhiloxFlipSource(rs.SEED + 2, 0, "cpu"), n,
+            counted(c, n) if dev == "cuda" else None)
+        walls[f"smoke {dev}"] = time.perf_counter() - t0
+    rs.clear_clean_cache()
+    gaps, tipped, bad = _res_gaps(smoke["cuda"], smoke["cpu"])
+    emit({"phase": "resilience", "part": "smoke", "card": smi,
+          "steps": n, "card_vs_cpu_max_gap": gaps, "tipped": tipped,
+          "failed": bad,
+          "limits": dict(rtol=RES_RTOL, atol=RES_ATOL,
+                         mse_atol=RES_MSE_ATOL, trajectory=RES_TRAJ_ATOL,
+                         tipped_max=RES_TIPPED_MAX,
+                         tip_atol=RES_TIP_ATOL),
+          "probes_card": _res_view(smoke["cuda"]),
+          "probes_cpu": _res_view(smoke["cpu"]),
+          "phenomena_card": _res_phenomena(rs, smoke["cuda"]),
+          "phenomena_cpu": _res_phenomena(rs, smoke["cpu"])})
+    if bad:
+        raise AssertionError(f"resilience SMOKE card against CPU: {bad}")
+    return dict(card=smi, launches=total, energy=[], walls_s=walls,
+                samples_s=timings, phenomena=phen, smoke_max_gap=gaps,
+                smoke_tipped=tipped,
+                note="samples_s: host wall of one sample ended by a "
+                     "synchronize, its checks included; walls_s: the "
+                     "full-width part (setup included) and each SMOKE "
+                     "device's; a quality point's us is its sample alone; "
+                     "phenomena are recorded, never asserted: the weights "
+                     "are random")
+
+
 # ------------------------------------------------------------- training
 # One arch per family, SMOKE, card against CPU; then olmo-1b (the train
 # launcher's default arch) and whisper-base at full width, at the
@@ -3470,9 +3776,9 @@ def phase_train(torch, smi):
 
 
 # ------------------------------------------- training across ranks (slice 14)
-# full-width olmo-1b cut 16 -> TS_LAYERS layers (0.37 B params), which
+# full-width olmo-1b cut 16 -> TS_LAYERS layers (0.24 B params), which
 # keeps the whole script inside its time limit with the MoE part
-TS_ARCH, TS_LAYERS, TS_SEED, TS_WORLD = "olmo-1b", 4, 60, 2
+TS_ARCH, TS_LAYERS, TS_SEED, TS_WORLD = "olmo-1b", 2, 60, 2
 # the (2, 1) mesh's gradient (a half batch per rank, summed and halved)
 # against the one-process twin's at the same params, bf16 activations:
 # each leaf within TS_GRAD_RTOL of its largest magnitude plus 1e-4 of the
@@ -3485,9 +3791,10 @@ TS_GRAD_RTOL, TS_LOSS_RTOL = 1e-2, 1e-3
 TS_JOIN_S = 900
 TS_CLI_MESH = "[train] olmo-1b-smoke on mesh {'data': 1, 'model': 2}"
 # the MoE part: full-width deepseek-moe-16b cut 28 -> TS_MOE_LAYERS layers
-# (1.60 B params), the same batches and limits, on (data 2, model 1);
-# one step, for the whole script's time limit
-TS_MOE_ARCH, TS_MOE_LAYERS, TS_MOE_STEPS = "deepseek-moe-16b", 2, 1
+# (1.01 B params; every layer is an MoE layer), the same batches and
+# limits, on (data 2, model 1); one step, for the whole script's time
+# limit
+TS_MOE_ARCH, TS_MOE_LAYERS, TS_MOE_STEPS = "deepseek-moe-16b", 1, 1
 TS_MOE_CLI_MESH = ("[train] deepseek-moe-smoke on mesh {'data': 2, "
                    "'model': 1}")
 
@@ -5038,7 +5345,8 @@ def phase_roofline(torch, smi):
 # ----------------------------------------------------------- examples
 EXAMPLES = (("quickstart", []),
             ("drift_serve", ["--requests", "2", "--batch", "2",
-                             "--steps", "3"]))
+                             "--steps", "3"]),
+            ("resilience_study", ["--probe", "bits"]))
 EXAMPLES_TIMEOUT_S = 120
 
 
@@ -5261,8 +5569,8 @@ def main(argv=None) -> int:
         elif phase == "reference":
             rec.update(phase_reference(torch))
         elif phase in ("serve", "offload", "sched", "ar", "lm", "moe",
-                       "ssm", "baselines", "families", "sharded",
-                       "sharded_lm", "train", "train_sharded"):
+                       "ssm", "baselines", "families", "resilience",
+                       "sharded", "sharded_lm", "train", "train_sharded"):
             out = (phase_serve(torch) if phase == "serve"
                    else phase_offload(torch, smi) if phase == "offload"
                    else phase_sched(torch, smi) if phase == "sched"
@@ -5271,6 +5579,8 @@ def main(argv=None) -> int:
                    else phase_moe(torch) if phase == "moe"
                    else phase_ssm(torch) if phase == "ssm"
                    else phase_baselines(torch) if phase == "baselines"
+                   else phase_resilience(torch, smi)
+                   if phase == "resilience"
                    else phase_sharded(torch, smi) if phase == "sharded"
                    else phase_sharded_lm(torch, smi)
                    if phase == "sharded_lm"

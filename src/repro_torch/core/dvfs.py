@@ -10,7 +10,7 @@ the device, so updating them never waits for the card either.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -88,6 +88,16 @@ def ber_of(op: OperatingPoint) -> float:
     return float(np.clip(10.0 ** log10b, 1e-15, 0.5))
 
 
+def pareto_sweep(voltages: Sequence[float], freqs: Sequence[float]):
+    """(op, ber, energy_factor, speed_factor) for every (v, f), Fig 11(a)."""
+    out = []
+    for v in voltages:
+        for f in freqs:
+            op = OperatingPoint(v, f)
+            out.append((op, ber_of(op), op.energy_factor, op.speed_factor))
+    return out
+
+
 # Block resilience classes.
 CLASS_EMBED = 0        # conditioning / timestep / patch embeddings
 CLASS_FIRST_BLOCK = 1  # first transformer block
@@ -119,6 +129,12 @@ def fine_grained_schedule(num_steps: int,
     if protect_first_block:
         table[:, CLASS_FIRST_BLOCK] = 0.0
     return DvfsSchedule(table, aggressive, nominal_steps)
+
+
+def uniform_schedule(num_steps: int, op: OperatingPoint) -> DvfsSchedule:
+    """Coarse DVFS baseline: one operating point for everything."""
+    table = np.full((num_steps, N_CLASSES), ber_of(op), dtype=np.float32)
+    return DvfsSchedule(table, op, 0)
 
 
 class BerMonitorState(NamedTuple):

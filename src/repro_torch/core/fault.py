@@ -86,6 +86,14 @@ def draw_flips(shape: Sequence[int], ber: float, generator: torch.Generator,
     return mask
 
 
+def expected_flips(shape: Sequence[int], ber: float, bits: int = 32) -> float:
+    """E[#flipped bits] in a tensor of ``shape`` at per-bit ``ber``."""
+    n = 1
+    for d in shape:
+        n *= d
+    return float(n) * bits * ber
+
+
 def inject_f32(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Bit flips on raw float32 words: ``x`` viewed as int32, xor ``mask``
     (int32 bit patterns, e.g. a flip source's mask for a ``FaultSite``),

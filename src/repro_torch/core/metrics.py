@@ -1,9 +1,13 @@
 """Generation-quality metrics the serving engine scores requests with.
 
-Counterpart of ``repro.core.metrics``' ``lpips_proxy`` (a fixed, seed-pinned
+Counterpart of ``repro.core.metrics``: ``lpips_proxy`` (a fixed, seed-pinned
 3-level random-conv pyramid; unit-normalised feature differences averaged
-over scales) and ``psnr``. Images are (B, H, W, C) in [-1, 1], as in the
-reference; the convolutions run NCHW with OIHW filters.
+over scales), ``clip_proxy`` (cosine of the pyramid's pooled last level and
+a seeded random projection of the conditioning vector), ``psnr``, the
+global-window ``ssim`` and ``fid_proxy`` (the Frechet distance of the pooled
+last level's diagonal Gaussians of two batches). Images are (B, H, W, C) in
+[-1, 1], as in the reference; the convolutions run NCHW with OIHW filters.
+Each runs on its inputs' device.
 
 XLA's ``SAME`` padding at stride 2 is asymmetric: for an even input and a
 3x3 kernel it pads 0 before and 1 after, which ``conv2d(padding=...)``
@@ -78,3 +82,50 @@ def psnr(a: torch.Tensor, b: torch.Tensor, data_range: float = 2.0
          ) -> torch.Tensor:
     mse = torch.mean((a.float() - b.float()) ** 2)
     return 10.0 * torch.log10(data_range ** 2 / torch.clamp_min(mse, 1e-12))
+
+
+def _pooled(img: torch.Tensor) -> torch.Tensor:
+    """The pyramid's last level averaged over space: (B, C)."""
+    return _pyramid(img)[-1].mean(dim=(2, 3))
+
+
+def clip_proxy(img: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    """Cosine(embedding(img), projection(cond)), averaged over the batch:
+    the semantic-trend proxy. The projection is numpy's, in float64 as
+    numpy divides it, then f32 as the reference's array holds it."""
+    feats = _pooled(img)
+    rng = np.random.RandomState(_FEAT_SEED + 99)
+    proj = rng.randn(cond.shape[-1], feats.shape[-1]).astype(np.float32) \
+        / np.sqrt(cond.shape[-1])
+    ce = cond.float() @ torch.from_numpy(proj.astype(np.float32)).to(
+        feats.device)
+    num = torch.sum(feats * ce, dim=-1)
+    den = (torch.linalg.vector_norm(feats, dim=-1)
+           * torch.linalg.vector_norm(ce, dim=-1) + 1e-6)
+    return torch.mean(num / den)
+
+
+def ssim(a: torch.Tensor, b: torch.Tensor, data_range: float = 2.0
+         ) -> torch.Tensor:
+    """Global-window SSIM (one window over the whole batch)."""
+    a, b = a.float(), b.float()
+    c1 = (0.01 * data_range) ** 2
+    c2 = (0.03 * data_range) ** 2
+    mu_a, mu_b = torch.mean(a), torch.mean(b)
+    va = torch.var(a, correction=0)
+    vb = torch.var(b, correction=0)
+    cov = torch.mean((a - mu_a) * (b - mu_b))
+    return ((2 * mu_a * mu_b + c1) * (2 * cov + c2)
+            / ((mu_a ** 2 + mu_b ** 2 + c1) * (va + vb + c2)))
+
+
+def fid_proxy(batch_a: torch.Tensor, batch_b: torch.Tensor) -> torch.Tensor:
+    """Frechet distance between the random-feature Gaussians of two
+    batches, with diagonal covariances (a full matrix square root is
+    ill-conditioned at B < 64)."""
+    fa, fb = _pooled(batch_a), _pooled(batch_b)
+    mu_a, mu_b = fa.mean(0), fb.mean(0)
+    va, vb = fa.var(0, correction=0), fb.var(0, correction=0)
+    return (torch.sum((mu_a - mu_b) ** 2)
+            + torch.sum(va + vb - 2.0 * torch.sqrt(
+                torch.clamp_min(va * vb, 0.0))))

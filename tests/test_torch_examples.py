@@ -4,7 +4,8 @@
 reference's params, latents and flip masks (``JaxReplayFlipSource``)
 against the numbers the reference's own examples compute, loaded from
 ``examples/`` (the quickstart's three sampler compiles take most of this
-module's time). ``train_dit`` trains the SMOKE DiT 3 steps from the
+module's time; the other probes are held in ``test_torch_resilience``).
+``train_dit`` trains the SMOKE DiT 3 steps from the
 reference's initial state against the reference's loss and AdamW
 (``test_torch_train``'s recipe); ``drift_serve`` serves on the CPU.
 """
@@ -142,12 +143,6 @@ def test_train_dit_losses_match_reference(tmp_path):
 
 
 # ------------------------------------------------------ resilience_study
-@pytest.mark.parametrize("probe", resilience_study.PROBES[1:])
-def test_unported_probes_raise(probe):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resilience_study.main(["--probe", probe, "--device", "cpu"])
-
-
 def test_similarity_matches_reference(capsys):
     """The Fig 2(b) probe on the reference's ``tiny_model`` and
     ``sample_inputs``: each cosine similarity within 1.5e-4 of the value
