@@ -96,7 +96,16 @@ Phases, each printing one JSON line with its wall time:
                two key tiles with a causal diagonal, within 1e-2, a limit
                that must fail the plain version with the last whole key
                tile dropped. The train calls and whisper's also time the
-               backward beside SDPA's.
+               backward beside SDPA's. ``fault_inject`` and
+               ``torch.bitwise_xor`` each take the median of
+               ``FI_WINDOWS`` profiler windows, with their spread. Last,
+               the single-flip sweep (``phase_kernels_flips``):
+               ``abft_matmul``, ``drift_gemm_fused`` and
+               ``stat_abft_matmul`` at 2048x1152x1152 and at M = 2, K =
+               4608 (split K), every bit 0-31 at four positions, each
+               launch ``torch.equal`` to its plain version; the first two
+               flag iff bit >= 10; one line per kernel with its
+               launches and lowest flagged bit.
 4. reference -- the SMOKE DiT and the SMOKE olmo-1b served on the card
                (kernels) and on the CPU (plain versions) with the same
                params, inputs and flip masks: latents, tokens and counts
@@ -134,6 +143,11 @@ Phases, each printing one JSON line with its wall time:
                their own the same way, the same seeds in drift/undervolt
                with ``--taylorseer --precision int8-body4``: it and its
                TaylorSeer clean reference compute steps 0, 3, 6 and 9.
+               Its line also carries ``count_params`` of the weights
+               (beside the DiT paper's ~675 M) and ``store_bytes`` of the
+               drift store at bucket 2 beside the offload planner's
+               ``refresh_bytes``; the families, LM and train phases print
+               their models' counts too.
 6. offload  -- the same CLI serves the full-width DiT's 2 requests at
                rollback interval 2 in turns on fresh engines with one base
                seed: plain, ``--offload --stream 2``, the same again,
@@ -393,6 +407,7 @@ import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -443,11 +458,16 @@ STEADY_BATCHES = 2          # batches after an offload engine's first
 # decode steps of the per-step timing pass of each LM (``_ar_step_ms``):
 # steps 2 to 7 are timed, fewer than the requests' 16 for the time limit
 STEP_MS_STEPS = 8
+# profiler windows of fault_inject and its library call, median kept
+FI_WINDOWS = 5
 TIMERS = set()          # which timer produced the kernel times
 # the kernels with a wgmma mainloop: no spill, no wgmma that ptxas
 # serialized (C7518)
 WGMMA_KERNELS = ("stat_abft", "drift_gemm")
 ENERGY_SOURCE = "perfmodel: modeled paper accelerator, not this card"
+# DiT-XL/2's parameters as Peebles & Xie, "Scalable Diffusion Models with
+# Transformers" (2023), give them (~675 M), printed beside the port's count
+DIT_XL2_PAPER_PARAMS = 675e6
 
 
 def emit(obj) -> None:
@@ -875,13 +895,22 @@ def phase_kernels_ar(torch, reps: int):
 
         def xor(a, m):
             return torch.bitwise_xor(a.view(torch.int32), m)
+        # the kernel and the library call each the median of
+        # FI_WINDOWS profiler windows, taken in turns
+        windows = {"ms": [], "library_ms": []}
+        for _ in range(FI_WINDOWS):
+            windows["ms"].append(device_ms(fik.fault_inject, ring, fr,
+                                           "fault_inject"))
+            windows["library_ms"].append(device_ms(xor, ring, fr))
         fi_rows.append(dict(
             name=name, shape=list(shape), dtype=str(dtype).split(".")[-1],
             per_step=per_step, max_abs_err=err, ring=len(ring),
-            ms=device_ms(fik.fault_inject, ring, fr, "fault_inject"),
+            ms=statistics.median(windows["ms"]),
             wall_ms=time_ms(fik.fault_inject, ring, fr),
             plain_ms=device_ms(fik.fault_inject_plain, ring, fr),
-            library_ms=device_ms(xor, ring, fr),
+            library_ms=statistics.median(windows["library_ms"]),
+            windows=windows,
+            spread={k: max(v) / min(v) for k, v in windows.items()},
             bound_ms=1e3 * fik.work(n)["bytes"] / HBM_BYTES_PER_S,
             bound_by="bytes"))
         fi_rows[-1]["library_ratio"] = fi_rows[-1]["ms"] / \
@@ -891,7 +920,9 @@ def phase_kernels_ar(torch, reps: int):
           "shapes": fi_rows,
           "note": "library_ms is torch.bitwise_xor on the int32 views; the "
                   "plain version is the same xor; library_ratio is "
-                  "ms / library_ms"})
+                  "ms / library_ms; ms and library_ms are each the median "
+                  f"of {FI_WINDOWS} profiler windows taken in turns "
+                  "(windows), spread the largest over the smallest"})
 
     # The prefill's attention call: (B, 8, H, 128), causal.
     b, s, h, d = BUCKET, PROMPT_LEN, cfg.n_heads, cfg.hd
@@ -1206,6 +1237,150 @@ def phase_kernels_fused(torch, reps: int):
                   "bound_ms counts the checkpoint where the run's masks "
                   "read it; no PyTorch call computes this function"})
     return dit_rows, fam_rows, dd_rows
+
+
+# (label, M, K, N) of the single-flip sweep: a DiT body GEMM at M > 64
+# (``drift_gemm_fused`` transposes B and runs the wgmma mainloop whole),
+# and M = 2, DriftDecode's rows, at K = 4608 (B read in place, K split
+# over several CTAs of several slabs each)
+FLIP_SHAPES = (("dit body, M > 64", 2048, 1152, 1152),
+               ("M = 2, K = 4608: split K", 2, 4608, 1152))
+FLIP_BITS = range(32)
+
+
+def _flip_positions(m: int, n: int):
+    """(0, 0), a tile corner, the next tile's first element and the last
+    valid element, rows clipped to M."""
+    return [(0, 0), (min(31, m - 1), 31), (min(32, m - 1), 32),
+            (m - 1, n - 1)]
+
+
+def phase_kernels_flips(torch):
+    """Single-bit flips through the three ABFT kernels on the card: for
+    each of ``FLIP_SHAPES``, each of four positions and every bit, a
+    one-hot mask from ``fault.inject_at`` on a zero int32 mask on the
+    card; each launch ``torch.equal`` (f32 on its int32 view) to its
+    plain version on the same inputs, the unflipped operands made once.
+    ``abft_matmul`` and ``drift_gemm_fused`` must flag iff ``bit >=
+    threshold_bit`` (10), in the flipped element's tile row and column
+    (``drift_gemm_fused``: its tile alone, the masked elements the
+    checkpoint's); ``stat_abft_matmul``'s threshold is statistical, so
+    its flagged bits are printed, not gated. abft_matmul and
+    stat_abft_matmul take M padded to the 32-row tile, as the paths pad
+    it. One line per kernel; returns the lines."""
+    from repro_torch.core import fault
+    from repro_torch.core.abft import _exceeds, wrap_i32
+    from repro_torch.kernels import abft_matmul as ak
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stat_abft as sk
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(20261019)
+    thr_bit = THRESHOLD.bit_length() - 1
+    t0 = time.perf_counter()
+    rows = {"abft_matmul": [], "drift_gemm_fused": [],
+            "stat_abft_matmul": []}
+    before = dict(abft_matmul=ak.launches, drift_gemm_fused=ops.launches,
+                  stat_abft_matmul=sk.launches)
+
+    for label, m, k, n in FLIP_SHAPES:
+        mp = -(-m // 32) * 32
+        aq = torch.zeros((mp, k), dtype=torch.int8, device=dev)
+        aq[:m] = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                               dtype=torch.int8)
+        bq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                           dtype=torch.int8)
+        sx = torch.rand((), generator=g, device=dev) * 1e-2 + 1e-3
+        sw = torch.rand((n,), generator=g, device=dev) * 1e-2 + 1e-3
+        ckpt = torch.randn((m, n), generator=g, device=dev)
+        zero_p = torch.zeros((mp, n), dtype=torch.int32, device=dev)
+        zero = torch.zeros((m, n), dtype=torch.int32, device=dev)
+        bn = 128 if m > 64 else 32
+        kp, splits, slabs = ops.launch_plan(m, k, n)
+        flagged = {name: set() for name in rows}
+        for i, j in _flip_positions(m, n):
+            for bit in FLIP_BITS:
+                tag = f"{label} ({i}, {j}) bit {bit}"
+                big = bit >= thr_bit
+                # abft_matmul: the per-tile differences flag the flipped
+                # element's tile row and column, and nothing else
+                fl = fault.inject_at(zero_p, i * n + j, bit)
+                got = ak.abft_matmul(aq, bq, fl)
+                _check_equal(f"abft_matmul {tag}", got,
+                             ak.abft_matmul_plain(aq, bq, fl))
+                rf = _exceeds(wrap_i32(got[1].long() - got[2].long()),
+                              THRESHOLD)
+                cf = _exceeds(wrap_i32(got[3].long() - got[4].long()),
+                              THRESHOLD)
+                want_r = torch.zeros_like(rf)
+                want_c = torch.zeros_like(cf)
+                want_r[i, j // 32] = want_c[i // 32, j] = big
+                if not (torch.equal(rf, want_r) and torch.equal(cf, want_c)):
+                    raise AssertionError(f"abft_matmul {tag}: flags "
+                                         f"{int(rf.sum())}/{int(cf.sum())}")
+                if big:
+                    flagged["abft_matmul"].add(bit)
+                # drift_gemm_fused, unpadded as the drift paths call it
+                fl = fault.inject_at(zero, i * n + j, bit)
+                args = (aq[:m], bq, fl, sx, sw, ckpt, THRESHOLD)
+                got = ops.drift_gemm_fused(*args, valid=(m, n))
+                _check_equal(f"drift_gemm_fused {tag}", got,
+                             ops.drift_gemm_fused_plain(*args, valid=(m, n)))
+                count = got[3]
+                want_t = torch.zeros_like(count, dtype=torch.bool)
+                want_t[i // 32, j // 32] = big
+                if not torch.equal(count > 0, want_t):
+                    raise AssertionError(f"drift_gemm_fused {tag}: "
+                                         f"{int((count > 0).sum())} tiles")
+                if big:
+                    flagged["drift_gemm_fused"].add(bit)
+                    if not torch.equal(got[0][i, j], ckpt[i, j]):
+                        raise AssertionError(f"drift_gemm_fused {tag}: "
+                                             "not rolled back")
+                # stat_abft_matmul: its flags printed, not gated
+                fl = fault.inject_at(zero_p, i * n + j, bit)
+                got = sk.stat_abft_matmul(aq, bq, fl, THRESHOLD, bm=bn,
+                                          bn=bn)
+                _check_equal(f"stat_abft_matmul {tag}", got,
+                             sk.stat_abft_matmul_plain(aq, bq, fl, THRESHOLD,
+                                                       bm=bn, bn=bn))
+                if bool(got[1][i, j // bn]):
+                    flagged["stat_abft_matmul"].add(bit)
+                if int(got[1].sum()) > int(bool(got[1][i, j // bn])):
+                    raise AssertionError(f"stat_abft_matmul {tag}: flags "
+                                         "away from the flip")
+        torch.cuda.synchronize()
+        want_bits = set(range(thr_bit, 32))
+        for name in rows:
+            bits = sorted(flagged[name])
+            if name != "stat_abft_matmul" and set(bits) != want_bits:
+                raise AssertionError(f"{name} {label}: flagged bits {bits}")
+            rows[name].append(dict(
+                label=label, shape=[m, k, n],
+                padded_m=m if name == "drift_gemm_fused" else mp,
+                lowest_flagged_bit=bits[0] if bits else None,
+                unflagged_bits_above=[b for b in range(bits[0], 32)
+                                      if b not in flagged[name]]
+                if bits else None,
+                **({"bn": bn} if name == "stat_abft_matmul" else {}),
+                **({"splits": splits, "slabs": slabs,
+                    "b_in_place": ops.reads_b_in_place(m, bq)}
+                   if name == "drift_gemm_fused" else {})))
+    wall = time.perf_counter() - t0
+    after = dict(abft_matmul=ak.launches, drift_gemm_fused=ops.launches,
+                 stat_abft_matmul=sk.launches)
+    out = []
+    for name, shapes in rows.items():
+        out.append({"phase": "kernels", "kernel": name,
+                    "sweep": "single_flip", "bit_equal": True,
+                    "launches": after[name] - before[name],
+                    "threshold_bit": thr_bit, "bits": [0, 31],
+                    "positions": "(0, 0), (31, 31), (32, 32), last; rows "
+                                 "clipped to M", "shapes": shapes,
+                    "sweep_s": wall})
+        emit(out[-1])
+    return out
 
 
 # The GQA language models' attention calls: (label, (B, S, H, Hkv, D),
@@ -1819,10 +1994,35 @@ def _reference_slice8(torch, engine, dit_params, lat):
     return rows
 
 
+def _store_sizes(cfg) -> dict:
+    """The drift checkpoint store of ``cfg`` at ``BUCKET`` (zeros on meta
+    tensors, as ``sampler.init_stores`` allocates it): its bytes by
+    ``rollback.store_bytes``, beside the offload planner's refresh volume
+    (the perfmodel's ``activation_bytes``)."""
+    from repro_torch.core.rollback import store_bytes
+    from repro_torch.diffusion.sampler import init_stores
+    from repro_torch.serving.offload.planner import OffloadPlanner
+    stores = init_stores(cfg, BUCKET, "meta")
+    stores = (stores,) if isinstance(stores, dict) else stores
+    return dict(store_bytes=sum(store_bytes(s) for s in stores),
+                refresh_bytes=OffloadPlanner().refresh_bytes(cfg, BUCKET))
+
+
+def _meta_params(cfg) -> int:
+    """``count_params`` of ``cfg``'s param tree drawn on meta tensors (the
+    LMs' card weights are prepared without a param tree to count)."""
+    from repro_torch.launch.dryrun import meta_init
+    from repro_torch.models.common import count_params
+    from repro_torch.train import steps
+    return count_params(meta_init(
+        lambda: steps.init_model_params(cfg, 0, "cpu")))
+
+
 def phase_serve(torch):
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import dit
+    from repro_torch.models.common import count_params
     from repro_torch.serving import DriftServeEngine
 
     dev = torch.device("cuda")
@@ -1935,6 +2135,9 @@ def phase_serve(torch):
                                  f"{d.energy_j} J")
     return dict(arch=ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
                 tokens=cfg.tokens, bucket=BUCKET, steps=SERVE_STEPS,
+                n_params=count_params(params),
+                n_params_dit_paper=DIT_XL2_PAPER_PARAMS,
+                **_store_sizes(cfg),
                 setup_s=setup_s, drift_run_s=t_drift, faulty_run_s=t_faulty,
                 taylorseer_run_s=t_ts, peak_mem_bytes=peak,
                 launches=launches, taylorseer_launches=ts_launches,
@@ -2724,6 +2927,7 @@ def _serve_ar(torch, arch, seed, path):
                heads=None if ssm else [cfg.n_heads, cfg.kv_heads, cfg.hd],
                d_ff=cfg.d_ff,
                vocab=cfg.vocab, params=transformer.param_count(cfg),
+               n_params=_meta_params(cfg),
                bucket=BUCKET, steps=AR_STEPS, window=AR_WINDOW,
                setup_s=setup_s, stat_abft_run_s=t_stat,
                faulty_run_s=t_faulty, held_before_bytes=held0,
@@ -3062,6 +3266,7 @@ def phase_families(torch, reps: int):
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import dit, unet
+    from repro_torch.models.common import count_params
     from repro_torch.serving import DriftServeEngine
 
     dev = torch.device("cuda")
@@ -3073,8 +3278,11 @@ def phase_families(torch, reps: int):
         t0 = time.perf_counter()
         eng = DriftServeEngine(arch=arch, smoke=False, bucket=BUCKET,
                                device="cuda")
-        eng.set_params(arch, False, _perturb_any(
-            torch, model.init_params(cfg, 11, dev), cfg, 12, dev))
+        params = _perturb_any(torch, model.init_params(cfg, 11, dev), cfg,
+                              12, dev)
+        eng.set_params(arch, False, params)
+        n_params = count_params(params)
+        del params
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         argv = ["--arch", arch, "--no-smoke", "--batch", str(BUCKET),
@@ -3120,8 +3328,8 @@ def phase_families(torch, reps: int):
             if not bool(torch.isfinite(clean).all()):
                 raise AssertionError(f"{arch}: non-finite clean reference")
         archs[arch] = dict(
-            layers=cfg.n_layers, d_model=cfg.d_model,
-            unet_channels=list(cfg.unet_channels),
+            layers=cfg.n_layers, d_model=cfg.d_model, n_params=n_params,
+            **_store_sizes(cfg), unet_channels=list(cfg.unet_channels),
             cond=[cfg.cond_tokens, cfg.cond_dim], setup_s=setup_s,
             gemms_per_eval=gemms, attention_per_eval=attn, runs=runs,
             requests=reqs, peak_mem_bytes=torch.cuda.max_memory_allocated(),
@@ -3600,6 +3808,7 @@ def _train_full(torch, arch: str, seed: int, root: Path, counters):
     from repro_torch.data import synthetic
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.optim.adamw import OptimConfig
+    from repro_torch.models.common import count_params
     from repro_torch.train import steps
     from repro_torch.tree import tree_leaves
     cfg = configs.get_config(arch)
@@ -3609,7 +3818,7 @@ def _train_full(torch, arch: str, seed: int, root: Path, counters):
     state = steps.init_train_state(cfg, ocfg, seed, "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    n_params = count_params(state.params)
     state_bytes = sum(t.numel() * t.element_size()
                       for t in tree_leaves((state.params, state.opt.mu,
                                             state.opt.nu)))
@@ -5566,6 +5775,12 @@ def main(argv=None) -> int:
                            + phase_kernels_ar(torch, args.reps)
                            + (phase_kernels_fused(torch, args.reps),
                               phase_kernels_lm(torch, args.reps)))
+            rec["single_flip"] = {
+                line["kernel"]: dict(launches=line["launches"],
+                                     lowest_flagged_bit=[
+                                         r["lowest_flagged_bit"]
+                                         for r in line["shapes"]])
+                for line in phase_kernels_flips(torch)}
         elif phase == "reference":
             rec.update(phase_reference(torch))
         elif phase in ("serve", "offload", "sched", "ar", "lm", "moe",

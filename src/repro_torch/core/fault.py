@@ -14,7 +14,9 @@ replays the reference's masks bit for bit.
 
 ``inject_f32`` applies a mask to the raw bits of f32 words (the
 autoregressive path's un-quantized GEMM outputs) through the hand-written
-injection kernel (``kernels.fault_inject``).
+injection kernel (``kernels.fault_inject``). ``inject_at`` flips one
+chosen bit of one chosen word, as the reference's tests pin detection
+one bit at a time.
 
 The Sec 4 sweep options ride each draw as keywords, as in the reference's
 ``_flip_words``: ``force_bit >= 0`` pins the flipped position and reads
@@ -101,6 +103,28 @@ def inject_f32(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.float32:
         raise TypeError(f"inject_f32 takes float32 words, got {x.dtype}")
     return fault_inject(x, mask)
+
+
+def inject_at(acc: torch.Tensor, flat_index: int, bit: int) -> torch.Tensor:
+    """One deterministic flip (the Sec 4 probes): bit ``bit`` (0 the LSB,
+    31 the sign: a delta of -2^31 on an int32) of element ``flat_index``
+    of the flattened 32-bit tensor ``acc`` (int32 or float32), xored
+    through an int32 view. Returns a new tensor on ``acc``'s device; no
+    value is read back to the host. As the reference's ``.at[].set``
+    and shift: a ``flat_index`` in [-numel, 0) counts from the end, one
+    outside [-numel, numel) flips nothing, a ``bit`` in [32, 2^32) flips
+    nothing, and a ``bit`` outside [0, 2^32) raises ``OverflowError``."""
+    if acc.element_size() != 4:
+        raise ValueError(f"inject_at flips 32-bit words, got {acc.dtype}")
+    flat_index, bit = int(flat_index), int(bit)
+    if not 0 <= bit < 2 ** 32:
+        raise OverflowError(f"bit {bit} out of bounds for uint32")
+    words = acc.reshape(-1).view(torch.int32).clone()
+    n = words.numel()
+    if -n <= flat_index < n and bit < 32:
+        # the bit-31 pattern is INT32_MIN as an int32
+        words[flat_index] ^= -2 ** 31 if bit == 31 else 1 << bit
+    return words.view(acc.dtype).reshape(acc.shape)
 
 
 def mix64(*fields: int) -> int:

@@ -99,6 +99,13 @@ PRECISION_PLANS: Dict[str, PrecisionPlan] = {
 DEFAULT_PLAN = PRECISION_PLANS["int8"]
 
 
+def quant_error_bound(k_dim: int) -> float:
+    """Worst-case |accumulator| of an int8 GEMM contracting ``k_dim``:
+    127^2 * K, which must stay below 2^31 for the int32 accumulator not
+    to saturate."""
+    return INT8_MAX * INT8_MAX * k_dim
+
+
 def get_plan(name: str) -> PrecisionPlan:
     """Plan registry lookup with a reasoned error for unknown names."""
     plan = PRECISION_PLANS.get(name)

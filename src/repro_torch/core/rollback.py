@@ -34,3 +34,9 @@ def effective_checkpoint(current: torch.Tensor,
     if checkpoint is None or not have_ckpt:
         return torch.zeros_like(current)
     return checkpoint
+
+
+def store_bytes(store: CkptStore) -> int:
+    """A checkpoint store's footprint: the bytes each refresh writes (the
+    reference's 'DRAM offload' volume)."""
+    return int(sum(v.numel() * v.element_size() for v in store.values()))

@@ -80,11 +80,10 @@ from repro_torch.launch import op_analysis
 from repro_torch.models import dit as dit_lib
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tf_lib
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, count_params
 from repro_torch.optim.adamw import OptimConfig
 from repro_torch.perfmodel import flops as flops_lib
 from repro_torch.train import steps as steps_lib
-from repro_torch.tree import tree_leaves
 
 MESHES = {"single": ((16, 16), ("data", "model")),
           "multi": ((2, 16, 16), ("pod", "data", "model")),
@@ -118,11 +117,6 @@ def meta_init(fn: Callable[[], Any]) -> Any:
     finally:
         torch.nn.init.trunc_normal_ = init
     return to_meta(tree)
-
-
-def _n(tree) -> int:
-    return sum(x.numel() for x in tree_leaves(tree)
-               if isinstance(x, torch.Tensor))
 
 
 def tensor_bytes(tree) -> int:
@@ -240,7 +234,7 @@ def build_cell(cfg: ModelConfig, shape: shapes_lib.ShapeSpec, mesh,
         ocfg = _optim_cfg(cfg)
         state = meta_init(lambda: steps_lib.init_train_state(
             cfg, ocfg, 0, device="cpu"))
-        n_params = _n(state.params)
+        n_params = count_params(state.params)
         step = steps_lib.make_train_step(
             cfg, ocfg, microbatches=8 if opt == "microbatch" else 1,
             mesh=mesh)
@@ -251,7 +245,7 @@ def build_cell(cfg: ModelConfig, shape: shapes_lib.ShapeSpec, mesh,
     # prepared (init_weights draws them so), the DiT family's in the
     # activation dtype
     params = meta_init(lambda: steps_lib.init_model_params(cfg, 0, "cpu"))
-    n_params = _n(params)
+    n_params = count_params(params)
     if cfg.family in tf_lib.FAMILIES:
         params = meta_init(lambda: tf_lib.init_weights(cfg, 0, "cpu"))
     elif cfg.family == "dit":

@@ -16,6 +16,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.tree import tree_leaves
+
 Params = Dict[str, Any]
 
 
@@ -220,3 +222,9 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if cap <= 0:
         return x
     return cap * torch.tanh(x / cap)
+
+
+def count_params(params) -> int:
+    """Elements over the tensors of a param tree (meta tensors too)."""
+    return sum(p.numel() for p in tree_leaves(params)
+               if isinstance(p, torch.Tensor))

@@ -49,13 +49,11 @@ ALLOWED = {
         "(``PhiloxFlipSource``, ``draw_flips``) and ``ExecContext`` xor",
     ("core/fault.py", "site_key"):
         "JAX-only: a threefry key chain; ``PhiloxFlipSource.seed_for``",
-    ("core/fault.py", "inject_at"): f"queued: ROADMAP {QUEUED_ROW}",
     ("core/quant.py", "int32_matmul"):
         "inlined: the int8 products of ``kernels.abft_matmul`` and "
         "``kernels.ops.drift_gemm_fused``",
     ("core/quant.py", "quantized_matmul"):
         "inlined: ``ExecContext.matmul`` and ``kernels.ops.drift_gemm``",
-    ("core/quant.py", "quant_error_bound"): f"queued: ROADMAP {QUEUED_ROW}",
     ("core/rollback.py", "correct"):
         "inlined: ``rollback.effective_checkpoint`` and the rollback "
         "kernels' splice",
@@ -64,7 +62,6 @@ ALLOWED = {
         "(``dit.drift_store_spec``, ``sampler.init_stores``)",
     ("core/rollback.py", "update_store"):
         "inlined: ``ExecContext`` refreshes the store in place",
-    ("core/rollback.py", "store_bytes"): f"queued: ROADMAP {QUEUED_ROW}",
     ("diffusion/sampler.py", "make_sampler"):
         "JAX-only: a ``jit`` factory; the engine calls ``sample`` and "
         "``sample_stream``",
@@ -84,7 +81,6 @@ ALLOWED = {
         "a list of layers",
     ("models/common.py", "stack_layer_params"):
         "JAX-only: stacked layers for ``lax.scan``",
-    ("models/common.py", "count_params"): f"queued: ROADMAP {QUEUED_ROW}",
     ("models/transformer.py", "init_layer"):
         "inlined: ``transformer.init_params`` draws every layer",
     ("perfmodel/hw.py", "TpuV5e"):

@@ -23,7 +23,9 @@ agree within the same 1e-4 as the faulty ones.
 Also here: the metrics ``ssim``, ``clip_proxy`` and ``fid_proxy`` against
 the reference's, ``dvfs.uniform_schedule``, ``dvfs.pareto_sweep`` and
 ``fault.expected_flips`` ``==`` the reference's, and each probe's CLI at
-SMOKE on the CPU printing the reference's CSV lines.
+SMOKE on the CPU printing the reference's CSV lines (the sweeps at
+``N_STEPS``, ``selfheal`` at the reference's 10). Why the parity tests
+stop at 4 steps: ``tests/test_torch_resilience_trace.py``.
 """
 import functools
 import inspect
@@ -62,6 +64,17 @@ from test_torch_core import JaxReplayFlipSource            # noqa: E402
 ARCH = "dit-xl-512"
 N_STEPS = 4                 # denoising steps on both sides
 RTOL, ATOL, PSNR_DB, TRAJ_ATOL = 1e-3, 1e-6, 0.01, 1e-4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one thread: the SMOKE ops are too small to split, and with
+    other test processes on the cores they spend most of their time
+    waiting on the pool's threads (the CLIs 3x slower on eight)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -286,13 +299,25 @@ def test_heal_summary():
 
 
 # ------------------------------------------------------------ the CLIs
+@pytest.fixture
+def cli(monkeypatch):
+    """The CLIs as they run, at ``N_STEPS`` denoising steps (their lines'
+    format and names do not depend on the step count): ``bit_sweep``,
+    ``step_sweep`` and ``block_sweep`` bind ``n_steps=STEPS`` when they
+    are defined, so each is replaced by itself at ``N_STEPS``.
+    ``selfheal`` keeps the reference's 10."""
+    for name in ("bit_sweep", "step_sweep", "block_sweep"):
+        monkeypatch.setattr(rs, name, functools.partial(getattr(rs, name),
+                                                        n_steps=N_STEPS))
+
+
 _NUM = r"(-?\d+\.\d{4}|nan|-?inf)"
 _CLI = {
     "bits": (fig4, "# fig4: bit,lpips,psnr",
              [f"fig4_bit{b:02d}" for b in fig4.BITS],
              rf"^(\w+),\d+\.\d,lpips={_NUM} psnr=(-?\d+\.\d\d|nan|-?inf)$"),
     "steps": (fig5, "# fig5: inject_step,lpips,psnr",
-              [f"fig5_step{s}" for s in range(0, common.N_STEPS, 2)],
+              [f"fig5_step{s}" for s in range(0, N_STEPS, 2)],
               rf"^(\w+),\d+\.\d,lpips={_NUM} psnr=(-?\d+\.\d\d|nan|-?inf)$"),
     "blocks": (fig6, "# fig6: site,lpips,psnr", None,
                rf"^(\w+),\d+\.\d,lpips={_NUM}$"),
@@ -300,10 +325,10 @@ _CLI = {
 
 
 @pytest.mark.parametrize("probe", ["bits", "steps", "blocks"])
-def test_probe_cli_prints_reference_lines(probe, capsys):
+def test_probe_cli_prints_reference_lines(probe, cli, capsys):
     """``--probe`` at SMOKE on the CPU: the reference's header (as its
     source prints it) and one ``name,us,derived`` line per point, named
-    as the reference names them."""
+    as the reference names them (the steps probe's at ``N_STEPS``)."""
     mod, header, names, pattern = _CLI[probe]
     if names is None:
         n_layers = configs.get_config(ARCH, smoke=True).n_layers
@@ -315,7 +340,7 @@ def test_probe_cli_prints_reference_lines(probe, capsys):
     assert len(rows) == len(names)
 
 
-def test_selfheal_cli_prints_reference_lines(capsys):
+def test_selfheal_cli_prints_reference_lines(cli, capsys):
     trajs = rs.main(["--probe", "selfheal", "--device", "cpu"])
     lines = capsys.readouterr().out.strip().splitlines()
     header = "# fig7: step,clean,small_err,large_err (pixel [0,4,4,0])"
